@@ -1,0 +1,172 @@
+"""Host-side data pipeline: decode-once cache, batching, working labels.
+
+An own copy of ``aide_tpu.data.pipeline`` for one device. Every slice is
+decoded, resized and reduced ONCE to uint8 pixels plus per-image affine
+normalization coefficients (normalized = u8 * scale + fill, applied on the
+device by ``engine.steps.batch_images``); epochs only index into the arrays.
+``to_device`` uploads them once and gathers each batch on the device by
+index. The per-net working labels live in a LabelStore, which starts from
+the targets and takes any refreshed labels already mirrored to disk.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from aide_tpu_torch.data.tasks.base import SliceSpec, Task, resize_image, resize_mask
+
+
+class LabelStore:
+    """Per-net working labels (N, H, W), read back from the task's disk
+    mirror where it holds them. (Refreshing them comes with the label
+    refresh, which is not ported yet.)"""
+
+    def __init__(self, task: Task, specs: Sequence[SliceSpec], targets: np.ndarray):
+        size = targets.shape[1]
+        self.labels = [targets.copy(), targets.copy()]  # net 1, net 2
+        # pick up refreshed labels already on disk (resume / interop)
+        for net in (1, 2):
+            for i, spec in enumerate(specs):
+                disk = task.read_tempmask(spec, net)
+                if disk is not None:
+                    if disk.shape != targets.shape[1:]:
+                        disk = resize_mask(disk, size)
+                    self.labels[net - 1][i] = disk
+
+    def get(self, net: int) -> np.ndarray:
+        return self.labels[net - 1]
+
+
+def _widen_targets(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    for k in ("target", "target1", "target2"):
+        if k in batch:
+            batch[k] = batch[k].to(torch.int64)
+    return batch
+
+
+class SlicePipeline:
+    def __init__(
+        self,
+        task: Task,
+        specs: Sequence[SliceSpec],
+        img_size: int,
+        data_mean: Optional[Sequence[float]] = None,
+        data_std: Optional[Sequence[float]] = None,
+        working_labels: bool = False,
+    ):
+        self.task = task
+        self.specs = list(specs)
+        self.img_size = img_size
+        n = len(self.specs)
+        if n == 0:
+            raise ValueError("empty manifest")
+        n_mod = 2 if task.two_modal else 1
+        self.images = [np.zeros((n, img_size, img_size, 3), np.uint8) for _ in range(n_mod)]
+        self.scales = [np.zeros((n, 3), np.float32) for _ in range(n_mod)]
+        self.fills = [np.zeros((n, 3), np.float32) for _ in range(n_mod)]
+        self.targets = np.zeros((n, img_size, img_size), np.uint8)
+
+        fixed = data_mean is not None
+        mean_arr = np.asarray(data_mean, np.float32) if fixed else None
+        std_arr = np.asarray(data_std, np.float32) if fixed else None
+        for i, spec in enumerate(self.specs):
+            imgs, mask = task.decode(spec)
+            for m, img in enumerate(imgs):
+                resized_u8 = resize_image(img, img_size).astype(np.uint8)
+                resized = resized_u8.astype(np.float32) / 255.0
+                if fixed:
+                    mean, std = mean_arr, std_arr
+                else:
+                    # per-image channel stats, N-1 std (torch's estimator)
+                    mean = resized.mean(axis=(0, 1))
+                    std = resized.std(axis=(0, 1), ddof=1)
+                std = np.maximum(std, 1e-6)
+                self.images[m][i] = resized_u8
+                self.scales[m][i] = 1.0 / (255.0 * std)
+                self.fills[m][i] = -mean / std
+            self.targets[i] = resize_mask(mask, img_size)
+
+        self.case_slices: Dict[str, List[int]] = {}
+        for i, spec in enumerate(self.specs):
+            self.case_slices.setdefault(spec.case_id, []).append(i)
+        for idxs in self.case_slices.values():
+            idxs.sort(key=lambda i: self.specs[i].sort_key)
+        self.cases = list(self.case_slices)
+        self.labels: Optional[LabelStore] = (
+            LabelStore(task, self.specs, self.targets) if working_labels else None
+        )
+        self._device_data: Optional[Dict[str, torch.Tensor]] = None
+        self._device_labels: Optional[Dict[str, torch.Tensor]] = None
+
+    def __len__(self) -> int:
+        return len(self.specs)
+
+    # ------------------------- device residency -------------------------
+
+    def _host_arrays(self) -> Dict[str, np.ndarray]:
+        if self.task.two_modal:
+            return {
+                "modal1": self.images[0], "modal2": self.images[1],
+                "scale1": self.scales[0], "scale2": self.scales[1],
+                "fill1": self.fills[0], "fill2": self.fills[1],
+                "target": self.targets,
+            }
+        return {
+            "image": self.images[0], "scale": self.scales[0],
+            "fill": self.fills[0], "target": self.targets,
+        }
+
+    def to_device(self, device) -> None:
+        """Upload the decode-once cache and the working labels to ``device``
+        ONCE (uint8 pixels and targets, f32 coefficients); later batches are
+        gathered there by index, so an epoch moves only index vectors to the
+        device."""
+        self._device_data = {
+            k: torch.from_numpy(v).to(device) for k, v in self._host_arrays().items()
+        }
+        if self.labels is not None:
+            self._device_labels = {
+                f"target{net}": torch.from_numpy(self.labels.get(net)).to(device)
+                for net in (1, 2)
+            }
+
+    # ------------------------- batching -------------------------
+
+    def _batch_from(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
+        if self._device_data is not None:
+            data = dict(self._device_data)
+            if self._device_labels is not None:
+                data.update(self._device_labels)
+            device = data["target"].device
+            i = torch.from_numpy(np.asarray(idx, np.int64)).to(device)
+            return _widen_targets({k: v.index_select(0, i) for k, v in data.items()})
+        batch = {k: torch.from_numpy(v[idx]) for k, v in self._host_arrays().items()}
+        if self.labels is not None:
+            batch["target1"] = torch.from_numpy(self.labels.get(1)[idx])
+            batch["target2"] = torch.from_numpy(self.labels.get(2)[idx])
+        return _widen_targets(batch)
+
+    def batches(
+        self,
+        batch_size: int,
+        rng: Optional[np.random.Generator] = None,
+        shuffle: bool = True,
+        drop_last: bool = True,
+    ):
+        """Epoch iterator: shuffle with ``rng`` and drop the ragged tail."""
+        n = len(self.specs)
+        order = np.arange(n)
+        if shuffle:
+            if rng is None:
+                rng = np.random.default_rng(0)
+            rng.shuffle(order)
+        end = (n // batch_size) * batch_size if drop_last else n
+        for s in range(0, end, batch_size):
+            yield self._batch_from(order[s : s + batch_size])
+
+    def steps_per_epoch(self, batch_size: int, drop_last: bool = True) -> int:
+        n = len(self.specs)
+        return n // batch_size if drop_last else -(-n // batch_size)

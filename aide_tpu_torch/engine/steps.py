@@ -1,0 +1,170 @@
+"""The co-teaching train step and the dual eval step.
+
+``make_coteach_train_step`` is the counterpart of
+``aide_tpu.engine.steps.make_coteach_train_step``, in this order: TTA views
+of both modalities (one warp each) -> both nets' view forwards (views folded
+into the batch; train-mode BN that leaves the running stats alone) -> one
+inverse warp over both nets' views -> f32 softmax average, sharpen,
+weightmap -> the main forwards -> per-image loss ranking -> cross small-loss
+split -> seg + confidence-weighted consistency losses -> one backward over
+both nets -> one AMSGrad update. The cross terms (pseudo-labels, weightmaps,
+ranking order) are detached, so one backward of loss1 + loss2 gives each
+net exactly its own gradient.
+
+The view parameters come in as arguments (the trainer draws them), so a
+test can hand the step the JAX package's stream.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from aide_tpu_torch.core.config import TrainConfig
+from aide_tpu_torch.engine.state import DualTrainState
+from aide_tpu_torch.ops import losses, metrics, tta
+
+
+def batch_images(batch: Dict[str, torch.Tensor], two_modal: bool) -> Tuple[torch.Tensor, ...]:
+    """Batch images, normalized on the device when shipped as uint8:
+    u8 * scale + fill per image and channel. Float images pass unchanged."""
+    names = ("modal1", "modal2") if two_modal else ("image",)
+    suffixes = ("1", "2") if two_modal else ("",)
+    out = []
+    for name, suf in zip(names, suffixes):
+        img = batch[name]
+        if img.dtype == torch.uint8:
+            img = (
+                img.to(torch.float32) * batch[f"scale{suf}"][:, None, None, :]
+                + batch[f"fill{suf}"][:, None, None, :]
+            )
+        out.append(img)
+    return tuple(out)
+
+
+def batch_fills(batch: Dict[str, torch.Tensor], two_modal: bool) -> Tuple[torch.Tensor, ...]:
+    if two_modal:
+        return (batch["fill1"], batch["fill2"])
+    return (batch["fill"],)
+
+
+def make_image_criterion(cfg: TrainConfig):
+    """Per-image loss vector (CE + Dice) used for ranking."""
+    ct = cfg.coteach
+    return lambda logits, t: losses.cem_dice_loss_image(
+        logits,
+        t,
+        cedice_weight=ct.cedice_weight,
+        ceclass_weight=ct.ceclass_weight,
+        diceclass_weight=ct.diceclass_weight,
+    )
+
+
+def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
+    """step(state, batch, degrees, hflip, rate) -> metrics; updates
+    ``state`` in place (parameters, BN running stats, optimizer moments).
+    degrees/hflip are (V, B) on the batch's device."""
+    image_criterion = make_image_criterion(cfg)
+    ct = cfg.coteach
+    if ct.tta_bn not in ("batch", "running"):
+        raise ValueError(f"unknown coteach.tta_bn {ct.tta_bn!r}")
+    num_views = cfg.data.num_tta_views
+    thr = cfg.eval.threshold
+    wm = cfg.data.warp_method
+
+    def step(state: DualTrainState, batch, degrees, hflip, rate) -> Dict[str, torch.Tensor]:
+        images = batch_images(batch, two_modal)
+        fills = batch_fills(batch, two_modal)
+        t1, t2 = batch["target1"], batch["target2"]
+        b = t1.shape[0]
+        k_clean = max(1, min(b - 1, int(round(ct.clean_fraction * b))))
+        if tuple(degrees.shape) != (num_views, b):
+            raise ValueError(f"view params must be ({num_views}, {b}), got {tuple(degrees.shape)}")
+        net1, net2 = state.nets
+
+        # ---- TTA pseudo-labels: both nets, all views, no gradient ----
+        with torch.no_grad():
+            flat_views = tuple(
+                tta.make_views(img, degrees, hflip, fill, method=wm).reshape(
+                    (num_views * b,) + tuple(img.shape[1:])
+                )
+                for img, fill in zip(images, fills)
+            )
+            state.train(ct.tta_bn == "batch")
+            view_logits = torch.cat(
+                [net(*flat_views, update_stats=False) for net in state.nets]
+            )  # (2*V*B, H, W, C): net-major, then view, then image
+            flat = view_logits.reshape((2 * num_views, b) + tuple(view_logits.shape[1:]))
+            inv = tta.invert_views(
+                flat, torch.cat([degrees, degrees]), torch.cat([hflip, hflip]), method=wm
+            )
+            probs = torch.softmax(inv.to(torch.float32), dim=-1)
+            avg = probs.reshape((2, num_views, b) + tuple(probs.shape[2:])).mean(dim=1)
+            pseudo = tta.sharpen(avg, ct.temperature, ct.sharpen_mode)
+            wmap = tta.confidence_weightmap(pseudo)
+
+        # ---- coupled main forwards, one backward over both nets ----
+        state.train(True)
+        out1 = net1(*images)
+        out2 = net2(*images)
+        # net k scored against the OTHER net's working labels
+        pre1 = image_criterion(out1, t2)
+        pre2 = image_criterion(out2, t1)
+        order1 = torch.argsort(pre1.detach(), stable=True)
+        order2 = torch.argsort(pre2.detach(), stable=True)
+
+        def side(pre, out, order_other, pseudo_other, wmap_other):
+            clean = order_other[:k_clean]
+            seg = pre[clean].mean()
+            if k_clean < b:
+                # b and k_clean are fixed per batch size: with b == 1 there
+                # is no suspect share (its mean would be NaN)
+                suspect = order_other[k_clean:]
+                seg = seg + (1.0 - rate) * pre[suspect].mean()
+                cons_map = wmap_other * losses.multiclass_mse_loss(
+                    out, pseudo_other, reduction="none"
+                )
+                cons = cons_map.mean(dim=(1, 2, 3))[suspect].mean()
+            else:
+                cons = torch.zeros((), dtype=seg.dtype, device=seg.device)
+            return ct.seg_weight * seg + ct.consistency_weight * rate * cons
+
+        loss1 = side(pre1, out1, order2, pseudo[1], wmap[1])
+        loss2 = side(pre2, out2, order1, pseudo[0], wmap[0])
+        state.optimizer.zero_grad(set_to_none=True)
+        (loss1 + loss2).backward()
+        state.optimizer.step()
+        with torch.no_grad():
+            return {
+                "loss1": loss1.detach(),
+                "loss2": loss2.detach(),
+                "dice1_sum": metrics.dice_fn(out1, t2, threshold=thr),
+                "dice2_sum": metrics.dice_fn(out2, t1, threshold=thr),
+                "count": torch.tensor(float(b), device=loss1.device),
+            }
+
+    return step
+
+
+def make_eval_step(two_modal: bool, cfg: TrainConfig):
+    """Dual test-batch loss/dice without gradients, eval-mode BN: net k
+    against the other's working labels."""
+    image_criterion = make_image_criterion(cfg)
+    thr = cfg.eval.threshold
+
+    @torch.no_grad()
+    def step(state: DualTrainState, batch) -> Dict[str, torch.Tensor]:
+        images = batch_images(batch, two_modal)
+        t1, t2 = batch["target1"], batch["target2"]
+        state.train(False)
+        out1, out2 = (net(*images) for net in state.nets)
+        return {
+            "loss1": image_criterion(out1, t2).mean(),
+            "loss2": image_criterion(out2, t1).mean(),
+            "dice1_sum": metrics.dice_fn(out1, t2, threshold=thr),
+            "dice2_sum": metrics.dice_fn(out2, t1, threshold=thr),
+            "count": torch.tensor(float(t1.shape[0]), device=out1.device),
+        }
+
+    return step
