@@ -1,9 +1,10 @@
-// Fused TTA rotate/flip warp for Hopper (sm_90a).
+// Fused TTA rotate/flip warp for Hopper (sm_90a), tiled through shared memory.
 //
 // Replaces the TPU kernel aide_tpu/ops/pallas_warp.py::_warp_kernel. The
-// design note (what bounds it, why one thread per output pixel) is in
-// aide_tpu_torch/ops/cuda_warp.py; warp_plain there is the same function in
-// plain PyTorch, with the same index math and operation order.
+// design note (what bounds it, why the source box of each output tile is
+// staged in shared memory) is in aide_tpu_torch/ops/cuda_warp.py; warp_plain
+// there is the same function in plain PyTorch, with the same index math and
+// operation order, and source_boxes the per-tile box this kernel stages.
 //
 // Layout: in/out (N, S, S, C) float32, NHWC, contiguous. table (N, 4) f32:
 // [lam_x = -tan(theta/2), lam_y = sin(theta), n90 in {-1, 0, 1}, flip in
@@ -16,13 +17,38 @@
 // lam_x*(row - c). A tap outside [0, S-1] at any stage IS the fill value;
 // it is never computed from the stage before.
 //
+// One block per kTile x kTile output tile of one image, kTile x kRows
+// threads; a warp is one output row of the tile, each thread kTile / kRows
+// rows of one column.
+//   A. Every thread runs the 8-tap index math of its pixels and keeps the
+//      min/max source row and column over the taps it will read; warp
+//      shuffles and shared memory reduce them to the tile's exact source box.
+//   B. The block copies the box into shared memory in the source's own NHWC
+//      layout: a box row is one contiguous run of box_w*C floats in device
+//      memory whatever n90 and the flip are, so the copy is coalesced.
+//   C. Each thread recomputes its taps, reads them from shared memory and
+//      runs the three lerps in the same order as before.
+// The box of a tile cannot exceed kBoxSide on a side for residual angles
+// |theta| <= 90 degrees (cuda_warp.box_side derives it; the CPU tests check
+// it against every tile's exact box). A larger box traps: there is no path
+// that reads the taps from device memory instead.
+//
 // Build with -fmad=false so that d = lam*(j - c) and the lerps round as the
 // plain version's separate multiplies and adds do.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kTile = 32;     // output tile side; cuda_warp.TILE
+constexpr int kRows = 8;      // threads along y; each thread does kTile / kRows rows
+constexpr int kBoxSide = 50;  // bound on a tile's source box side; cuda_warp.BOX_SIDE
+
+// Row pitch of the staged box in floats: odd, so that neighbouring box rows
+// start in different banks.
+__host__ __device__ __forceinline__ int box_pitch(int c) { return (kBoxSide * c) | 1; }
 
 struct Split {
   int k;     // floor(d)
@@ -44,100 +70,213 @@ __device__ __forceinline__ float lerp(float f, float a, float b) {
   return (1.0f - f) * a + f * b;
 }
 
-__global__ void warp_rotate_flip_kernel(const float* __restrict__ in,
-                                        float* __restrict__ out,
-                                        const float* __restrict__ table,
-                                        const float* __restrict__ fill,
-                                        int n_img, int s, int c, int inverse) {
-  const int64_t plane = (int64_t)s * s;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)n_img * plane) return;
-  const int n = (int)(idx / plane);
-  const int y = (int)((idx / s) % s);
-  const int x = (int)(idx % s);
+// The 8 taps of output pixel (y, xo): stage 3 taps x3[t3] on row y; stage 2
+// taps y2[t3][t2] on column x3; stage 1 taps x1[t3][t2][t1] on row y2. A
+// tap is read only when rd[t3][t2][t1]: it and the stages above it are
+// inside the image.
+struct Taps {
+  Split s3;
+  bool v3[2], v2[2][2], rd[2][2][2];
+  float f2[2], f1[2][2];
+  int y2[2][2], x1[2][2][2];
+};
 
+__device__ __forceinline__ void taps(Taps& t, int y, int xo, float lam_x, float lam_y,
+                                     float cen, int s) {
+  t.s3 = split(lam_x, y, cen);
+#pragma unroll
+  for (int t3 = 0; t3 < 2; ++t3) {
+    const int x3 = xo + t.s3.k + t3;
+    t.v3[t3] = inside(x3, s);
+    const Split s2 = split(lam_y, x3, cen);
+    t.f2[t3] = s2.f;
+#pragma unroll
+    for (int t2 = 0; t2 < 2; ++t2) {
+      const int y2 = y + s2.k + t2;
+      t.y2[t3][t2] = y2;
+      t.v2[t3][t2] = inside(y2, s);
+      const Split s1 = split(lam_x, y2, cen);
+      t.f1[t3][t2] = s1.f;
+#pragma unroll
+      for (int t1 = 0; t1 < 2; ++t1) {
+        const int x1 = x3 + s1.k + t1;
+        t.x1[t3][t2][t1] = x1;
+        t.rd[t3][t2][t1] = t.v3[t3] && t.v2[t3][t2] && inside(x1, s);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTile * kRows)
+warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
+                        const float* __restrict__ table, const float* __restrict__ fill,
+                        int s, int c, int inverse) {
+  extern __shared__ float box[];
+  __shared__ int partial[4][kRows];
+
+  const int n = blockIdx.z;
+  const int ty0 = blockIdx.y * kTile;
+  const int x = blockIdx.x * kTile + threadIdx.x;
   const float lam_x = table[4 * n + 0];
   const float lam_y = table[4 * n + 1];
   const int n90 = (int)table[4 * n + 2];
   const bool flip = table[4 * n + 3] > 0.5f;
   const float cen = (float)(s - 1) * 0.5f;
-
   const int xo = (!inverse && flip) ? s - 1 - x : x;
 
-  // Stage 3 taps x3[t3] on row y; stage 2 taps y2[t3][t2] on column x3;
-  // stage 1 taps x1[t3][t2][t1] on row y2. Offsets of the 8 source pixels
-  // (in units of pixels) and every stage's validity, shared by all channels.
-  const Split s3 = split(lam_x, y, cen);
-  bool v3[2], v2[2][2], v1[2][2][2];
-  float f2[2], f1[2][2];
-  int64_t off[2][2][2];
-  for (int t3 = 0; t3 < 2; ++t3) {
-    const int x3 = xo + s3.k + t3;
-    v3[t3] = inside(x3, s);
-    const Split s2 = split(lam_y, x3, cen);
-    f2[t3] = s2.f;
-    for (int t2 = 0; t2 < 2; ++t2) {
-      const int y2 = y + s2.k + t2;
-      v2[t3][t2] = inside(y2, s);
-      const Split s1 = split(lam_x, y2, cen);
-      f1[t3][t2] = s1.f;
-      for (int t1 = 0; t1 < 2; ++t1) {
-        const int x1 = x3 + s1.k + t1;
-        v1[t3][t2][t1] = inside(x1, s);
-        // u(i, j) = v(r, col): rot90 folded into the index
-        int r, col;
-        if (n90 == 1) {
-          r = x1; col = s - 1 - y2;
-        } else if (n90 == -1) {
-          r = s - 1 - x1; col = y2;
-        } else {
-          r = y2; col = x1;
+  // A. bounds of the read taps in u's coordinates (row y2, column x1)
+  int lo_y = INT_MAX, hi_y = INT_MIN, lo_x = INT_MAX, hi_x = INT_MIN;
+  for (int i = threadIdx.y; i < kTile; i += kRows) {
+    const int y = ty0 + i;
+    if (y >= s || x >= s) break;
+    Taps t;
+    taps(t, y, xo, lam_x, lam_y, cen, s);
+#pragma unroll
+    for (int t3 = 0; t3 < 2; ++t3)
+#pragma unroll
+      for (int t2 = 0; t2 < 2; ++t2)
+#pragma unroll
+        for (int t1 = 0; t1 < 2; ++t1) {
+          if (!t.rd[t3][t2][t1]) continue;
+          lo_y = min(lo_y, t.y2[t3][t2]);
+          hi_y = max(hi_y, t.y2[t3][t2]);
+          lo_x = min(lo_x, t.x1[t3][t2][t1]);
+          hi_x = max(hi_x, t.x1[t3][t2][t1]);
         }
-        if (inverse && flip) col = s - 1 - col;
-        r = min(max(r, 0), s - 1);
-        col = min(max(col, 0), s - 1);
-        off[t3][t2][t1] = ((int64_t)n * s + r) * s + col;
-      }
+  }
+  lo_y = __reduce_min_sync(0xffffffffu, lo_y);
+  hi_y = __reduce_max_sync(0xffffffffu, hi_y);
+  lo_x = __reduce_min_sync(0xffffffffu, lo_x);
+  hi_x = __reduce_max_sync(0xffffffffu, hi_x);
+  if (threadIdx.x == 0) {
+    partial[0][threadIdx.y] = lo_y;
+    partial[1][threadIdx.y] = hi_y;
+    partial[2][threadIdx.y] = lo_x;
+    partial[3][threadIdx.y] = hi_x;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kRows; ++w) {
+    lo_y = min(lo_y, partial[0][w]);
+    hi_y = max(hi_y, partial[1][w]);
+    lo_x = min(lo_x, partial[2][w]);
+    hi_x = max(hi_x, partial[3][w]);
+  }
+  const int pitch = box_pitch(c);
+  int r0 = 0, c0 = 0;
+  if (lo_x <= hi_x) {  // else no tap is read: the whole tile lies in the fill
+    // u(i, j) = v(r, col): rot90 and the inverse's hflip reflect and
+    // transpose the index, so the box of (y2, x1) maps to a box of (r, col)
+    int r1, c1;
+    if (n90 == 1) {
+      r0 = lo_x; r1 = hi_x; c0 = s - 1 - hi_y; c1 = s - 1 - lo_y;
+    } else if (n90 == -1) {
+      r0 = s - 1 - hi_x; r1 = s - 1 - lo_x; c0 = lo_y; c1 = hi_y;
+    } else {
+      r0 = lo_y; r1 = hi_y; c0 = lo_x; c1 = hi_x;
+    }
+    if (inverse && flip) {
+      const int t = c0;
+      c0 = s - 1 - c1;
+      c1 = s - 1 - t;
+    }
+    if (r1 - r0 + 1 > kBoxSide || c1 - c0 + 1 > kBoxSide) __trap();
+
+    // B. stage the box: warp w copies box rows w, w + kRows, ...
+    const int row_len = (c1 - c0 + 1) * c;
+    const float* src = in + (((int64_t)n * s + r0) * s + c0) * c;
+    for (int row = threadIdx.y; row <= r1 - r0; row += kRows) {
+      const float* g = src + (int64_t)row * s * c;
+      float* d = box + row * pitch;
+#pragma unroll 4
+      for (int k = threadIdx.x; k < row_len; k += kTile) d[k] = __ldg(g + k);
     }
   }
+  __syncthreads();
 
-  float* dst = out + idx * c;
-  for (int ch = 0; ch < c; ++ch) {
-    const float fl = fill[(int64_t)n * c + ch];
-    float s2v[2];
-    for (int t3 = 0; t3 < 2; ++t3) {
-      if (!v3[t3]) {
-        s2v[t3] = fl;
-        continue;
-      }
-      float s1v[2];
-      for (int t2 = 0; t2 < 2; ++t2) {
-        if (!v2[t3][t2]) {
-          s1v[t2] = fl;
+  // C. gather the taps from the box and lerp, in the plain version's order
+  for (int i = threadIdx.y; i < kTile; i += kRows) {
+    const int y = ty0 + i;
+    if (y >= s || x >= s) break;
+    Taps t;
+    taps(t, y, xo, lam_x, lam_y, cen, s);
+    int off[2][2][2];
+#pragma unroll
+    for (int t3 = 0; t3 < 2; ++t3)
+#pragma unroll
+      for (int t2 = 0; t2 < 2; ++t2)
+#pragma unroll
+        for (int t1 = 0; t1 < 2; ++t1) {
+          const int y2 = t.y2[t3][t2], x1 = t.x1[t3][t2][t1];
+          int r, col;
+          if (n90 == 1) {
+            r = x1; col = s - 1 - y2;
+          } else if (n90 == -1) {
+            r = s - 1 - x1; col = y2;
+          } else {
+            r = y2; col = x1;
+          }
+          if (inverse && flip) col = s - 1 - col;
+          off[t3][t2][t1] = (r - r0) * pitch + (col - c0) * c;
+        }
+
+    float* dst = out + (((int64_t)n * s + y) * s + x) * c;
+    for (int ch = 0; ch < c; ++ch) {
+      const float fl = fill[n * c + ch];
+      float s2v[2];
+#pragma unroll
+      for (int t3 = 0; t3 < 2; ++t3) {
+        if (!t.v3[t3]) {
+          s2v[t3] = fl;
           continue;
         }
-        const float a = v1[t3][t2][0] ? __ldg(in + off[t3][t2][0] * c + ch) : fl;
-        const float b = v1[t3][t2][1] ? __ldg(in + off[t3][t2][1] * c + ch) : fl;
-        s1v[t2] = lerp(f1[t3][t2], a, b);
+        float s1v[2];
+#pragma unroll
+        for (int t2 = 0; t2 < 2; ++t2) {
+          if (!t.v2[t3][t2]) {
+            s1v[t2] = fl;
+            continue;
+          }
+          const float a = t.rd[t3][t2][0] ? box[off[t3][t2][0] + ch] : fl;
+          const float b = t.rd[t3][t2][1] ? box[off[t3][t2][1] + ch] : fl;
+          s1v[t2] = lerp(t.f1[t3][t2], a, b);
+        }
+        s2v[t3] = lerp(t.f2[t3], s1v[0], s1v[1]);
       }
-      s2v[t3] = lerp(f2[t3], s1v[0], s1v[1]);
+      dst[ch] = lerp(t.s3.f, s2v[0], s2v[1]);
     }
-    dst[ch] = lerp(s3.f, s2v[0], s2v[1]);
   }
 }
 
 }  // namespace
+
+// Dynamic shared memory of one block for C channels, in bytes.
+extern "C" int warp_rotate_flip_smem_bytes(int c) {
+  return kBoxSide * box_pitch(c) * (int)sizeof(float);
+}
+
+// Tile side and box bound the kernel was built with, for the wrapper to
+// check against its own.
+extern "C" void warp_rotate_flip_geometry(int* tile, int* box_side) {
+  *tile = kTile;
+  *box_side = kBoxSide;
+}
 
 // Plain C entry point (loaded with ctypes). Launches on `stream`, does not
 // synchronise, allocates nothing; returns cudaGetLastError() of the launch.
 extern "C" int warp_rotate_flip_f32(const void* in, void* out, const void* table,
                                     const void* fill, int n_img, int s, int c,
                                     int inverse, void* stream) {
-  const int64_t total = (int64_t)n_img * s * s;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  warp_rotate_flip_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)in, (float*)out, (const float*)table, (const float*)fill, n_img,
-      s, c, inverse);
+  const int smem = warp_rotate_flip_smem_bytes(c);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        warp_rotate_flip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int tiles = (s + kTile - 1) / kTile;
+  const dim3 grid(tiles, tiles, n_img);
+  const dim3 block(kTile, kRows);
+  warp_rotate_flip_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      (const float*)in, (float*)out, (const float*)table, (const float*)fill, s, c, inverse);
   return (int)cudaGetLastError();
 }

@@ -9,21 +9,30 @@ fill value outside the source at every stage, and an hflip. Forward order:
 rot90, shear, hflip. Inverse order (theta negated before rot90 is chosen):
 hflip, rot90, shear.
 
-What bounds it on an H100: device-memory bytes. Each output pixel is a
-fixed composition of three lerps, 2 taps a stage, so 8 source reads and a
-few dozen flops per channel; one input read and one output write per
+What bounds it on an H100: device-memory bytes at best. Each output pixel
+is a fixed composition of three lerps, 2 taps a stage, so 8 source reads
+and a few dozen flops per channel; one input read and one output write per
 element is the floor. At the CHAOS point one co-teaching step warps
 2 x (32, 256, 256, 3) f32 forward and (64, 256, 256, 2) f32 inverse:
 2 x (25.2 + 25.2) MB + (33.6 + 33.6) MB = 168 MB.
 
 What the design does about it: the Pallas body keeps a whole (H, W) slice
 in VMEM and shears it with log2(N) masked rolls; a 256^2 f32 slice (256 KiB)
-does not fit a block's 227 KB of shared memory, and 512 px slices are 1 MiB.
-So the kernel computes each output pixel (n, y, x) directly, one thread per
-pixel looping over C, from the 8 source taps, which neighbouring threads
-share through L1/L2. rot90, hflip and the NHWC<->NCHW transposes of the
-Pallas wrapper fold into the source index math: the kernel reads and writes
-NHWC (the memory of a channels_last NCHW tensor) with no copy.
+does not fit a block's 227 KB of shared memory. A first kernel computed
+each output pixel in its own thread from 8 taps read straight from device
+memory; a warp's taps lie along the rotated direction of the source (down
+a source column when the rot90 is folded in), so it was bound by scattered
+load issue, not bytes. The kernel now takes one block per 32 x 32 output
+tile: it reduces the exact box of source pixels that the tile's taps read
+(at most BOX_SIDE on a side, about 2.2x the tile at 45 degrees), copies that
+box into shared memory with coalesced loads (a box row is one contiguous
+run of the NHWC source whatever the rot90 and flip are), then gathers the
+taps from shared memory. A warp is one output row, so its stores are one
+contiguous run. rot90, hflip and the NHWC<->NCHW transposes of the Pallas
+wrapper fold into the index math: the kernel reads and writes NHWC (the
+memory of a channels_last NCHW tensor) with no copy. ``source_boxes`` is
+the tile boxes in plain PyTorch, from the same index math as
+``warp_plain``.
 
 ``warp_rotate_flip`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs ``warp_plain``, the same 8-tap function in
@@ -37,11 +46,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -63,6 +73,47 @@ NVCC_FLAGS = (
     # round exactly as the plain version's separate multiply and add
     "-fmad=false",
 )
+
+# Output tile side of the kernel and the bound on the side of a tile's source
+# box (kTile and kBoxSide in the source; the loaded library is checked
+# against both).
+TILE = 32
+# Dynamic shared memory a block may have on an H100 (227 KB).
+SMEM_LIMIT = 232448
+# The grid's z dimension is the image index.
+MAX_IMAGES = 65535
+
+
+def box_side(tile: int = TILE) -> int:
+    """Bound on the side, in source pixels, of the box that the read taps of
+    a tile x tile output tile span, for residual angles |theta| <= 90 degrees
+    (|degrees| <= 180 before the rot90).
+
+    With u, v the output column and row less the centre, the three shears
+    give the source column X1 = cos*u - sin*v + cos*e3 + lam_x*e2 + e1 and
+    row Y2 = sin*u + cos*v + lam_y*e3 + e2, where each e in (-1, 1] is a
+    floor plus its tap. Over a tile that is at most (tile-1)*(|cos|+|sin|)
+    + 2*(|cos| + |lam_x| + 1) columns and (tile-1)*(|cos|+|sin|) +
+    2*(|sin| + 1) rows (48.1 for 32 px, at 45 degrees). An interval that
+    long holds floor(L) + 1 integers; one more pixel covers the f32
+    rounding of lam*(j - c)."""
+    span = 0.0
+    for i in range(9001):
+        th = 0.5 * math.pi * i / 9000
+        c, s, t = math.cos(th), math.sin(th), math.tan(th / 2.0)
+        rot = (tile - 1) * (c + s)
+        span = max(span, rot + 2.0 * (c + t + 1.0), rot + 2.0 * (s + 1.0))
+    return int(math.floor(span)) + 2
+
+
+BOX_SIDE = box_side()
+
+
+def smem_bytes(c: int) -> int:
+    """Dynamic shared memory of one block: BOX_SIDE rows of the staged box
+    at an odd pitch of floats (warp_rotate_flip_smem_bytes in the source)."""
+    return BOX_SIDE * ((BOX_SIDE * c) | 1) * 4
+
 
 # Kernel launches since the last reset; only the wrapper's launch adds to it.
 launches = 0
@@ -110,13 +161,16 @@ def fill_table(fill, n: int, c: int, device) -> torch.Tensor:
 # ----------------------------- plain version -----------------------------
 
 
-def warp_plain(
-    images: torch.Tensor, table: torch.Tensor, fill: torch.Tensor, inverse: bool
-) -> torch.Tensor:
-    """The kernel's 8-tap function in plain PyTorch: (N, S, S, C) f32 in,
-    (N, S, S, C) f32 out. Same index math, same operation order."""
-    n, s, _, c = images.shape
-    dev = images.device
+def _taps(table: torch.Tensor, s: int, inverse: bool):
+    """The kernel's index math for every output pixel of (N, S, S).
+
+    Returns (f3, taps): f3 the stage-3 fraction, (N, S, S, 1), and taps
+    nested as [(v3, f2, [(v2, f1, [(v1, r, col)] * 2)] * 2)] * 2 over
+    t3, t2, t1: each stage's validity and fraction, and the source pixel
+    (r, col) of every stage-1 tap (clamped into the image; only read when
+    v3, v2 and v1 hold)."""
+    n = table.shape[0]
+    dev = table.device
     cen = (s - 1) / 2.0
     lam_x = table[:, 0].reshape(n, 1, 1)
     lam_y = table[:, 1].reshape(n, 1, 1)
@@ -126,9 +180,6 @@ def warp_plain(
     xs = torch.arange(s, device=dev).reshape(1, 1, s).expand(n, s, s)
     if not inverse:
         xs = torch.where(flip, s - 1 - xs, xs)
-    flat = images.reshape(n * s * s, c)
-    base = (torch.arange(n, device=dev) * (s * s)).reshape(n, 1, 1)
-    fill_b = fill.reshape(n, 1, 1, c)
 
     def inside(i):
         return (i >= 0) & (i <= s - 1)
@@ -138,46 +189,98 @@ def warp_plain(
         k = torch.floor(d)
         return k.to(torch.int64), (d - k)[..., None]
 
-    def lerp(f, a, b):
-        return (1.0 - f) * a + f * b
-
     def source(i, j):
         # u = rot90(v, n90); v = img, or hflip(img) on the inverse
         r = torch.where(n90 == 1, j, torch.where(n90 == -1, s - 1 - j, i))
         col = torch.where(n90 == 1, s - 1 - i, torch.where(n90 == -1, i, j))
         if inverse:
             col = torch.where(flip, s - 1 - col, col)
-        idx = base + r.clamp(0, s - 1) * s + col.clamp(0, s - 1)
-        return flat[idx.reshape(-1)].reshape(n, s, s, c)
+        return r.clamp(0, s - 1), col.clamp(0, s - 1)
 
-    def stage1(yy, xx):  # along x, shift by the row
-        k, f = split(lam_x, yy)
-        x0 = xx + k
-        a = torch.where(inside(x0)[..., None], source(yy, x0), fill_b)
-        b = torch.where(inside(x0 + 1)[..., None], source(yy, x0 + 1), fill_b)
-        return lerp(f, a, b)
+    k3, f3 = split(lam_x, ys)  # stage 3: along x, shift by the row
+    taps = []
+    for t3 in (0, 1):
+        x3 = xs + k3 + t3
+        k2, f2 = split(lam_y, x3)  # stage 2: along y, shift by the column
+        row3 = []
+        for t2 in (0, 1):
+            y2 = ys + k2 + t2
+            k1, f1 = split(lam_x, y2)  # stage 1: along x, shift by the row
+            row2 = []
+            for t1 in (0, 1):
+                x1 = x3 + k1 + t1
+                row2.append((inside(x1), *source(y2, x1)))
+            row3.append((inside(y2), f1, row2))
+        taps.append((inside(x3), f2, row3))
+    return f3, taps
 
-    def stage2(yy, xx):  # along y, shift by the column
-        k, f = split(lam_y, xx)
-        y0 = yy + k
-        a = torch.where(inside(y0)[..., None], stage1(y0, xx), fill_b)
-        b = torch.where(inside(y0 + 1)[..., None], stage1(y0 + 1, xx), fill_b)
-        return lerp(f, a, b)
 
-    k, f = split(lam_x, ys)  # stage 3: along x, shift by the row
-    x0 = xs + k
-    a = torch.where(inside(x0)[..., None], stage2(ys, x0), fill_b)
-    b = torch.where(inside(x0 + 1)[..., None], stage2(ys, x0 + 1), fill_b)
-    return lerp(f, a, b)
+def warp_plain(
+    images: torch.Tensor, table: torch.Tensor, fill: torch.Tensor, inverse: bool
+) -> torch.Tensor:
+    """The kernel's 8-tap function in plain PyTorch: (N, S, S, C) f32 in,
+    (N, S, S, C) f32 out. Same index math, same operation order."""
+    n, s, _, c = images.shape
+    flat = images.reshape(n * s * s, c)
+    base = (torch.arange(n, device=images.device) * (s * s)).reshape(n, 1, 1)
+    fill_b = fill.reshape(n, 1, 1, c)
+
+    def lerp(f, a, b):
+        return (1.0 - f) * a + f * b
+
+    def tap(v, r, col):
+        src = flat[(base + r * s + col).reshape(-1)].reshape(n, s, s, c)
+        return torch.where(v[..., None], src, fill_b)
+
+    f3, taps = _taps(table, s, inverse)
+    s2 = []
+    for v3, f2, row3 in taps:
+        s1 = [torch.where(v2[..., None], lerp(f1, tap(*row2[0]), tap(*row2[1])), fill_b)
+              for v2, f1, row2 in row3]
+        s2.append(torch.where(v3[..., None], lerp(f2, *s1), fill_b))
+    return lerp(f3, *s2)
+
+
+def source_boxes(table: torch.Tensor, s: int, inverse: bool, tile: int = TILE) -> torch.Tensor:
+    """Every tile x tile output tile's exact source box over the taps the
+    kernel reads: (N, T, T, 4) int64 [r0, r1, c0, c1] with T = ceil(S/tile),
+    r0 > r1 where the tile reads no tap (it lies wholly in the fill). The
+    same index math as warp_plain; the tests hold each box to BOX_SIDE."""
+    n = table.shape[0]
+    t = -(-s // tile)
+    big = 1 << 30
+    lo_r = torch.full((n, s, s), big, dtype=torch.int64, device=table.device)
+    hi_r = torch.full_like(lo_r, -big)
+    lo_c, hi_c = lo_r.clone(), hi_r.clone()
+    _, taps = _taps(table, s, inverse)
+    for v3, _, row3 in taps:
+        for v2, _, row2 in row3:
+            for v1, r, col in row2:
+                read = v3 & v2 & v1
+                lo_r = torch.minimum(lo_r, torch.where(read, r, big))
+                hi_r = torch.maximum(hi_r, torch.where(read, r, -big))
+                lo_c = torch.minimum(lo_c, torch.where(read, col, big))
+                hi_c = torch.maximum(hi_c, torch.where(read, col, -big))
+
+    def per_tile(a, fill_value, reduce):
+        pad = t * tile - s
+        a = torch.nn.functional.pad(a, (0, pad, 0, pad), value=fill_value)
+        a = a.reshape(n, t, tile, t, tile).transpose(2, 3).reshape(n, t, t, tile * tile)
+        return reduce(a, dim=-1)
+
+    return torch.stack([
+        per_tile(lo_r, big, torch.amin), per_tile(hi_r, -big, torch.amax),
+        per_tile(lo_c, big, torch.amin), per_tile(hi_c, -big, torch.amax),
+    ], dim=-1)
 
 
 # ----------------------------- the kernel -----------------------------
 
 
-def build(verbose: bool = False) -> str:
-    """Compile csrc/warp_rotate_flip.cu with nvcc (once per source hash)
-    and return the shared library's path."""
-    with open(SOURCE, "rb") as fh:
+def build(verbose: bool = False, source: str = SOURCE) -> str:
+    """Compile ``source`` (csrc/warp_rotate_flip.cu) with nvcc, once per
+    source hash, and return the shared library's path."""
+    with open(source, "rb") as fh:
         src = fh.read()
     key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"libwarp_rotate_flip_{key}.so")
@@ -192,7 +295,7 @@ def build(verbose: bool = False) -> str:
     cmd = [nvcc, *NVCC_FLAGS]
     if verbose:
         cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, SOURCE]
+    cmd += ["-o", tmp, source]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.remove(tmp)
@@ -203,13 +306,26 @@ def build(verbose: bool = False) -> str:
     return out
 
 
+def load(path: str):
+    """ctypes handle of a built library, with warp_rotate_flip_f32 typed."""
+    lib = ctypes.CDLL(path)
+    fn = lib.warp_rotate_flip_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.warp_rotate_flip_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib = load(build())
+        tile, side = ctypes.c_int(), ctypes.c_int()
+        lib.warp_rotate_flip_geometry(ctypes.byref(tile), ctypes.byref(side))
+        if (tile.value, side.value) != (TILE, BOX_SIDE):
+            raise RuntimeError(
+                f"kernel built with tile {tile.value}, box side {side.value}; "
+                f"the wrapper sizes shared memory for tile {TILE}, box side {BOX_SIDE}"
+            )
         _lib = lib
     return _lib
 
@@ -223,6 +339,13 @@ def launch(
     n, s, s2, c = images.shape
     if s != s2:
         raise ValueError(f"warp kernel needs a square image, got {s}x{s2}")
+    if smem_bytes(c) > SMEM_LIMIT:
+        raise ValueError(
+            f"C={c}: a {BOX_SIDE}x{BOX_SIDE} source box takes {smem_bytes(c)} bytes of "
+            f"shared memory, over the {SMEM_LIMIT} a block may have"
+        )
+    if n > MAX_IMAGES:
+        raise ValueError(f"warp kernel takes at most {MAX_IMAGES} images a launch, got {n}")
     for name, t, shape in (
         ("images", images, (n, s, s, c)),
         ("table", table, (n, 4)),

@@ -5,10 +5,14 @@ Phases:
   1. header: torch/CUDA versions, the card's name and power limit;
   2. build the TTA warp kernel from aide_tpu_torch/csrc with nvcc;
   3. hold the kernel against its plain PyTorch version on the card
-     (64/256/512 px, C in {2, 3}, both directions, degrees over ±135 with
-     both flips, (B, C) fills): max abs <= 1e-5;
-  4. time the kernel and the plain version at the main path's two shapes
-     (CUDA events, median of 30 runs) beside the bytes-over-bandwidth bound;
+     (33/64/100/256/512 px, C in {2, 3}, both directions, degrees over ±135
+     plus the ±45, ±135 and ±180 boundaries, both flips, (B, C) fills, and
+     single images): max abs <= 1e-5;
+  4. time the kernel at the main path's two shapes with a cold L2 (a 64 MB
+     buffer written between runs, outside the events) and a warm one, and
+     the plain version (CUDA events, medians) beside the bytes-over-bandwidth
+     bound; with --baseline FILE.cu, a second build of the kernel's entry
+     point from FILE is timed the same way, in turns with this one;
   5. the main path: Trainer at the CHAOS point at full width (two-modal
      FuseUNet, base width 32, 256 px, batch 8, 4 TTA views, bf16 autocast),
      cut in depth to 2 train cases x 16 slices (4 steps an epoch) and one
@@ -21,15 +25,19 @@ Phases:
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
-Run from the repository root: python3 chip_smoke.py [--profile]
+Run from the repository root:
+  python3 chip_smoke.py [--profile] [--baseline FILE.cu]
 (--profile adds, after phase 5, a torch.profiler breakdown of a few more
-steps).
+steps; --baseline times another version of csrc/warp_rotate_flip.cu, for
+instance an earlier commit's, beside this one in phase 4).
 It exits non-zero, printing no result, without a CUDA device, or when any
 check fails.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import math
 import os
@@ -39,6 +47,11 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
+SPIN_CYCLES = 200_000  # ~0.1 ms at the H100's clock
+# degrees where the residual angle, the rot90 or the shear coefficients
+# change regime
+BOUNDARY_DEGREES = (44.9, 45.0, 45.1, -44.9, -45.0, -45.1, 135.0, -135.0, 180.0, -180.0)
 
 
 def fail(msg: str) -> None:
@@ -46,8 +59,9 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_cuda(fn, runs: int = 30, warmup: int = 5) -> float:
-    """Median ms of ``fn`` over ``runs`` calls, each between CUDA events."""
+def time_cuda(fn, runs: int = 30, warmup: int = 5, flush=None) -> float:
+    """Median ms of ``fn`` over ``runs`` calls, each between CUDA events;
+    ``flush`` runs before each call, outside the events."""
     import torch
 
     for _ in range(warmup):
@@ -55,6 +69,11 @@ def time_cuda(fn, runs: int = 30, warmup: int = 5) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
+        if flush is not None:
+            flush()
+        # keep the device busy while the host enqueues the events and fn, so
+        # that the events time the device's work and not the host's launch
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -73,14 +92,15 @@ def smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def warp_inputs(n, s, c, seed, device):
+def warp_inputs(degrees, hflip, s, c, seed, device):
     import torch
 
+    n = len(degrees)
     g = torch.Generator(device="cpu").manual_seed(seed)
     images = torch.randn((n, s, s, c), generator=g).to(device)
-    degrees = torch.linspace(-135.0, 135.0, n)
-    hflip = (torch.arange(n) % 2).to(torch.float32)
     fill = torch.randn((n, c), generator=g).to(device)
+    degrees = torch.as_tensor(degrees, dtype=torch.float32)
+    hflip = torch.as_tensor(hflip, dtype=torch.float32)
     return images, degrees.to(device), hflip.to(device), fill
 
 
@@ -88,36 +108,61 @@ def check_kernel(cuda_warp, device):
     """Phase 3: kernel against the plain version on the card."""
     import torch
 
+    degs = [float(d) for d in torch.linspace(-135.0, 135.0, 12)] + list(BOUNDARY_DEGREES)
+    cases = [(degs * 2, [0.0] * len(degs) + [1.0] * len(degs), s, c)
+             for s in (33, 64, 100, 256, 512) for c in (2, 3)]
+    cases += [([45.0], [1.0], 256, 3), ([-60.0], [0.0], 33, 2), ([180.0], [1.0], 100, 2)]
     worst = 0.0
-    for s in (64, 256, 512):
-        for c in (2, 3):
-            for inverse in (False, True):
-                images, degrees, hflip, fill = warp_inputs(12, s, c, seed=s + c, device=device)
-                table = cuda_warp.coef_table(degrees, hflip, inverse)
-                fills = cuda_warp.fill_table(fill, 12, c, device)
-                got = cuda_warp.warp_rotate_flip(images, degrees, hflip, fill, inverse=inverse)
-                ref = cuda_warp.warp_plain(images, table, fills, inverse)
-                torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
-                finite = bool(torch.isfinite(got).all())
-                print(f"kernel vs plain  {s:3d}px C={c} {'inverse' if inverse else 'forward'}: "
-                      f"max abs {err:.3e}", flush=True)
-                if not finite or err > 1e-5:
-                    fail(f"kernel disagrees with its plain version at {s}px C={c} "
-                         f"inverse={inverse}: max abs {err}")
-                worst = max(worst, err)
+    for degrees, hflip, s, c in cases:
+        for inverse in (False, True):
+            images, degrees_t, hflip_t, fill = warp_inputs(degrees, hflip, s, c, seed=s + c,
+                                                           device=device)
+            n = len(degrees)
+            table = cuda_warp.coef_table(degrees_t, hflip_t, inverse)
+            fills = cuda_warp.fill_table(fill, n, c, device)
+            got = cuda_warp.warp_rotate_flip(images, degrees_t, hflip_t, fill, inverse=inverse)
+            ref = cuda_warp.warp_plain(images, table, fills, inverse)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            finite = bool(torch.isfinite(got).all())
+            print(f"kernel vs plain  N={n:2d} {s:3d}px C={c} "
+                  f"{'inverse' if inverse else 'forward'}: max abs {err:.3e}", flush=True)
+            if not finite or err > 1e-5:
+                fail(f"kernel disagrees with its plain version at N={n} {s}px C={c} "
+                     f"inverse={inverse}: max abs {err}")
+            worst = max(worst, err)
     return worst
 
 
-def time_kernel(cuda_warp, device):
-    """Phase 4: kernel and plain-version times at the main path's shapes."""
+def raw_launch(lib, images, table, fills, inverse, out):
+    """One launch of a built library's warp_rotate_flip_f32, uncounted."""
     import torch
+
+    n, s, _, c = images.shape
+    err = lib.warp_rotate_flip_f32(images.data_ptr(), out.data_ptr(), table.data_ptr(),
+                                   fills.data_ptr(), n, s, c, int(inverse),
+                                   torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"baseline kernel launch failed: CUDA error {err}")
+
+
+def time_kernel(cuda_warp, device, baseline=None):
+    """Phase 4: kernel and plain-version times at the main path's shapes,
+    cold (L2 flushed before each run) and warm; a baseline library is
+    timed in turns with the kernel (baseline, kernel, kernel, baseline)."""
+    import torch
+
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+
+    def flush():
+        scratch.fill_(1.0)
 
     rows = []
     for shape, inverse in (((32, 256, 256, 3), False), ((64, 256, 256, 2), True)):
         n, s, _, c = shape
-        images, degrees, hflip, fill = warp_inputs(n, s, c, seed=7, device=device)
-        degrees = degrees * (60.0 / 135.0)  # the main path's ±60 degrees
+        degrees = [60.0 * (2.0 * i / (n - 1) - 1.0) for i in range(n)]  # the main path's ±60
+        images, degrees, hflip, fill = warp_inputs(degrees, [i % 2 for i in range(n)], s, c,
+                                                   seed=7, device=device)
         table = cuda_warp.coef_table(degrees, hflip, inverse)
         fills = cuda_warp.fill_table(fill, n, c, device)
         got = cuda_warp.launch(images, table, fills, inverse)
@@ -125,16 +170,48 @@ def time_kernel(cuda_warp, device):
         err = float((got - ref).abs().max())
         if err > 1e-5:
             fail(f"kernel disagrees at the main path shape {shape}: {err}")
-        k_ms = time_cuda(lambda: cuda_warp.launch(images, table, fills, inverse))
-        w_ms = time_cuda(lambda: cuda_warp.warp_rotate_flip(images, degrees, hflip, fill, inverse))
+        kernel = lambda: cuda_warp.launch(images, table, fills, inverse)  # noqa: E731
+        versions = {"kernel": kernel}
+        order = ["kernel"]
+        if baseline is not None:
+            out = torch.empty_like(images)
+            base = lambda: raw_launch(baseline, images, table, fills, inverse, out)  # noqa: E731
+            base()
+            torch.cuda.synchronize()
+            base_err = float((out - ref).abs().max())
+            if base_err > 1e-5:
+                fail(f"baseline kernel disagrees at the main path shape {shape}: {base_err}")
+            versions["baseline"] = base
+            order = ["baseline", "kernel", "kernel", "baseline"]
+        cold = {k: [] for k in versions}
+        warm = {k: [] for k in versions}
+        for k in order:
+            cold[k].append(time_cuda(versions[k], flush=flush))
+            warm[k].append(time_cuda(versions[k]))
+        k_ms = statistics.mean(cold["kernel"])
+        k_warm = statistics.mean(warm["kernel"])
+        w_ms = time_cuda(lambda: cuda_warp.warp_rotate_flip(images, degrees, hflip, fill, inverse),
+                         flush=flush)
         p_ms = time_cuda(lambda: cuda_warp.warp_plain(images, table, fills, inverse), runs=20)
         nbytes = cuda_warp.bytes_moved(shape)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"timing {'inverse' if inverse else 'forward'} {shape}: kernel {k_ms:.4f} ms, "
-              f"wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms, bytes {nbytes}, "
-              f"bound {bound_ms * 1e3:.2f} us ({bound_ms / k_ms:.1%} of the bound)", flush=True)
-        rows.append(dict(shape=shape, inverse=inverse, ms=k_ms, wrapper_ms=w_ms,
-                         plain_ms=p_ms, bytes=nbytes, bound_ms=bound_ms, max_abs_err=err))
+        name = "inverse" if inverse else "forward"
+        print(f"timing {name} {shape}: kernel cold {k_ms:.4f} ms, warm {k_warm:.4f} ms, "
+              f"wrapper cold {w_ms:.4f} ms, plain {p_ms:.4f} ms, bytes {nbytes}, "
+              f"bound {bound_ms * 1e3:.2f} us ({bound_ms / k_ms:.1%} of the bound cold, "
+              f"{bound_ms / k_warm:.1%} warm)", flush=True)
+        row = dict(shape=shape, inverse=inverse, ms=k_ms, ms_warm=k_warm, wrapper_ms=w_ms,
+                   plain_ms=p_ms, bytes=nbytes, bound_ms=bound_ms, max_abs_err=err)
+        if baseline is not None:
+            row.update(baseline_ms=statistics.mean(cold["baseline"]),
+                       baseline_ms_warm=statistics.mean(warm["baseline"]),
+                       turns={k: {"cold": cold[k], "warm": warm[k]} for k in versions})
+            print(f"timing {name} {shape}: baseline cold {row['baseline_ms']:.4f} ms, "
+                  f"warm {row['baseline_ms_warm']:.4f} ms "
+                  f"({bound_ms / row['baseline_ms']:.1%} of the bound cold); turns "
+                  + json.dumps(row["turns"]), flush=True)
+        rows.append(row)
+    del scratch
     return rows
 
 
@@ -338,6 +415,12 @@ def small_slice_vs_cpu(scratch):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="a torch.profiler breakdown of a few more steps after phase 5")
+    parser.add_argument("--baseline", metavar="FILE.cu",
+                        help="another version of csrc/warp_rotate_flip.cu to time in phase 4")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -358,16 +441,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cuda_warp.build(verbose=True)
+    baseline = None
+    if args.baseline:
+        baseline = cuda_warp.load(cuda_warp.build(source=os.path.abspath(args.baseline)))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     worst = check_kernel(cuda_warp, device)
-    rows = time_kernel(cuda_warp, device)
+    rows = time_kernel(cuda_warp, device, baseline)
     torch.backends.cudnn.allow_tf32 = True
 
     trainer, launches, step_ms, peak = run_slice(cuda_warp, scratch)
-    if "--profile" in sys.argv[1:]:
+    if args.profile:
         profile_steps(trainer)
     del trainer
 
@@ -382,7 +468,8 @@ def main() -> int:
         "replaces": "aide_tpu/ops/pallas_warp.py:77",
         "launches": launches,
         "max_abs_err": max(worst, fwd["max_abs_err"], inv["max_abs_err"]),
-        # one main-path step: two forward launches and one inverse launch
+        # one main-path step: two forward launches and one inverse launch,
+        # each timed with a cold L2 (per_launch also has the warm times)
         "ms": 2 * fwd["ms"] + inv["ms"],
         "plain_ms": 2 * fwd["plain_ms"] + inv["plain_ms"],
         "bound_ms": 2 * fwd["bound_ms"] + inv["bound_ms"],

@@ -5,13 +5,19 @@ The port's shear path and the CUDA kernel's plain version (what the kernel
 wrapper runs for a CPU tensor) against the JAX shear path over degrees
 {0, ±23, ±45, ±52, ±60, 90} with flips on and off, scalar / (C,) / (B, C)
 fills and C in {1, 2, 3}, in both directions; the plain version also
-against the Pallas kernel itself in interpret mode. A cuda-marked case holds
-the CUDA kernel to its plain version on a card.
+against the Pallas kernel itself in interpret mode. The kernel stages each
+32 x 32 output tile's source box in shared memory, sized by BOX_SIDE: the
+CPU cases hold every tile's exact box (source_boxes, the plain version's
+index math) to that bound over ±180 degrees, and check that the box holds
+every tap the tile reads. Cuda-marked cases hold the CUDA kernel to its
+plain version on a card.
 
 The JAX package is imported inside the tests that use it, so the file also
 runs where only PyTorch is installed: there the cuda-marked cases run and
 the JAX comparisons skip (python -m pytest tests/test_torch_warp.py -m cuda).
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -20,6 +26,9 @@ import torch
 from aide_tpu_torch.ops import cuda_warp, warp
 
 DEGS = np.array([0.0, 23.0, -23.0, 45.0, -45.0, 52.0, -52.0, 60.0, -60.0, 90.0], np.float32)
+# where the residual angle, the rot90 or the shear coefficients change regime
+BOUNDARY_DEGS = np.array([44.9, 45.0, 45.1, -44.9, -45.0, -45.1, 135.0, -135.0, 180.0, -180.0],
+                         np.float32)
 
 
 def _inputs(c, fill_kind, size=32, seed=0):
@@ -150,6 +159,70 @@ def test_dtype_round_trip_computes_in_f32():
     assert torch.equal(out16, out32.to(torch.bfloat16))
 
 
+def test_kernel_source_has_the_wrappers_geometry():
+    with open(cuda_warp.SOURCE) as fh:
+        src = fh.read()
+    assert int(re.search(r"constexpr int kTile = (\d+);", src).group(1)) == cuda_warp.TILE
+    assert int(re.search(r"constexpr int kBoxSide = (\d+);", src).group(1)) == cuda_warp.BOX_SIDE
+    assert "(kBoxSide * c) | 1" in src  # the pitch smem_bytes assumes
+
+
+def test_launch_raises_when_the_box_exceeds_shared_memory():
+    c = next(c for c in range(1, 64) if cuda_warp.smem_bytes(c) > cuda_warp.SMEM_LIMIT)
+    assert cuda_warp.smem_bytes(c - 1) <= cuda_warp.SMEM_LIMIT
+    x = torch.zeros((1, 8, 8, c))
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_warp.launch(x, torch.zeros((1, 4)), torch.zeros((1, c)), inverse=False)
+
+
+@pytest.mark.parametrize("hflip", [0.0, 1.0])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("size", [33, 100, 256])
+def test_source_boxes_fit_box_side(size, inverse, hflip):
+    degrees = torch.from_numpy(np.concatenate(
+        [np.arange(-180.0, 180.01, 2.5, dtype=np.float32), BOUNDARY_DEGS]))
+    worst = 0
+    for chunk in torch.split(degrees, 16):
+        table = cuda_warp.coef_table(chunk, torch.full_like(chunk, hflip), inverse)
+        boxes = cuda_warp.source_boxes(table, size, inverse)
+        t = -(-size // cuda_warp.TILE)
+        assert boxes.shape == (len(chunk), t, t, 4)
+        read = boxes[..., 0] <= boxes[..., 1]
+        assert bool(read.any())
+        h = (boxes[..., 1] - boxes[..., 0] + 1)[read]
+        w = (boxes[..., 3] - boxes[..., 2] + 1)[read]
+        assert int(boxes[..., 0][read].min()) >= 0 and int(boxes[..., 2][read].min()) >= 0
+        assert int(boxes[..., 1][read].max()) < size and int(boxes[..., 3][read].max()) < size
+        worst = max(worst, int(h.max()), int(w.max()))
+    assert worst <= cuda_warp.BOX_SIDE
+    if size >= 2 * cuda_warp.TILE:  # a whole tile at 45 degrees reads ~1.5x its side
+        assert worst > 1.4 * cuda_warp.TILE
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_source_boxes_hold_every_read_tap(inverse):
+    # the plain version over a source that is NaN outside one tile's box:
+    # that tile's outputs stay finite only if every tap it reads is inside
+    size, tile = 70, cuda_warp.TILE
+    degrees = torch.tensor([0.0, 30.0, -45.0, 45.1, 100.0, -135.0, 180.0])
+    hflip = torch.tensor([0.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0])
+    table = cuda_warp.coef_table(degrees, hflip, inverse)
+    n = len(degrees)
+    fill = torch.zeros((n, 1))
+    boxes = cuda_warp.source_boxes(table, size, inverse)
+    t = boxes.shape[1]
+    for i in range(t):
+        for j in range(t):
+            images = torch.full((n, size, size, 1), float("nan"))
+            for k in range(n):
+                r0, r1, c0, c1 = boxes[k, i, j].tolist()
+                if r0 <= r1:
+                    images[k, r0:r1 + 1, c0:c1 + 1] = 1.0
+            out = cuda_warp.warp_plain(images, table, fill, inverse)
+            tile_out = out[:, i * tile:(i + 1) * tile, j * tile:(j + 1) * tile]
+            assert bool(torch.isfinite(tile_out).all()), (i, j)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -157,19 +230,42 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("size,c", [(64, 2), (256, 3), (512, 2)])
-def test_cuda_kernel_matches_plain(cuda_device, size, c, inverse):
-    images, degrees, hflip, fill = _inputs(c, "image", size=size, seed=size + c)
-    x = torch.from_numpy(images).to(cuda_device)
-    d = torch.from_numpy(degrees).to(cuda_device) * 1.5  # up to ±135 degrees
-    h = torch.from_numpy(hflip).to(cuda_device)
-    f = torch.from_numpy(fill).to(cuda_device)
+def _cuda_matches_plain(device, images, degrees, hflip, fill, inverse):
+    x = torch.from_numpy(images).to(device)
+    d = torch.from_numpy(degrees).to(device)
+    h = torch.from_numpy(hflip).to(device)
+    f = torch.from_numpy(fill).to(device)
     before = cuda_warp.launches
     got = cuda_warp.warp_rotate_flip(x, d, h, f, inverse=inverse)
     assert cuda_warp.launches == before + 1
     table = cuda_warp.coef_table(d, h, inverse)
-    ref = cuda_warp.warp_plain(x, table, cuda_warp.fill_table(f, x.shape[0], c, cuda_device), inverse)
+    ref = cuda_warp.warp_plain(x, table, cuda_warp.fill_table(f, x.shape[0], x.shape[3], device),
+                               inverse)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("size,c", [(33, 3), (64, 2), (100, 2), (256, 3), (512, 2)])
+def test_cuda_kernel_matches_plain(cuda_device, size, c, inverse):
+    images, degrees, hflip, fill = _inputs(c, "image", size=size, seed=size + c)
+    # up to ±135 degrees, then the regime boundaries with both flips
+    degrees = np.concatenate([degrees * 1.5, BOUNDARY_DEGS, BOUNDARY_DEGS])
+    hflip = np.concatenate([hflip, np.zeros(len(BOUNDARY_DEGS)), np.ones(len(BOUNDARY_DEGS))])
+    rng = np.random.default_rng(size)
+    images = np.concatenate([images, rng.normal(size=(2 * len(BOUNDARY_DEGS),) + images.shape[1:])])
+    fill = np.concatenate([fill, rng.normal(size=(2 * len(BOUNDARY_DEGS), c))])
+    _cuda_matches_plain(cuda_device, images.astype(np.float32), degrees.astype(np.float32),
+                        hflip.astype(np.float32), fill.astype(np.float32), inverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("size,c,deg,flip", [(33, 2, -60.0, 0.0), (256, 3, 45.0, 1.0)])
+def test_cuda_kernel_single_image(cuda_device, size, c, deg, flip, inverse):
+    rng = np.random.default_rng(size + c)
+    images = rng.normal(size=(1, size, size, c)).astype(np.float32)
+    fill = rng.normal(size=(1, c)).astype(np.float32)
+    _cuda_matches_plain(cuda_device, images, np.array([deg], np.float32),
+                        np.array([flip], np.float32), fill, inverse)
