@@ -50,21 +50,32 @@ constexpr int kBoxSide = 50;  // bound on a tile's source box side; cuda_warp.BO
 // start in different banks.
 __host__ __device__ __forceinline__ int box_pitch(int c) { return (kBoxSide * c) | 1; }
 
+// floor(d) for |d| < 2^22 with no conversion instruction (those issue at a
+// quarter of the float rate, and the index math needs three a split):
+// d + 1.5 * 2^23 rounded down is floor(d) + 1.5 * 2^23, a float in
+// [2^23, 2^24) where the ulp is 1, so its bits hold floor(d) as an integer.
+constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
+constexpr int kMagicBits = 0x4B400000;
+
 struct Split {
   int k;     // floor(d)
+  float kf;  // floor(d) as a float
   float f;   // d - floor(d)
 };
 
-__device__ __forceinline__ Split split(float lam, int j, float cen) {
-  const float d = lam * ((float)j - cen);
-  const float k = floorf(d);
+// j is a pixel index held as a float; small integers are exact in f32, so d
+// is the same float as lam * ((float)j - cen).
+__device__ __forceinline__ Split split(float lam, float j, float cen) {
+  const float d = lam * (j - cen);
+  const float t = __fadd_rd(d, kMagic);
   Split s;
-  s.k = (int)k;
-  s.f = d - k;
+  s.k = __float_as_int(t) - kMagicBits;
+  s.kf = t - kMagic;
+  s.f = d - s.kf;
   return s;
 }
 
-__device__ __forceinline__ bool inside(int i, int s) { return i >= 0 && i <= s - 1; }
+__device__ __forceinline__ bool inside(int i, int s) { return (unsigned)i < (unsigned)s; }
 
 __device__ __forceinline__ float lerp(float f, float a, float b) {
   return (1.0f - f) * a + f * b;
@@ -83,19 +94,20 @@ struct Taps {
 
 __device__ __forceinline__ void taps(Taps& t, int y, int xo, float lam_x, float lam_y,
                                      float cen, int s) {
-  t.s3 = split(lam_x, y, cen);
+  const float yf = (float)y;
+  t.s3 = split(lam_x, yf, cen);
 #pragma unroll
   for (int t3 = 0; t3 < 2; ++t3) {
     const int x3 = xo + t.s3.k + t3;
     t.v3[t3] = inside(x3, s);
-    const Split s2 = split(lam_y, x3, cen);
+    const Split s2 = split(lam_y, (float)xo + t.s3.kf + (float)t3, cen);
     t.f2[t3] = s2.f;
 #pragma unroll
     for (int t2 = 0; t2 < 2; ++t2) {
       const int y2 = y + s2.k + t2;
       t.y2[t3][t2] = y2;
       t.v2[t3][t2] = inside(y2, s);
-      const Split s1 = split(lam_x, y2, cen);
+      const Split s1 = split(lam_x, yf + s2.kf + (float)t2, cen);
       t.f1[t3][t2] = s1.f;
 #pragma unroll
       for (int t1 = 0; t1 < 2; ++t1) {
@@ -123,6 +135,13 @@ warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
   const bool flip = table[4 * n + 3] > 0.5f;
   const float cen = (float)(s - 1) * 0.5f;
   const int xo = (!inverse && flip) ? s - 1 - x : x;
+  // |theta| <= 90 degrees gives |lam| <= 1: the box bound and split's range
+  // hold only there
+  if (!(fabsf(lam_x) <= 2.0f && fabsf(lam_y) <= 2.0f)) __trap();
+  const int pitch = box_pitch(c);
+  float* fills = box + kBoxSide * pitch;
+  const int tid = threadIdx.y * kTile + threadIdx.x;
+  for (int ch = tid; ch < c; ch += kTile * kRows) fills[ch] = fill[n * c + ch];
 
   // A. bounds of the read taps in u's coordinates (row y2, column x1)
   int lo_y = INT_MAX, hi_y = INT_MIN, lo_x = INT_MAX, hi_x = INT_MIN;
@@ -162,35 +181,44 @@ warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
     lo_x = min(lo_x, partial[2][w]);
     hi_x = max(hi_x, partial[3][w]);
   }
-  const int pitch = box_pitch(c);
-  int r0 = 0, c0 = 0;
+  // u(i, j) = v(r, col): rot90 and the inverse's hflip make r and col
+  // each one of y2, x1 or their reflections, r = ry*y2 + rx*x1 + rb and
+  // col = cy*y2 + cx*x1 + cb with coefficients in {-1, 0, 1}
+  int ry = 1, rx = 0, rb = 0, cy = 0, cx = 1, cb = 0;
+  if (n90 == 1) {
+    ry = 0; rx = 1; cy = -1; cx = 0; cb = s - 1;
+  } else if (n90 == -1) {
+    ry = 0; rx = -1; rb = s - 1; cy = 1; cx = 0;
+  }
+  if (inverse && flip) {
+    cy = -cy; cx = -cx; cb = s - 1 - cb;
+  }
+  // so a tap's offset in the box is y2*sy + x1*sx + base
+  const int sy = ry * pitch + cy * c, sx = rx * pitch + cx * c;
+  int base = 0;
   if (lo_x <= hi_x) {  // else no tap is read: the whole tile lies in the fill
-    // u(i, j) = v(r, col): rot90 and the inverse's hflip reflect and
-    // transpose the index, so the box of (y2, x1) maps to a box of (r, col)
-    int r1, c1;
-    if (n90 == 1) {
-      r0 = lo_x; r1 = hi_x; c0 = s - 1 - hi_y; c1 = s - 1 - lo_y;
-    } else if (n90 == -1) {
-      r0 = s - 1 - hi_x; r1 = s - 1 - lo_x; c0 = lo_y; c1 = hi_y;
-    } else {
-      r0 = lo_y; r1 = hi_y; c0 = lo_x; c1 = hi_x;
-    }
-    if (inverse && flip) {
-      const int t = c0;
-      c0 = s - 1 - c1;
-      c1 = s - 1 - t;
-    }
+    const int r0 = rb + min(ry * lo_y, ry * hi_y) + min(rx * lo_x, rx * hi_x);
+    const int r1 = rb + max(ry * lo_y, ry * hi_y) + max(rx * lo_x, rx * hi_x);
+    const int c0 = cb + min(cy * lo_y, cy * hi_y) + min(cx * lo_x, cx * hi_x);
+    const int c1 = cb + max(cy * lo_y, cy * hi_y) + max(cx * lo_x, cx * hi_x);
     if (r1 - r0 + 1 > kBoxSide || c1 - c0 + 1 > kBoxSide) __trap();
+    base = (rb - r0) * pitch + (cb - c0) * c;
 
-    // B. stage the box: warp w copies box rows w, w + kRows, ...
+    // B. stage the box: warp w copies box rows w, w + kRows, ..., with
+    // cp.async so that all of a thread's copies are in flight at once
     const int row_len = (c1 - c0 + 1) * c;
     const float* src = in + (((int64_t)n * s + r0) * s + c0) * c;
     for (int row = threadIdx.y; row <= r1 - r0; row += kRows) {
       const float* g = src + (int64_t)row * s * c;
       float* d = box + row * pitch;
-#pragma unroll 4
-      for (int k = threadIdx.x; k < row_len; k += kTile) d[k] = __ldg(g + k);
+      for (int k = threadIdx.x; k < row_len; k += kTile) {
+        const unsigned sa = (unsigned)__cvta_generic_to_shared(d + k);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa), "l"(g + k)
+                     : "memory");
+      }
     }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   }
   __syncthreads();
 
@@ -204,25 +232,15 @@ warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
 #pragma unroll
     for (int t3 = 0; t3 < 2; ++t3)
 #pragma unroll
-      for (int t2 = 0; t2 < 2; ++t2)
+      for (int t2 = 0; t2 < 2; ++t2) {
+        const int row = t.y2[t3][t2] * sy + base;
 #pragma unroll
-        for (int t1 = 0; t1 < 2; ++t1) {
-          const int y2 = t.y2[t3][t2], x1 = t.x1[t3][t2][t1];
-          int r, col;
-          if (n90 == 1) {
-            r = x1; col = s - 1 - y2;
-          } else if (n90 == -1) {
-            r = s - 1 - x1; col = y2;
-          } else {
-            r = y2; col = x1;
-          }
-          if (inverse && flip) col = s - 1 - col;
-          off[t3][t2][t1] = (r - r0) * pitch + (col - c0) * c;
-        }
+        for (int t1 = 0; t1 < 2; ++t1) off[t3][t2][t1] = row + t.x1[t3][t2][t1] * sx;
+      }
 
     float* dst = out + (((int64_t)n * s + y) * s + x) * c;
     for (int ch = 0; ch < c; ++ch) {
-      const float fl = fill[n * c + ch];
+      const float fl = fills[ch];
       float s2v[2];
 #pragma unroll
       for (int t3 = 0; t3 < 2; ++t3) {
@@ -250,9 +268,10 @@ warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
 
 }  // namespace
 
-// Dynamic shared memory of one block for C channels, in bytes.
+// Dynamic shared memory of one block for C channels, in bytes: the box,
+// then the image's C fill values.
 extern "C" int warp_rotate_flip_smem_bytes(int c) {
-  return kBoxSide * box_pitch(c) * (int)sizeof(float);
+  return (kBoxSide * box_pitch(c) + c) * (int)sizeof(float);
 }
 
 // Tile side and box bound the kernel was built with, for the wrapper to

@@ -111,8 +111,9 @@ BOX_SIDE = box_side()
 
 def smem_bytes(c: int) -> int:
     """Dynamic shared memory of one block: BOX_SIDE rows of the staged box
-    at an odd pitch of floats (warp_rotate_flip_smem_bytes in the source)."""
-    return BOX_SIDE * ((BOX_SIDE * c) | 1) * 4
+    at an odd pitch of floats, then the C fill values
+    (warp_rotate_flip_smem_bytes in the source)."""
+    return (BOX_SIDE * ((BOX_SIDE * c) | 1) + c) * 4
 
 
 # Kernel launches since the last reset; only the wrapper's launch adds to it.

@@ -11,8 +11,8 @@ Phases:
   4. time the kernel at the main path's two shapes with a cold L2 (a 64 MB
      buffer written between runs, outside the events) and a warm one, and
      the plain version (CUDA events, medians) beside the bytes-over-bandwidth
-     bound; with --baseline FILE.cu, a second build of the kernel's entry
-     point from FILE is timed the same way, in turns with this one;
+     bound; with --baseline FILE.cu (repeatable), other builds of the
+     kernel's entry point are timed the same way, in turns with this one;
   5. the main path: Trainer at the CHAOS point at full width (two-modal
      FuseUNet, base width 32, 256 px, batch 8, 4 TTA views, bf16 autocast),
      cut in depth to 2 train cases x 16 slices (4 steps an epoch) and one
@@ -29,7 +29,8 @@ Run from the repository root:
   python3 chip_smoke.py [--profile] [--baseline FILE.cu]
 (--profile adds, after phase 5, a torch.profiler breakdown of a few more
 steps; --baseline times another version of csrc/warp_rotate_flip.cu, for
-instance an earlier commit's, beside this one in phase 4).
+instance an earlier commit's, beside this one in phase 4; it may be given
+more than once).
 It exits non-zero, printing no result, without a CUDA device, or when any
 check fails.
 """
@@ -146,10 +147,11 @@ def raw_launch(lib, images, table, fills, inverse, out):
         fail(f"baseline kernel launch failed: CUDA error {err}")
 
 
-def time_kernel(cuda_warp, device, baseline=None):
+def time_kernel(cuda_warp, device, baselines=()):
     """Phase 4: kernel and plain-version times at the main path's shapes,
-    cold (L2 flushed before each run) and warm; a baseline library is
-    timed in turns with the kernel (baseline, kernel, kernel, baseline)."""
+    cold (L2 flushed before each run) and warm. Baseline libraries, given
+    as (name, ctypes library) pairs, are timed in turns with the kernel:
+    b1, b2, ..., kernel, kernel, ..., b2, b1."""
     import torch
 
     scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=device)
@@ -170,19 +172,17 @@ def time_kernel(cuda_warp, device, baseline=None):
         err = float((got - ref).abs().max())
         if err > 1e-5:
             fail(f"kernel disagrees at the main path shape {shape}: {err}")
-        kernel = lambda: cuda_warp.launch(images, table, fills, inverse)  # noqa: E731
-        versions = {"kernel": kernel}
-        order = ["kernel"]
-        if baseline is not None:
-            out = torch.empty_like(images)
-            base = lambda: raw_launch(baseline, images, table, fills, inverse, out)  # noqa: E731
-            base()
+        versions = {"kernel": lambda: cuda_warp.launch(images, table, fills, inverse)}
+        out = torch.empty_like(images)
+        for name, lib in baselines:
+            versions[name] = (lambda lib=lib: raw_launch(lib, images, table, fills, inverse, out))
+            versions[name]()
             torch.cuda.synchronize()
             base_err = float((out - ref).abs().max())
             if base_err > 1e-5:
-                fail(f"baseline kernel disagrees at the main path shape {shape}: {base_err}")
-            versions["baseline"] = base
-            order = ["baseline", "kernel", "kernel", "baseline"]
+                fail(f"baseline {name} disagrees at the main path shape {shape}: {base_err}")
+        names = [name for name, _ in baselines]
+        order = names + ["kernel", "kernel"] + names[::-1]
         cold = {k: [] for k in versions}
         warm = {k: [] for k in versions}
         for k in order:
@@ -195,21 +195,23 @@ def time_kernel(cuda_warp, device, baseline=None):
         p_ms = time_cuda(lambda: cuda_warp.warp_plain(images, table, fills, inverse), runs=20)
         nbytes = cuda_warp.bytes_moved(shape)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        name = "inverse" if inverse else "forward"
-        print(f"timing {name} {shape}: kernel cold {k_ms:.4f} ms, warm {k_warm:.4f} ms, "
+        label = "inverse" if inverse else "forward"
+        print(f"timing {label} {shape}: kernel cold {k_ms:.4f} ms, warm {k_warm:.4f} ms, "
               f"wrapper cold {w_ms:.4f} ms, plain {p_ms:.4f} ms, bytes {nbytes}, "
               f"bound {bound_ms * 1e3:.2f} us ({bound_ms / k_ms:.1%} of the bound cold, "
               f"{bound_ms / k_warm:.1%} warm)", flush=True)
         row = dict(shape=shape, inverse=inverse, ms=k_ms, ms_warm=k_warm, wrapper_ms=w_ms,
                    plain_ms=p_ms, bytes=nbytes, bound_ms=bound_ms, max_abs_err=err)
-        if baseline is not None:
-            row.update(baseline_ms=statistics.mean(cold["baseline"]),
-                       baseline_ms_warm=statistics.mean(warm["baseline"]),
-                       turns={k: {"cold": cold[k], "warm": warm[k]} for k in versions})
-            print(f"timing {name} {shape}: baseline cold {row['baseline_ms']:.4f} ms, "
-                  f"warm {row['baseline_ms_warm']:.4f} ms "
-                  f"({bound_ms / row['baseline_ms']:.1%} of the bound cold); turns "
-                  + json.dumps(row["turns"]), flush=True)
+        if baselines:
+            row["baselines"] = {
+                name: {"ms": statistics.mean(cold[name]), "ms_warm": statistics.mean(warm[name])}
+                for name in names}
+            row["turns"] = {k: {"cold": cold[k], "warm": warm[k]} for k in versions}
+            for name, t in row["baselines"].items():
+                print(f"timing {label} {shape}: baseline {name} cold {t['ms']:.4f} ms, "
+                      f"warm {t['ms_warm']:.4f} ms ({bound_ms / t['ms']:.1%} of the bound cold)",
+                      flush=True)
+            print(f"timing {label} turns: " + json.dumps(row["turns"]), flush=True)
         rows.append(row)
     del scratch
     return rows
@@ -418,8 +420,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="a torch.profiler breakdown of a few more steps after phase 5")
-    parser.add_argument("--baseline", metavar="FILE.cu",
-                        help="another version of csrc/warp_rotate_flip.cu to time in phase 4")
+    parser.add_argument("--baseline", metavar="FILE.cu", action="append", default=[],
+                        help="another version of csrc/warp_rotate_flip.cu to time in phase 4 "
+                             "(repeatable)")
     args = parser.parse_args()
     import torch
 
@@ -441,15 +444,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cuda_warp.build(verbose=True)
-    baseline = None
-    if args.baseline:
-        baseline = cuda_warp.load(cuda_warp.build(source=os.path.abspath(args.baseline)))
+    baselines = [(path, cuda_warp.load(cuda_warp.build(verbose=True, source=os.path.abspath(path))))
+                 for path in args.baseline]
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     worst = check_kernel(cuda_warp, device)
-    rows = time_kernel(cuda_warp, device, baseline)
+    rows = time_kernel(cuda_warp, device, baselines)
     torch.backends.cudnn.allow_tf32 = True
 
     trainer, launches, step_ms, peak = run_slice(cuda_warp, scratch)
