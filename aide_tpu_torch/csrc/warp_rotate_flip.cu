@@ -24,10 +24,12 @@
 //      min/max source row and column over the taps it will read; warp
 //      shuffles and shared memory reduce them to the tile's exact source box.
 //   B. The block copies the box into shared memory in the source's own NHWC
-//      layout: a box row is one contiguous run of box_w*C floats in device
-//      memory whatever n90 and the flip are, so the copy is coalesced.
-//   C. Each thread recomputes its taps, reads them from shared memory and
-//      runs the three lerps in the same order as before.
+//      layout with cp.async: a box row is one contiguous run of box_w*C
+//      floats in device memory whatever n90 and the flip are, so the copy is
+//      coalesced, and all of a thread's copies are in flight at once.
+//   C. Each thread recomputes its taps, reads them from shared memory at
+//      y2*sy + x1*sx + base (the rot90 and flip folded into per-block
+//      strides) and runs the three lerps in the same order as before.
 // The box of a tile cannot exceed kBoxSide on a side for residual angles
 // |theta| <= 90 degrees (cuda_warp.box_side derives it; the CPU tests check
 // it against every tile's exact box). A larger box traps: there is no path
@@ -50,28 +52,17 @@ constexpr int kBoxSide = 50;  // bound on a tile's source box side; cuda_warp.BO
 // start in different banks.
 __host__ __device__ __forceinline__ int box_pitch(int c) { return (kBoxSide * c) | 1; }
 
-// floor(d) for |d| < 2^22 with no conversion instruction (those issue at a
-// quarter of the float rate, and the index math needs three a split):
-// d + 1.5 * 2^23 rounded down is floor(d) + 1.5 * 2^23, a float in
-// [2^23, 2^24) where the ulp is 1, so its bits hold floor(d) as an integer.
-constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
-constexpr int kMagicBits = 0x4B400000;
-
 struct Split {
   int k;     // floor(d)
-  float kf;  // floor(d) as a float
   float f;   // d - floor(d)
 };
 
-// j is a pixel index held as a float; small integers are exact in f32, so d
-// is the same float as lam * ((float)j - cen).
-__device__ __forceinline__ Split split(float lam, float j, float cen) {
-  const float d = lam * (j - cen);
-  const float t = __fadd_rd(d, kMagic);
+__device__ __forceinline__ Split split(float lam, int j, float cen) {
+  const float d = lam * ((float)j - cen);
+  const float k = floorf(d);
   Split s;
-  s.k = __float_as_int(t) - kMagicBits;
-  s.kf = t - kMagic;
-  s.f = d - s.kf;
+  s.k = (int)k;
+  s.f = d - k;
   return s;
 }
 
@@ -94,20 +85,19 @@ struct Taps {
 
 __device__ __forceinline__ void taps(Taps& t, int y, int xo, float lam_x, float lam_y,
                                      float cen, int s) {
-  const float yf = (float)y;
-  t.s3 = split(lam_x, yf, cen);
+  t.s3 = split(lam_x, y, cen);
 #pragma unroll
   for (int t3 = 0; t3 < 2; ++t3) {
     const int x3 = xo + t.s3.k + t3;
     t.v3[t3] = inside(x3, s);
-    const Split s2 = split(lam_y, (float)xo + t.s3.kf + (float)t3, cen);
+    const Split s2 = split(lam_y, x3, cen);
     t.f2[t3] = s2.f;
 #pragma unroll
     for (int t2 = 0; t2 < 2; ++t2) {
       const int y2 = y + s2.k + t2;
       t.y2[t3][t2] = y2;
       t.v2[t3][t2] = inside(y2, s);
-      const Split s1 = split(lam_x, yf + s2.kf + (float)t2, cen);
+      const Split s1 = split(lam_x, y2, cen);
       t.f1[t3][t2] = s1.f;
 #pragma unroll
       for (int t1 = 0; t1 < 2; ++t1) {
@@ -135,9 +125,6 @@ warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
   const bool flip = table[4 * n + 3] > 0.5f;
   const float cen = (float)(s - 1) * 0.5f;
   const int xo = (!inverse && flip) ? s - 1 - x : x;
-  // |theta| <= 90 degrees gives |lam| <= 1: the box bound and split's range
-  // hold only there
-  if (!(fabsf(lam_x) <= 2.0f && fabsf(lam_y) <= 2.0f)) __trap();
   const int pitch = box_pitch(c);
   float* fills = box + kBoxSide * pitch;
   const int tid = threadIdx.y * kTile + threadIdx.x;

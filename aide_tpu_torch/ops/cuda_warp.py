@@ -9,30 +9,35 @@ fill value outside the source at every stage, and an hflip. Forward order:
 rot90, shear, hflip. Inverse order (theta negated before rot90 is chosen):
 hflip, rot90, shear.
 
-What bounds it on an H100: device-memory bytes at best. Each output pixel
-is a fixed composition of three lerps, 2 taps a stage, so 8 source reads
-and a few dozen flops per channel; one input read and one output write per
-element is the floor. At the CHAOS point one co-teaching step warps
-2 x (32, 256, 256, 3) f32 forward and (64, 256, 256, 2) f32 inverse:
-2 x (25.2 + 25.2) MB + (33.6 + 33.6) MB = 168 MB.
+What bounds it on an H100: its floor is device-memory bytes. Each output
+pixel is a fixed composition of three lerps, 2 taps a stage, so 8 source
+reads and a few dozen flops per channel; one input read and one output
+write per element is the floor. At the CHAOS point one co-teaching step
+warps 2 x (32, 256, 256, 3) f32 forward and (64, 256, 256, 2) f32 inverse:
+2 x (25.2 + 25.2) MB + (33.6 + 33.6) MB = 168 MB. In practice it is bound
+by instruction issue: the 8-tap index math (7 floors, 14 bounds checks)
+runs for every pixel, and each channel of each tap is its own load.
 
 What the design does about it: the Pallas body keeps a whole (H, W) slice
 in VMEM and shears it with log2(N) masked rolls; a 256^2 f32 slice (256 KiB)
 does not fit a block's 227 KB of shared memory. A first kernel computed
 each output pixel in its own thread from 8 taps read straight from device
 memory; a warp's taps lie along the rotated direction of the source (down
-a source column when the rot90 is folded in), so it was bound by scattered
-load issue, not bytes. The kernel now takes one block per 32 x 32 output
-tile: it reduces the exact box of source pixels that the tile's taps read
-(at most BOX_SIDE on a side, about 2.2x the tile at 45 degrees), copies that
-box into shared memory with coalesced loads (a box row is one contiguous
-run of the NHWC source whatever the rot90 and flip are), then gathers the
-taps from shared memory. A warp is one output row, so its stores are one
-contiguous run. rot90, hflip and the NHWC<->NCHW transposes of the Pallas
-wrapper fold into the index math: the kernel reads and writes NHWC (the
-memory of a channels_last NCHW tensor) with no copy. ``source_boxes`` is
-the tile boxes in plain PyTorch, from the same index math as
-``warp_plain``.
+a source column when the rot90 is folded in), so its loads were scattered.
+The kernel now takes one block per 32 x 32 output tile: it reduces the
+exact box of source pixels that the tile's taps read (at most BOX_SIDE on a
+side, about 2.2x the tile at 45 degrees), copies that box into shared
+memory with cp.async (a box row is one contiguous run of the NHWC source
+whatever the rot90 and flip are, so the copy is coalesced), then gathers
+the taps from shared memory. A warp is one output row, so its stores are
+one contiguous run. Its time goes to the per-pixel index math, twice
+(footprint and gather), and to the gather's shared-memory loads, whose
+addresses follow a rotated line of the box and so meet in the same banks;
+PERF.md has the measurements.
+rot90, hflip and the NHWC<->NCHW transposes of the Pallas wrapper fold into
+the index math: the kernel reads and writes NHWC (the memory of a
+channels_last NCHW tensor) with no copy. ``source_boxes`` is the tile boxes
+in plain PyTorch, from the same index math as ``warp_plain``.
 
 ``warp_rotate_flip`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs ``warp_plain``, the same 8-tap function in
@@ -387,7 +392,9 @@ def warp_rotate_flip(
 
     images (B, H, W, C) with H == W, any float dtype (computed in f32 and
     cast back); degrees/hflip (B,); fill scalar | (C,) | (B, C). A CUDA
-    tensor goes to the kernel, a CPU tensor to the plain version."""
+    tensor goes to the kernel, which takes |degrees| <= 180 (a larger
+    angle can need a source box over BOX_SIDE, and the kernel traps); a
+    CPU tensor goes to the plain version."""
     b, h, w, c = images.shape
     if h != w:
         raise ValueError(f"warp_rotate_flip needs a square image, got H={h}, W={w}")

@@ -38,7 +38,6 @@ check fails.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
 import os

@@ -247,7 +247,7 @@ def _cuda_matches_plain(device, images, degrees, hflip, fill, inverse):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("size,c", [(33, 3), (64, 2), (100, 2), (256, 3), (512, 2)])
+@pytest.mark.parametrize("size,c", [(33, 3), (64, 2), (100, 2), (256, 3), (512, 2), (64, 1), (100, 5)])
 def test_cuda_kernel_matches_plain(cuda_device, size, c, inverse):
     images, degrees, hflip, fill = _inputs(c, "image", size=size, seed=size + c)
     # up to ±135 degrees, then the regime boundaries with both flips
