@@ -256,16 +256,9 @@ warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
 }  // namespace
 
 // Dynamic shared memory of one block for C channels, in bytes: the box,
-// then the image's C fill values.
+// then the image's C fill values. The wrapper checks it against its own.
 extern "C" int warp_rotate_flip_smem_bytes(int c) {
   return (kBoxSide * box_pitch(c) + c) * (int)sizeof(float);
-}
-
-// Tile side and box bound the kernel was built with, for the wrapper to
-// check against its own.
-extern "C" void warp_rotate_flip_geometry(int* tile, int* box_side) {
-  *tile = kTile;
-  *box_side = kBoxSide;
 }
 
 // Plain C entry point (loaded with ctypes). Launches on `stream`, does not

@@ -80,8 +80,8 @@ NVCC_FLAGS = (
 )
 
 # Output tile side of the kernel and the bound on the side of a tile's source
-# box (kTile and kBoxSide in the source; the loaded library is checked
-# against both).
+# box (kTile and kBoxSide in the source; the tests read both there, and the
+# loaded library's shared-memory size is checked against smem_bytes).
 TILE = 32
 # Dynamic shared memory a block may have on an H100 (227 KB).
 SMEM_LIMIT = 232448
@@ -325,13 +325,15 @@ def _library():
     global _lib
     if _lib is None:
         lib = load(build())
-        tile, side = ctypes.c_int(), ctypes.c_int()
-        lib.warp_rotate_flip_geometry(ctypes.byref(tile), ctypes.byref(side))
-        if (tile.value, side.value) != (TILE, BOX_SIDE):
-            raise RuntimeError(
-                f"kernel built with tile {tile.value}, box side {side.value}; "
-                f"the wrapper sizes shared memory for tile {TILE}, box side {BOX_SIDE}"
-            )
+        fn = lib.warp_rotate_flip_smem_bytes
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
+        for c in range(1, 9):
+            if fn(c) != smem_bytes(c):
+                raise RuntimeError(
+                    f"the kernel takes {fn(c)} bytes of shared memory at C={c}; "
+                    f"launch sizes {smem_bytes(c)} (BOX_SIDE {BOX_SIDE})"
+                )
         _lib = lib
     return _lib
 
