@@ -266,6 +266,9 @@ def run_slice(cuda_warp, scratch):
         return out
 
     trainer.train_step = timed_step
+    # release the blocks phases 3-4 left cached: the allocator counts a large
+    # block it does not split in full, so the peak would depend on them
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     cuda_warp.reset_launches()
