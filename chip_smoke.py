@@ -248,6 +248,10 @@ def run_slice(cuda_warp, scratch):
         noisy_fraction=0.5, clean_cases=1, num_test_cases=1,
         test_case_offset=100, seed=7,
     )
+    # release the blocks phases 3-4 left cached before the trainer allocates:
+    # the allocator counts a large block it does not split in full, so the
+    # peak would depend on what the earlier phases allocated
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, task)
     setup_s = time.perf_counter() - t0
@@ -266,9 +270,6 @@ def run_slice(cuda_warp, scratch):
         return out
 
     trainer.train_step = timed_step
-    # release the blocks phases 3-4 left cached: the allocator counts a large
-    # block it does not split in full, so the peak would depend on them
-    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     cuda_warp.reset_launches()
