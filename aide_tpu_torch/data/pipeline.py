@@ -6,7 +6,9 @@ normalization coefficients (normalized = u8 * scale + fill, applied on the
 device by ``engine.steps.batch_images``); epochs only index into the arrays.
 ``to_device`` uploads them once and gathers each batch on the device by
 index. The per-net working labels live in a LabelStore, which starts from
-the targets and takes any refreshed labels already mirrored to disk.
+the targets, takes any refreshed labels already mirrored to disk, and
+mirrors each refresh back to disk; ``sync_labels_to_device`` then copies
+the refreshed rows into the device copy.
 """
 
 from __future__ import annotations
@@ -20,16 +22,18 @@ from aide_tpu_torch.data.tasks.base import SliceSpec, Task, resize_image, resize
 
 
 class LabelStore:
-    """Per-net working labels (N, H, W), read back from the task's disk
-    mirror where it holds them. (Refreshing them comes with the label
-    refresh, which is not ported yet.)"""
+    """Per-net working labels (N, H, W) and their disk mirror via the task."""
 
     def __init__(self, task: Task, specs: Sequence[SliceSpec], targets: np.ndarray):
+        self.task = task
+        self.specs = list(specs)
         size = targets.shape[1]
         self.labels = [targets.copy(), targets.copy()]  # net 1, net 2
+        # rows changed since the last device sync (sync_labels_to_device)
+        self.dirty: List[List[int]] = [[], []]
         # pick up refreshed labels already on disk (resume / interop)
         for net in (1, 2):
-            for i, spec in enumerate(specs):
+            for i, spec in enumerate(self.specs):
                 disk = task.read_tempmask(spec, net)
                 if disk is not None:
                     if disk.shape != targets.shape[1:]:
@@ -38,6 +42,20 @@ class LabelStore:
 
     def get(self, net: int) -> np.ndarray:
         return self.labels[net - 1]
+
+    def refresh_case(
+        self, net: int, indices: Sequence[int], volume: np.ndarray, mirror: bool = True
+    ) -> None:
+        """Replace one case's working labels (``indices`` into the slice
+        table, ``volume`` (S, H, W) binary at img_size) and mirror them to
+        disk."""
+        lab = self.labels[net - 1]
+        for i, sl in zip(indices, volume):
+            lab[i] = sl.astype(np.uint8)
+        self.dirty[net - 1].extend(int(i) for i in indices)
+        if mirror and self.task.tempmask_folder:
+            specs = [self.specs[i] for i in indices]
+            self.task.write_case_tempmask(specs, volume.astype(np.uint8), net)
 
 
 def _widen_targets(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -132,18 +150,49 @@ class SlicePipeline:
                 f"target{net}": torch.from_numpy(self.labels.get(net)).to(device)
                 for net in (1, 2)
             }
+            self.labels.dirty = [[], []]
+
+    @property
+    def device_image_data(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The device-resident image arrays (no targets or labels): the data
+        argument of ``engine.steps.make_predict_all``. None unless
+        ``to_device`` was called."""
+        if self._device_data is None:
+            return None
+        return {k: v for k, v in self._device_data.items() if not k.startswith("target")}
+
+    def sync_labels_to_device(self) -> None:
+        """Copy the working-label rows changed on the host (``refresh_case``)
+        into the device copy, one ``index_copy_`` a net. Without a device
+        copy it only clears the record of changed rows."""
+        if self.labels is None:
+            return
+        if self._device_labels is not None:
+            for net in (1, 2):
+                idx = self.labels.dirty[net - 1]
+                if not idx:
+                    continue
+                dev = self._device_labels[f"target{net}"]
+                rows = torch.from_numpy(self.labels.get(net)[idx]).to(dev.device)
+                dev.index_copy_(0, torch.tensor(idx, dtype=torch.int64, device=dev.device), rows)
+        self.labels.dirty = [[], []]
 
     # ------------------------- batching -------------------------
 
-    def _batch_from(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
+    def _batch_from(self, idx: np.ndarray, images_only: bool = False) -> Dict[str, torch.Tensor]:
         if self._device_data is not None:
             data = dict(self._device_data)
             if self._device_labels is not None:
                 data.update(self._device_labels)
-            device = data["target"].device
+            if images_only:
+                # inference never reads the labels: do not gather them
+                data = {k: v for k, v in data.items() if not k.startswith("target")}
+            device = next(iter(data.values())).device
             i = torch.from_numpy(np.asarray(idx, np.int64)).to(device)
             return _widen_targets({k: v.index_select(0, i) for k, v in data.items()})
         batch = {k: torch.from_numpy(v[idx]) for k, v in self._host_arrays().items()}
+        if images_only:
+            return {k: v for k, v in batch.items() if k != "target"}
         if self.labels is not None:
             batch["target1"] = torch.from_numpy(self.labels.get(1)[idx])
             batch["target2"] = torch.from_numpy(self.labels.get(2)[idx])
@@ -170,3 +219,19 @@ class SlicePipeline:
     def steps_per_epoch(self, batch_size: int, drop_last: bool = True) -> int:
         n = len(self.specs)
         return n // batch_size if drop_last else -(-n // batch_size)
+
+    # ------------------------- case access -------------------------
+
+    def case_indices(self, case_id: str) -> List[int]:
+        return self.case_slices[str(case_id)]
+
+    def batch_at(self, indices, images_only: bool = False) -> Dict[str, torch.Tensor]:
+        """The batch of explicit slice indices (packed case eval);
+        ``images_only`` leaves out the targets and working labels."""
+        return self._batch_from(np.asarray(indices), images_only=images_only)
+
+    def case_targets(self, case_id: str, net: Optional[int] = None) -> np.ndarray:
+        """(S, H, W) stacked working labels of ``net`` (ground truth for None)."""
+        idxs = self.case_indices(case_id)
+        src = self.targets if net is None else self.labels.get(net)
+        return src[idxs]

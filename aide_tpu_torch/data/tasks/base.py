@@ -8,6 +8,7 @@ Pillow is imported only when an image must actually be resized.
 
 from __future__ import annotations
 
+import csv
 import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -75,6 +76,23 @@ class Task:
 
     def load_manifest(self, csv_path: str, train: bool = True) -> List[SliceSpec]:
         raise NotImplementedError
+
+    @staticmethod
+    def load_case_list(csv_path: str) -> List[str]:
+        """The ``patient_case`` column of a case-level CSV, as strings. A
+        column of numbers reads as pandas reads it: all integers as ints
+        ("07" -> "7"), else all floats as floats, else the text as it is."""
+        with open(csv_path, newline="") as fh:
+            rows = csv.DictReader(fh)
+            if rows.fieldnames is None or "patient_case" not in rows.fieldnames:
+                raise KeyError(f"{csv_path!r} has no 'patient_case' column")
+            values = [row["patient_case"] for row in rows]
+        for cast in (int, float):
+            try:
+                return [str(cast(v)) for v in values]
+            except ValueError:
+                pass
+        return values
 
     def decode(self, spec: SliceSpec) -> Tuple[Tuple[np.ndarray, ...], np.ndarray]:
         """Returns (images, mask): images float32 (H, W, 3) in [0, 255];

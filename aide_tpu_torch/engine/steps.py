@@ -1,4 +1,4 @@
-"""The co-teaching train step and the dual eval step.
+"""The co-teaching train step, the dual eval step and the predict programs.
 
 ``make_coteach_train_step`` is the counterpart of
 ``aide_tpu.engine.steps.make_coteach_train_step``, in this order: TTA views
@@ -13,12 +13,17 @@ net exactly its own gradient.
 
 The view parameters come in as arguments (the trainer draws them), so a
 test can hand the step the JAX package's stream.
+
+The predict programs (``make_predict_step``, ``make_predict_all``,
+``make_eval_predict_all``) run both nets without gradients in eval-mode BN
+under the model's own autocast, and give argmax labels as uint8.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from aide_tpu_torch.core.config import TrainConfig
@@ -168,3 +173,84 @@ def make_eval_step(two_modal: bool, cfg: TrainConfig):
         }
 
     return step
+
+
+def _labels(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.uint8)
+
+
+def _gather(data: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return {k: v.index_select(0, idx) for k, v in data.items()}
+
+
+def _index_matrix(data: Dict[str, torch.Tensor], mat, dtype=torch.int64) -> torch.Tensor:
+    """An index or mask matrix from the host, on the data's device."""
+    device = next(iter(data.values())).device
+    return torch.from_numpy(np.asarray(mat)).to(device=device, dtype=dtype)
+
+
+def make_predict_step(two_modal: bool):
+    """predict(state, batch) -> (2, B, H, W) uint8 labels of the pair."""
+
+    @torch.no_grad()
+    def predict(state: DualTrainState, batch) -> torch.Tensor:
+        images = batch_images(batch, two_modal)
+        state.train(False)
+        return torch.stack([_labels(net(*images)) for net in state.nets])
+
+    return predict
+
+
+def make_predict_all(two_modal: bool):
+    """run(state, data, idx_mat) -> (N, 2, B, H, W) uint8 labels: one
+    predict per row of the (N, B) index matrix, each batch gathered on the
+    device from ``data`` (``SlicePipeline.device_image_data``)."""
+    predict = make_predict_step(two_modal)
+
+    @torch.no_grad()
+    def run(state: DualTrainState, data, idx_mat) -> torch.Tensor:
+        rows = _index_matrix(data, idx_mat)
+        return torch.stack([predict(state, _gather(data, row)) for row in rows])
+
+    return run
+
+
+def make_eval_predict_all(two_modal: bool, cfg: TrainConfig):
+    """The test pass fused with the test cases' labels.
+
+    run(state, data, idx_mat, valid_mat) -> (totals, labels): per row of
+    the (N, B) index matrix into ``data`` (the pipe's device arrays, ground
+    truth included), the per-image loss and dice of each net against the
+    ground truth, summed over the images that ``valid_mat`` marks (the
+    padded tail of the last row is 0), and the (2, B, H, W) uint8 labels.
+    totals has the keys of ``make_eval_step`` with loss sums weighted per
+    image (Trainer._accumulate's bookkeeping); labels are (N, 2, B, H, W).
+    """
+    image_criterion = make_image_criterion(cfg)
+    thr = cfg.eval.threshold
+
+    @torch.no_grad()
+    def run(state: DualTrainState, data, idx_mat, valid_mat):
+        rows = _index_matrix(data, idx_mat)
+        valid_rows = _index_matrix(data, valid_mat, torch.float32)
+        state.train(False)
+        totals, labels = None, []
+        for row, valid in zip(rows, valid_rows):
+            batch = _gather(data, row)
+            target = batch.pop("target").to(torch.int64)
+            images = batch_images(batch, two_modal)
+            out1, out2 = (net(*images) for net in state.nets)
+            d1, _ = metrics._dice_vector(out1, target, thr)
+            d2, _ = metrics._dice_vector(out2, target, thr)
+            m = {
+                "loss1": (image_criterion(out1, target) * valid).sum(),
+                "loss2": (image_criterion(out2, target) * valid).sum(),
+                "dice1_sum": (d1 * valid).sum(),
+                "dice2_sum": (d2 * valid).sum(),
+                "count": valid.sum(),
+            }
+            totals = m if totals is None else {k: totals[k] + m[k] for k in m}
+            labels.append(torch.stack([_labels(out1), _labels(out2)]))
+        return totals, torch.stack(labels)
+
+    return run

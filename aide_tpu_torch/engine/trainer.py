@@ -1,18 +1,34 @@
-"""The training engine's dual co-teaching epoch.
+"""The training engine's dual co-teaching epoch and run.
 
-The counterpart of ``aide_tpu.engine.trainer.Trainer`` for what it runs
-per epoch before case evaluation: ``__init__`` (pipelines on the device,
-two nets initialised as flax does, one AMSGrad), ``_train_epoch`` (the
-shuffled co-teaching steps) and ``_test_epoch`` (the dual test pass), with
-the metric bookkeeping of ``_accumulate`` / ``_finalize``. The rest of
-``run_epoch`` (case eval, label refresh, the guardrail, checkpoints),
-``run``, the CLI and the supervised path are not ported yet.
+The counterpart of ``aide_tpu.engine.trainer.Trainer`` for the dual
+co-teaching trainer (flagship reference: the CHAOS proposed trainer). Per
+epoch, ``run_epoch``:
+
+  rate        <- min((epoch/warmup)^2, 1)
+  train       <- the shuffled co-teaching steps (engine/steps.py)
+  test        <- the test pass fused with the test cases' labels
+  train cases <- re-inference against each net's working labels
+  case eval   <- largest-CC and 3D Dice per case on the host
+  checkpoint  <- best mean train-case dice (optional ascending gate)
+  refresh     <- the worst update_percent cases per net get the net's
+                 prediction as working labels (labeled cases exempt), on
+                 disk and on the device
+  guardrail   <- the end-of-ramp engagement verdict
+
+``run`` loops over the epochs and writes the history and the best-epoch
+exports even when an epoch fails. Not ported yet: the supervised path, the
+CLI, resume and warm start with their ``_full`` files (ROADMAP Queue 1
+items 10, 14, 15).
 """
 
 from __future__ import annotations
 
+import json
 import math
-from typing import Dict, Optional
+import os
+import shutil
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -20,12 +36,22 @@ from torch import nn
 
 from aide_tpu_torch.core import prng
 from aide_tpu_torch.core.config import TrainConfig
+from aide_tpu_torch.core.logging import record_params, setup_logging
 from aide_tpu_torch.data.pipeline import SlicePipeline
+from aide_tpu_torch.engine import checkpoint as ckpt
 from aide_tpu_torch.engine import steps as steps_mod
 from aide_tpu_torch.engine.state import DualTrainState
+from aide_tpu_torch.evaluation.case_eval import (
+    _postprocess_case,
+    dice3d_np,
+    pack_case_stream,
+    score_case_volumes,
+    start_case_evaluation,
+    start_host_copy,
+)
 from aide_tpu_torch.models import build_model
 from aide_tpu_torch.ops import tta
-from aide_tpu_torch.ops.schedules import make_optimizer
+from aide_tpu_torch.ops.schedules import make_optimizer, rate_schedule
 
 # flax's lecun_normal: a normal truncated at ±2 std, rescaled by the std of
 # the standard normal truncated there, so the variance stays 1/fan_in
@@ -59,8 +85,17 @@ def init_net(model_cfg, seed: int) -> nn.Module:
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, task, device=None):
+    def __init__(self, cfg: TrainConfig, task, device=None, logger=None):
         self.device = resolve_device(device)
+        if cfg.resume_file:
+            raise NotImplementedError(
+                "resume_file (resume and warm start) is not ported yet: "
+                "ROADMAP Queue 1 item 14"
+            )
+        if cfg.checkpoint_flush not in ("best", "end"):
+            raise NotImplementedError(
+                f"checkpoint_flush must be 'best' or 'end', got {cfg.checkpoint_flush!r}"
+            )
         self.cfg = cfg
         self.task = task
         self.two_modal = task.two_modal
@@ -71,6 +106,8 @@ class Trainer:
             raise NotImplementedError("the port trains the two-modal FuseUNet only")
         if cfg.data.augment_main:
             raise NotImplementedError("data.augment_main is not ported yet")
+        self.logger = logger or setup_logging(cfg.history_dir, cfg.experiment_name)
+        record_params(self.logger, cfg)
 
         train_specs = task.load_manifest(cfg.data.train_csv, train=True)
         test_specs = task.load_manifest(cfg.data.test_csv, train=False)
@@ -82,6 +119,33 @@ class Trainer:
             task, test_specs, cfg.data.img_size, cfg.data.data_mean,
             cfg.data.data_std, working_labels=False,
         )
+        d = cfg.data
+        self.train_cases = (
+            task.load_case_list(d.traincase_csv) if d.traincase_csv else list(self.train_pipe.cases)
+        )
+        self.test_cases = (
+            task.load_case_list(d.testcase_csv) if d.testcase_csv else list(self.test_pipe.cases)
+        )
+        self.label_cases = set(task.load_case_list(d.labelcase_csv) if d.labelcase_csv else [])
+        # observation hook, called as on_refresh(epoch) once a refresh is
+        # applied and synced to the device
+        self.on_refresh = None
+        # every refresh decision in order: (epoch, net, worst-k selection,
+        # the subset actually rewritten)
+        self.refresh_log: list = []
+        # the end-of-ramp engagement verdict (coteach.engagement_check),
+        # None before the ramp ends
+        self.engagement = None
+        # the bootstrap skill probe {"bootstrap_skill1", "bootstrap_skill2"}:
+        # measured by a warm-started run before its first step, or set by
+        # the caller before run(); None when neither applies
+        self.engagement_probe = None
+        self._label_fg_cache = None
+        # the working labels as the first refresh found them: the reference
+        # of the retention and foreground signals
+        self._bootstrap_labels = None
+        self._structural_warned = False
+
         self.device_resident = cfg.data.device_cache in ("on", "auto")
         if self.device_resident:
             self.train_pipe.to_device(self.device)
@@ -97,6 +161,25 @@ class Trainer:
         self.state = DualTrainState(nets[0], nets[1], optimizer)
         self.train_step = steps_mod.make_coteach_train_step(self.two_modal, cfg)
         self.eval_step = steps_mod.make_eval_step(self.two_modal, cfg)
+        self.predict_step = steps_mod.make_predict_step(self.two_modal)
+        # whole-set inference and the fused test tail gather on the device,
+        # so they need the device-resident data
+        self.predict_all = (
+            steps_mod.make_predict_all(self.two_modal) if self.device_resident else None
+        )
+        self.eval_predict_all = (
+            steps_mod.make_eval_predict_all(self.two_modal, cfg) if self.device_resident else None
+        )
+
+        self.best_dice = 0.0
+        # checkpoint_flush == 'end': the best epoch's state dicts, cloned on
+        # the device, and their meta; flush_checkpoints writes them
+        self._best_snapshot: Optional[ckpt.StateDicts] = None
+        self._best_meta: Optional[Dict] = None
+        # the kidney-style changepoint gate
+        self.ascending = not cfg.ascending_checkpoint_gate
+        self.changepoint_dice = 0.0
+        self.history: List[Dict] = []
 
     # ------------------------------------------------------------------
 
@@ -154,3 +237,468 @@ class Trainer:
             batch = dict(batch, target1=batch["target"], target2=batch["target"])
             totals = self._accumulate(totals, self.eval_step(self.state, batch))
         return self._finalize(totals)
+
+    def _dispatch_fused_test(self, case_timing):
+        """Queue the fused test pass (metrics and test-case labels in one
+        loop); return a closure giving (test_metrics, testcase_results), or
+        None where it does not apply: a pipe that is not on the device, or a
+        test-case list that does not cover the test pipe once (the metrics
+        come from the same packed stream, so partial cover would change
+        them)."""
+        if self.eval_predict_all is None:
+            return None
+        pipe = self.test_pipe
+        if pipe._device_data is None:
+            return None
+        eb = self.cfg.data.eval_batch_size
+        case_ids, counts, n, padded = pack_case_stream(pipe, self.test_cases, eb)
+        if n != len(pipe) or len(set(padded[:n].tolist())) != n:
+            return None
+        t0 = time.perf_counter()
+        idx_mat = padded.reshape(-1, eb)
+        valid = (np.arange(idx_mat.size) < n).astype(np.float32).reshape(idx_mat.shape)
+        totals, labels = self.eval_predict_all(self.state, pipe._device_data, idx_mat, valid)
+        keys = list(totals)
+        wait_totals = start_host_copy(torch.stack([totals[k].float() for k in keys]))
+        wait_labels = start_host_copy(labels)
+        dispatch_t = time.perf_counter() - t0
+        keep_cc = self.cfg.eval.keep_largest_cc
+
+        def finish():
+            t1 = time.perf_counter()
+            host = dict(zip(keys, wait_totals().tolist()))
+            out = wait_labels()  # (N, 2, B, H, W)
+            case_timing["fetch"] = (
+                case_timing.get("fetch", 0.0) + dispatch_t + time.perf_counter() - t1
+            )
+            t1 = time.perf_counter()
+            count = max(float(host.pop("count")), 1.0)
+            test_m = {k: float(v) / count for k, v in host.items()}
+            preds = np.moveaxis(out, 1, 0).reshape(2, -1, *out.shape[3:])[:, :n]
+            volumes, offset = [], 0
+            for cnt in counts:
+                volumes.append(_postprocess_case(preds[:, offset : offset + cnt], keep_cc))
+                offset += cnt
+            case_timing["host"] = case_timing.get("host", 0.0) + time.perf_counter() - t1
+            testcase = score_case_volumes(
+                pipe, case_ids, volumes, dual=True, target_net=None, timing=case_timing,
+            )
+            return test_m, testcase
+
+        return finish
+
+    # ------------------------------ refresh ------------------------------
+
+    def _refresh_labels(self, epoch: int, traincase_results) -> None:
+        """Overwrite the working labels of the worst update_percent cases
+        per net with the net's post-CC prediction."""
+        cfg = self.cfg
+        k = int(cfg.coteach.update_percent * len(self.train_cases))
+        if cfg.coteach.engagement_check and self._bootstrap_labels is None:
+            # snapshot the pre-refresh (bootstrap) labels + structural check
+            self._bootstrap_labels = {n: self.train_pipe.labels.get(n).copy() for n in (1, 2)}
+            self._structural_refresh_check(k)
+        for net_idx in range(2):
+            results = traincase_results[net_idx]
+            # on the host, as the JAX package sorts, so ties break alike
+            order = np.argsort([r.dice for r in results])
+            selected, refreshed = [], []
+            for sel in order[:k]:
+                r = results[sel]
+                selected.append(r.case_id)
+                if r.case_id in self.label_cases:
+                    continue  # labeled cases are never rewritten
+                vol = r.pred_volume
+                if cfg.coteach.refresh_skip_empty and vol.sum() == 0:
+                    continue  # the kidney convention
+                idxs = self.train_pipe.case_indices(r.case_id)
+                self.train_pipe.labels.refresh_case(net_idx + 1, idxs, vol)
+                refreshed.append(r.case_id)
+            # the FULL worst-k selection, labeled and skipped cases included,
+            # as the reference prints it; the rewritten subset where it differs
+            self.logger.info("Mask {} modify for net{}".format(selected, net_idx + 1))
+            self.refresh_log.append((epoch, net_idx + 1, tuple(selected), tuple(refreshed)))
+            if refreshed != selected:
+                self.logger.info(
+                    "  (rewritten for net{}: {} — labeled/empty cases "
+                    "skipped)".format(net_idx + 1, refreshed)
+                )
+        self.train_pipe.sync_labels_to_device()
+        if self.on_refresh is not None:
+            self.on_refresh(epoch)
+
+    def _is_refresh_epoch(self, epoch: int) -> bool:
+        e1 = epoch + 1
+        return e1 <= self.cfg.coteach.warmup_epochs or (
+            e1 % self.cfg.coteach.refresh_interval == 0
+        )
+
+    # --------------------------- engagement ---------------------------
+
+    def _structural_refresh_check(self, k: int) -> bool:
+        """Label half-life check, once, at the first refresh: with
+        ``n_refreshable`` rewritable cases and the worst ``k`` rewritten per
+        warmup epoch, a case's bootstrap labels survive ``n_refreshable / k``
+        epochs on average. Under ~3 the bootstrap label information is gone
+        before the nets can learn it, and fresh-init co-teaching trains on
+        its own early noise (the reference's flagship has 30/7 ~ 4.3)."""
+        n_refreshable = sum(1 for c in self.train_cases if str(c) not in self.label_cases)
+        half_life = n_refreshable / max(k, 1)
+        ok = half_life >= 3.0 or k == 0
+        if not ok and not self._structural_warned:
+            self._structural_warned = True
+            self.logger.warning(
+                "STRUCTURAL REFRESH CHECK FAILED: %d refreshable cases with "
+                "worst-%d rewritten per refresh epoch — label half-life "
+                "%.1f epochs (< 3). Bootstrap label information will not "
+                "survive the warmup ramp; fresh-init co-teaching degrades "
+                "into self-training on early noise. Mitigate with more "
+                "unlabeled cases, a smaller coteach.update_percent, a "
+                "larger refresh_interval, or a pretrain warm start "
+                "(resume_file).",
+                n_refreshable, k, half_life,
+            )
+        return ok
+
+    def _bootstrap_skill_probe(self) -> None:
+        """Layer 0 of the engagement guardrail: before the first train step,
+        score the warm-started nets on the labeled (clean) cases. In the
+        transfer protocol the bootstrap working labels are the same source
+        model's predictions, so this dice reads the bootstrap label quality
+        without an oracle: the axis of the ~0.2 engagement cliff. After even
+        one epoch the nets have fit the labeled cases and the reading is
+        contaminated upward."""
+        cases = sorted(self.label_cases)
+        finish = start_case_evaluation(
+            self.predict_step, self.state, self.train_pipe, cases,
+            self.cfg.data.eval_batch_size, dual=self.dual,
+            target_net="self" if self.dual else None,
+            keep_largest_cc=self.cfg.eval.keep_largest_cc,
+        )
+        res = finish()
+        self.engagement_probe = {
+            f"bootstrap_skill{n + 1}": float(np.mean([r.dice for r in res[n]])) for n in res
+        }
+        ms = self.cfg.coteach.engagement_min_bootstrap_skill
+        vals = tuple(self.engagement_probe.values())
+        if min(vals) < ms:
+            self.logger.warning(
+                "BOOTSTRAP SKILL PROBE below the engagement cliff: "
+                "warm-started nets score %.3f/%.3f case dice on the "
+                "labeled clean cases (threshold %.2f). In the transfer "
+                "protocol this is the bootstrap label quality — below the "
+                "~0.2 cliff the refresh loop cannot mine real quality and "
+                "the end state lands under its own pretrain "
+                "(experiments/RESULTS.md transfer table). RECOMMENDATION: "
+                "abstain — deploy the pretrain/bootstrap weights. The "
+                "end-of-ramp verdict will record engaged=false.",
+                *(list(vals) + [ms]),
+            )
+        else:
+            self.logger.info(
+                "bootstrap skill probe: %.3f/%.3f case dice on labeled "
+                "cases (cliff threshold %.2f)", *(list(vals) + [ms]),
+            )
+
+    def _engagement_signals(self, traincase) -> Dict[str, float]:
+        """Whether the refresh is engaging: cross-net agreement Dice over the
+        train-case predictions, and each net's predicted over bootstrap
+        label foreground volume. Host counts over volumes the epoch already
+        has."""
+        inter = 0
+        fg = [0, 0]
+        for r1, r2 in zip(traincase[0], traincase[1]):
+            v1 = r1.pred_volume > 0
+            v2 = r2.pred_volume > 0
+            inter += int(np.count_nonzero(v1 & v2))
+            fg[0] += int(np.count_nonzero(v1))
+            fg[1] += int(np.count_nonzero(v2))
+        denom = fg[0] + fg[1]
+        crossnet = 1.0 if denom == 0 else 2.0 * inter / denom
+        if self._label_fg_cache is None:
+            # the bootstrap labels once snapshotted (a refresh rewrites the
+            # current labels to the nets' own predictions, which would make
+            # the ratio ~1 even in a collapsed run); before any refresh the
+            # current labels are the bootstrap. Counted once.
+            src = self._bootstrap_labels or {n: self.train_pipe.labels.get(n) for n in (1, 2)}
+            self._label_fg_cache = [max(int(np.count_nonzero(src[n])), 1) for n in (1, 2)]
+        label_fg = self._label_fg_cache
+        return {
+            "crossnet_dice": crossnet,
+            "fg_ratio1": fg[0] / label_fg[0],
+            "fg_ratio2": fg[1] / label_fg[1],
+        }
+
+    def _engagement_verdict(self, eng: Dict[str, float]) -> bool:
+        """The end-of-ramp verdict (epoch == coteach.warmup_epochs): True
+        when the run looks engaged; otherwise it logs the ABSTAIN
+        recommendation, to fall back to the pretrain/bootstrap weights."""
+        ct = self.cfg.coteach
+        lo, hi = ct.engagement_fg_band
+        ok = (
+            eng["crossnet_dice"] >= ct.engagement_min_agreement
+            and lo <= eng["fg_ratio1"] <= hi
+            and lo <= eng["fg_ratio2"] <= hi
+        )
+        # bootstrap retention (Dice of current vs bootstrap labels): logged
+        # and recorded, not thresholded
+        if self._bootstrap_labels is not None:
+            eng = dict(
+                eng,
+                bootstrap_retention1=dice3d_np(
+                    self.train_pipe.labels.get(1), self._bootstrap_labels[1]
+                ),
+                bootstrap_retention2=dice3d_np(
+                    self.train_pipe.labels.get(2), self._bootstrap_labels[2]
+                ),
+            )
+        if self._structural_warned:
+            # the half-life check failed at the first refresh
+            ok = False
+        probe_ok = True
+        band = None
+        if self.engagement_probe is not None:
+            eng = dict(eng, **self.engagement_probe)
+            q = min(self.engagement_probe.values())
+            if q < ct.engagement_min_bootstrap_skill:
+                # below the cliff the ramp-end signals are self-consistent
+                # but vacuous; the probe is the signal that sees it
+                band, probe_ok, ok = "below_cliff", False, False
+            elif q < ct.engagement_clear_skill:
+                band = "transition"
+                self.logger.warning(
+                    "bootstrap quality %.3f is in the transition band "
+                    "[%.2f, %.2f): the margin over pretrain is an inverted "
+                    "U here and can be negative (a->m seed 23: +0.073 over "
+                    "naive, -0.049 vs its own pretrain). CAUTION: validate "
+                    "the deployed checkpoint against the pretrain weights "
+                    "on target validation data before shipping.",
+                    q, ct.engagement_min_bootstrap_skill, ct.engagement_clear_skill,
+                )
+            else:
+                band = "clear"
+        self.engagement = {
+            **eng, "engaged": ok, "structural_ok": not self._structural_warned,
+            "bootstrap_skill_ok": probe_ok,
+            **({"bootstrap_band": band} if band else {}),
+        }
+        if ok:
+            self.logger.info(
+                "engagement check OK at end of ramp: cross-net agreement "
+                "%.3f, fg ratios %.2f/%.2f",
+                eng["crossnet_dice"], eng["fg_ratio1"], eng["fg_ratio2"],
+            )
+        else:
+            self.logger.warning(
+                "ENGAGEMENT CHECK FAILED at end of warmup ramp: cross-net "
+                "agreement %.3f (min %.3f), predicted-vs-bootstrap-label "
+                "foreground ratios %.2f/%.2f (band %.2f-%.2f), structural "
+                "half-life check %s. The co-teaching refresh is not "
+                "engaging — typical causes: bootstrap working labels below "
+                "the ~0.2-quality cliff, a collapsed net, or too few "
+                "refreshable cases per rewrite. RECOMMENDATION: abstain — "
+                "deploy the pretrain/bootstrap weights instead of this "
+                "run's checkpoints (experiments/RESULTS.md, transfer "
+                "ladder).",
+                eng["crossnet_dice"], ct.engagement_min_agreement,
+                eng["fg_ratio1"], eng["fg_ratio2"], lo, hi,
+                "failed" if self._structural_warned else "passed",
+            )
+        return ok
+
+    # ---------------------------- checkpoint ----------------------------
+
+    def _maybe_checkpoint(self, epoch: int, avg_dice: float, test_metrics) -> bool:
+        """The best-checkpoint gate on the mean train-case dice, behind the
+        optional ascending (changepoint) gate."""
+        cfg = self.cfg
+        if cfg.ascending_checkpoint_gate and not self.ascending:
+            if epoch > 0 and self.changepoint_dice < avg_dice:
+                self.ascending = True
+                self.best_dice = self.changepoint_dice
+            else:
+                self.changepoint_dice = avg_dice
+                return False
+        if avg_dice <= self.best_dice:
+            return False
+        self.best_dice = avg_dice
+        self.logger.info("Best Checkpoint {} Saving...".format(epoch + 1))
+        meta = {
+            "epoch": epoch + 1,
+            "traincase_dice": avg_dice,
+            **{k: float(v) for k, v in test_metrics.items()},
+        }
+        if cfg.checkpoint_flush == "best":
+            ckpt.save_best(
+                cfg.checkpoint_dir, cfg.experiment_name,
+                [net.state_dict() for net in self.state.nets], meta,
+            )
+        else:
+            self._best_snapshot = ckpt.snapshot(self.state)
+            self._best_meta = meta
+        # back up the best epoch's tempmask folder, as the prostate trainers
+        # do; gate and path read the same field, so an empty folder name
+        # never copies the dataset root
+        if self.task.tempmask_folder:
+            src = os.path.join(self.task.root, self.task.tempmask_folder)
+            if os.path.isdir(src):
+                shutil.copytree(src, src.rstrip("/") + "_best", dirs_exist_ok=True)
+        return True
+
+    def flush_checkpoints(self) -> None:
+        """Write the best epoch's snapshot (checkpoint_flush == 'end'); a
+        no-op when the files were written at once or no epoch was best."""
+        if self._best_snapshot is None:
+            return
+        ckpt.save_best(
+            self.cfg.checkpoint_dir, self.cfg.experiment_name,
+            self._best_snapshot, self._best_meta,
+        )
+
+    # ------------------------------- run -------------------------------
+
+    def run_epoch(self, epoch: int) -> Dict[str, float]:
+        cfg = self.cfg
+        ts = time.time()
+        rate = rate_schedule(epoch, cfg.coteach.warmup_epochs)
+        phases: Dict[str, float] = {}
+
+        train_m = self._train_epoch(epoch, rate)
+        phases["time_train"] = time.time() - ts
+
+        # the fetch/host split of the case phase (case_eval's timing)
+        case_timing: Dict[str, float] = {}
+        fused_finish = self._dispatch_fused_test(case_timing)
+        if fused_finish is None:
+            test_m = self._test_epoch()
+            phases["time_test"] = time.time() - ts - sum(phases.values())
+            finish_testcase = start_case_evaluation(
+                self.predict_step, self.state, self.test_pipe,
+                self.test_cases, cfg.data.eval_batch_size, dual=True,
+                target_net=None, keep_largest_cc=cfg.eval.keep_largest_cc,
+                predict_all=self.predict_all, timing=case_timing,
+            )
+            finish_traincase = start_case_evaluation(
+                self.predict_step, self.state, self.train_pipe,
+                self.train_cases, cfg.data.eval_batch_size, dual=True,
+                target_net="self", keep_largest_cc=cfg.eval.keep_largest_cc,
+                keep_volumes=True, predict_all=self.predict_all, timing=case_timing,
+            )
+            testcase = finish_testcase()
+            traincase = finish_traincase()
+        else:
+            # the train-case re-inference is queued behind the fused test
+            # pass, so the host's CC of the test cases overlaps it
+            finish_train = start_case_evaluation(
+                self.predict_step, self.state, self.train_pipe,
+                self.train_cases, cfg.data.eval_batch_size, dual=True,
+                target_net="self", keep_largest_cc=cfg.eval.keep_largest_cc,
+                keep_volumes=True, predict_all=self.predict_all, timing=case_timing,
+            )
+            test_m, testcase = fused_finish()
+            phases["time_test"] = time.time() - ts - sum(phases.values())
+            traincase = finish_train()
+        phases["time_cases"] = time.time() - ts - sum(phases.values())
+
+        case_means = {
+            f"traincase_dice{n + 1}": float(np.mean([r.dice for r in traincase[n]]))
+            for n in traincase
+        }
+        case_means.update({
+            f"testcase_dice{n + 1}": float(np.mean([r.dice for r in testcase[n]]))
+            for n in testcase
+        })
+        avg_dice = (case_means["traincase_dice1"] + case_means["traincase_dice2"]) / 2.0
+
+        row_metrics = {
+            "epoch": epoch + 1,
+            **{f"train_{k}": v for k, v in train_m.items()},
+            **{f"test_{k}": v for k, v in test_m.items()},
+            **case_means,
+        }
+        if cfg.coteach.engagement_check:
+            eng = self._engagement_signals(traincase)
+            row_metrics["crossnet_dice"] = eng["crossnet_dice"]
+            if epoch + 1 == cfg.coteach.warmup_epochs:
+                self._engagement_verdict(eng)
+        self._maybe_checkpoint(epoch, avg_dice, test_m)
+        phases["time_ckpt"] = time.time() - ts - sum(phases.values())
+        if self._is_refresh_epoch(epoch):
+            self._refresh_labels(epoch, traincase)
+        phases["time_refresh"] = time.time() - ts - sum(phases.values())
+
+        dt = time.time() - ts
+        row = {
+            **row_metrics,
+            **{k: round(v, 2) for k, v in phases.items()},
+            # sub-phases of time_cases, kept out of ``phases``, whose
+            # running sum must see disjoint phases only
+            "time_cases_fetch": round(case_timing.get("fetch", 0.0), 2),
+            "time_cases_host": round(case_timing.get("host", 0.0), 2),
+            "time": dt,
+        }
+        self.history.append(row)
+        self._log_epoch(row)
+        return row
+
+    def _log_epoch(self, row: Dict[str, float]) -> None:
+        e = row["epoch"]
+        for n in (1, 2):
+            self.logger.info(
+                "epoch[%d/%d]: train_loss%d: %.3f | test_loss%d: %.3f | "
+                "train_dice%d: %.3f | test_dice%d: %.3f || "
+                "traincase_dice%d: %.3f || testcase_dice%d: %.3f || time: %.1f"
+                % (
+                    e, self.cfg.num_epochs, n, row.get(f"train_loss{n}", 0.0),
+                    n, row.get(f"test_loss{n}", 0.0),
+                    n, row.get(f"train_dice{n}_sum", 0.0),
+                    n, row.get(f"test_dice{n}_sum", 0.0),
+                    n, row.get(f"traincase_dice{n}", 0.0),
+                    n, row.get(f"testcase_dice{n}", 0.0),
+                    row["time"],
+                )
+            )
+
+    def run(self, num_epochs: Optional[int] = None) -> List[Dict]:
+        # explicit None check: run(0) is a no-op, not the full run
+        n = self.cfg.num_epochs if num_epochs is None else num_epochs
+        self.logger.info("Start Training ({})".format(self.cfg.data.task))
+        if (
+            self.cfg.coteach.engagement_check
+            and self.engagement_probe is None
+            and n > 0
+            and self.cfg.resume_file
+            and not self.cfg.resume_file.endswith("_full.msgpack")
+            and self.label_cases
+        ):
+            # a warm-started run measures its bootstrap skill before the
+            # first step; the port refuses resume_file until warm start is
+            # ported (ROADMAP Queue 1 item 14), so today only a caller that
+            # calls _bootstrap_skill_probe itself gets the probe
+            self._bootstrap_skill_probe()
+        try:
+            for epoch in range(n):
+                self.run_epoch(epoch)
+            unwinding = False
+        except BaseException:
+            unwinding = True
+            raise
+        finally:
+            # a failure mid-run must not lose the best epoch's snapshot or
+            # the history; a flush failure while unwinding is logged so that
+            # the original error propagates
+            try:
+                self._save_history()
+                self.flush_checkpoints()
+            except Exception:
+                if not unwinding:
+                    raise
+                self.logger.exception("failure-path checkpoint/history flush failed")
+        return self.history
+
+    def _save_history(self) -> None:
+        """The epoch rows, as JSON, to {history_dir}/{experiment_name}_history.json."""
+        os.makedirs(self.cfg.history_dir, exist_ok=True)
+        path = os.path.join(self.cfg.history_dir, f"{self.cfg.experiment_name}_history.json")
+        with open(path, "w") as fh:
+            json.dump(self.history, fh, indent=2)

@@ -181,7 +181,9 @@ def _port_modules():
 
 def test_port_imports_no_jax_in_a_fresh_process():
     mods = _port_modules()
-    assert "aide_tpu_torch.ops.cuda_warp" in mods and "aide_tpu_torch.engine.trainer" in mods
+    for m in ("ops.cuda_warp", "ops.cc", "engine.trainer", "engine.checkpoint",
+              "evaluation.case_eval", "core.logging", "data.io.png"):
+        assert f"aide_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
