@@ -13,15 +13,22 @@ Phases:
      the plain version (CUDA events, medians) beside the bytes-over-bandwidth
      bound; with --baseline FILE.cu (repeatable), other builds of the
      kernel's entry point are timed the same way, in turns with this one;
-  5. the main path: Trainer at the CHAOS point at full width (two-modal
-     FuseUNet, base width 32, 256 px, batch 8, 4 TTA views, bf16 autocast),
-     cut in depth to 2 train cases x 16 slices (4 steps an epoch) and one
-     16-slice test case: 2 train epochs at rate 0.5, then the test pass.
-     Every loss and dice must be finite and the kernel must have launched
-     exactly 3 times per train step;
-  6. a small slice (32 px, base width 4, f32, TF32 off) on the card against
-     the same slice on the CPU from the same weights and view parameters:
-     epoch metrics within 1e-3 (relative above 1, absolute below).
+  5. the main path: Trainer.run(2) at the CHAOS point at full width
+     (two-modal FuseUNet, base width 32, 256 px, batch 8, 4 TTA views, bf16
+     autocast), cut in depth to 4 train cases x 16 slices (8 steps an
+     epoch) and one 16-slice test case, the clean case labeled: each epoch
+     runs the train steps, the fused test pass, re-inference of the train
+     cases, largest-CC and case Dice, the best-checkpoint gate and a label
+     refresh of 1 case a net. Every history value must be finite, 2
+     refresh decisions an epoch logged, the rewritten tempmasks must read
+     back as the labels and the device labels equal the host's, each best
+     .pkl must load with torch.load, and the kernel must have launched
+     exactly 3 times per train step and never in case evaluation;
+  6. a small slice (32 px, base width 4, f32, TF32 off, 4 train cases) on
+     the card against the same slice on the CPU from the same weights and
+     view parameters, 2 epochs of run_epoch with refresh: identical
+     refresh decisions, working labels within Dice 0.995, history metrics
+     within 1e-3 (relative above 1, absolute below).
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
@@ -41,6 +48,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -234,17 +242,69 @@ def chaos_config():
     return cfg
 
 
+def fresh_dir(path: str) -> str:
+    """An empty directory: tempmasks or exports of an earlier run in the
+    same checkout would be read back as this run's labels."""
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def check_refresh(trainer) -> None:
+    """The refreshed working labels: each rewritten case's tempmask PNGs
+    read back (the port's own reader) equal to the host labels, and the
+    device copy equals the host labels after the sync."""
+    import numpy as np
+
+    pipe, task = trainer.train_pipe, trainer.task
+    checked = 0
+    for _, net, _, rewritten in trainer.refresh_log:
+        for case in rewritten:
+            for i in pipe.case_indices(case):
+                disk = task.read_tempmask(pipe.specs[i], net)
+                if disk is None or not np.array_equal(disk, pipe.labels.get(net)[i]):
+                    fail(f"tempmask of {case} slice {i} net {net} does not read back as the label")
+                checked += 1
+    for net in (1, 2):
+        dev = pipe._device_labels[f"target{net}"].cpu().numpy()
+        if not np.array_equal(dev, pipe.labels.get(net)):
+            fail(f"device labels of net {net} differ from the host's after the sync")
+    print(f"refresh: {len(trainer.refresh_log)} decisions {trainer.refresh_log}; "
+          f"{checked} rewritten slices read back equal; device labels equal the host's", flush=True)
+
+
+def check_best_exports(trainer) -> None:
+    """Each net's best-epoch .pkl loads with torch.load and holds the
+    net's state-dict keys."""
+    import torch
+
+    from aide_tpu_torch.engine import checkpoint as ckpt
+
+    cfg = trainer.cfg
+    for n, net in enumerate(trainer.state.nets, start=1):
+        path = ckpt.best_net_path(cfg.checkpoint_dir, cfg.experiment_name, n)
+        obj = torch.load(path, map_location="cpu")
+        if set(obj["net"]) != set(net.state_dict()):
+            fail(f"{path} does not hold net {n}'s state dict")
+        print(f"best export net{n}: epoch {obj['epoch']}, traincase_dice {obj['traincase_dice']:.6f}, "
+              f"{os.path.getsize(path)} bytes", flush=True)
+
+
 def run_slice(cuda_warp, scratch):
-    """Phase 5: the main path at the CHAOS point, cut in depth only."""
+    """Phase 5: the main path at the CHAOS point, cut in depth only:
+    Trainer.run(2) with case evaluation, the checkpoint gate and refresh."""
     import torch
 
     from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
     from aide_tpu_torch.engine.trainer import Trainer
 
     cfg = chaos_config()
+    cfg.checkpoint_dir = fresh_dir(os.path.join(scratch, "ckpt"))
+    cfg.history_dir = fresh_dir(os.path.join(scratch, "hist"))
+    cfg.data.tempmask_folder = "tempmasks"
     task = SyntheticTask(
-        root=os.path.join(scratch, "chaos"), tempmask_folder="tempmasks",
-        two_modal=True, num_cases=2, slices_per_case=16, size=256,
+        root=fresh_dir(os.path.join(scratch, "chaos")), tempmask_folder="tempmasks",
+        two_modal=True, num_cases=4, slices_per_case=16, size=256,
         noisy_fraction=0.5, clean_cases=1, num_test_cases=1,
         test_case_offset=100, seed=7,
     )
@@ -254,47 +314,64 @@ def run_slice(cuda_warp, scratch):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, task)
+    trainer.label_cases = set(task.clean_case_ids())  # as bench.py does
     setup_s = time.perf_counter() - t0
     if trainer.device.type != "cuda":
         fail(f"Trainer chose {trainer.device}, not the card")
 
     step_ms = []
-    inner = trainer.train_step
+    train_launches = []
+    inner_step, inner_epoch = trainer.train_step, trainer._train_epoch
 
     def timed_step(*args):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = inner(*args)
+        out = inner_step(*args)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         return out
 
+    def counted_epoch(*args):
+        before = cuda_warp.launches
+        out = inner_epoch(*args)
+        train_launches.append(cuda_warp.launches - before)
+        return out
+
     trainer.train_step = timed_step
+    trainer._train_epoch = counted_epoch
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     cuda_warp.reset_launches()
-    epochs = [trainer._train_epoch(e, 0.5) for e in range(2)]
-    test = trainer._test_epoch()
+    rows = trainer.run(2)
     torch.cuda.synchronize()
     launches = cuda_warp.launches
     peak = torch.cuda.max_memory_allocated()
-    trainer.train_step = inner
+    trainer.train_step, trainer._train_epoch = inner_step, inner_epoch
 
     n_steps = len(step_ms)
     spe = trainer.train_pipe.steps_per_epoch(cfg.data.batch_size)
-    for e, m in enumerate(epochs):
-        print(f"epoch {e}: " + json.dumps(m), flush=True)
-    print("test: " + json.dumps(test), flush=True)
-    values = [v for m in epochs + [test] for v in m.values()]
-    if n_steps != 2 * spe or not values or not all(math.isfinite(v) for v in values):
-        fail(f"slice produced non-finite or missing metrics ({n_steps} steps)")
-    if launches != 3 * n_steps:
-        fail(f"warp kernel launched {launches} times over {n_steps} steps, expected {3 * n_steps}")
+    for row in rows:
+        print(f"epoch {row['epoch']}: " + json.dumps(row), flush=True)
+        print(f"epoch {row['epoch']} phases (s): " + json.dumps(
+            {k: row[k] for k in ("time_train", "time_test", "time_cases", "time_cases_fetch",
+                                 "time_cases_host", "time_ckpt", "time_refresh", "time")}),
+            flush=True)
+    values = [v for row in rows for v in row.values()]
+    if len(rows) != 2 or n_steps != 2 * spe or not all(math.isfinite(v) for v in values):
+        fail(f"run(2) gave non-finite or missing history ({len(rows)} rows, {n_steps} steps)")
+    if len(trainer.refresh_log) != 2 * 2:
+        fail(f"expected 2 refresh decisions an epoch, got {trainer.refresh_log}")
+    check_refresh(trainer)
+    check_best_exports(trainer)
+    outside = launches - sum(train_launches)
+    if launches != 3 * n_steps or outside != 0:
+        fail(f"warp kernel launched {launches} times over {n_steps} steps "
+             f"({outside} outside the train steps), expected {3 * n_steps} and 0")
     steady = statistics.median(step_ms[spe:])
     print(f"slice: {n_steps} steps, setup {setup_s:.2f} s, first step {step_ms[0]:.1f} ms, "
           f"median step after the first epoch {steady:.3f} ms, "
           f"max_memory_allocated {peak} bytes, warp launches {launches} "
-          f"({launches // n_steps} per step)", flush=True)
+          f"({launches // n_steps} per step, {outside} in case evaluation)", flush=True)
     return trainer, launches, steady, peak
 
 
@@ -358,13 +435,18 @@ def profile_steps(trainer, steps: int = 3) -> None:
 
 
 def small_slice_vs_cpu(scratch):
-    """Phase 6: the slice at 32 px on the card against the CPU, f32."""
+    """Phase 6: two epochs of run_epoch at 32 px, with refresh, on the card
+    against the CPU, f32, from the same weights and view parameters. Also
+    prints each refresh's margin: the CPU run's dice gap between the worst
+    and the next case, and the largest case-dice difference between the
+    two runs."""
     import numpy as np
     import torch
 
     from aide_tpu_torch.core.config import TrainConfig
     from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
     from aide_tpu_torch.engine.trainer import Trainer
+    from aide_tpu_torch.evaluation.case_eval import dice3d_np
 
     cfg = TrainConfig()
     cfg.model.base_width = 4
@@ -374,11 +456,16 @@ def small_slice_vs_cpu(scratch):
     cfg.data.batch_size = 4
     cfg.data.eval_batch_size = 3
     cfg.data.num_tta_views = 2
+    cfg.coteach.warmup_epochs = 3  # both epochs refresh
     # AMSGrad's first steps move each parameter by about lr along its
     # gradient's sign, which rounding decides for near-zero gradients; at
     # lr 1e-4 that alone moves the thresholded dice sums by up to ~5e-3
     # between two runs, at 1e-6 by ~1e-6 (tests/test_torch_trainer.py)
     cfg.optim.lr = 1e-6
+    # an initialisation whose two nets both predict foreground here, so that
+    # no refresh picks among cases tied at dice 0 (with the default seed 2,
+    # net 2 predicts none at 32 px on the card's torch build)
+    cfg.seed = 0
     views = {}
 
     def view_params(device):
@@ -392,31 +479,62 @@ def small_slice_vs_cpu(scratch):
             return tuple(torch.from_numpy(x).to(device) for x in views[(epoch, step)])
         return draw
 
-    results, weights = [], None
+    runs, weights, case_dice = [], None, {}
     for device in ("cuda", "cpu"):
+        root = fresh_dir(os.path.join(scratch, f"small_{device}"))
+        cfg.checkpoint_dir = os.path.join(root, "ckpt")
+        cfg.history_dir = os.path.join(root, "hist")
+        # 4 train cases, so that int(0.25 * 4) = 1 case a net is refreshed
         task = SyntheticTask(
-            root=os.path.join(scratch, f"small_{device}"), two_modal=True,
-            num_cases=2, slices_per_case=4, size=32, noisy_fraction=0.5,
-            clean_cases=1, seed=3,
+            root=root, tempmask_folder="tempmasks", two_modal=True, num_cases=4,
+            slices_per_case=4, size=32, noisy_fraction=0.5, clean_cases=1,
+            num_test_cases=1, test_case_offset=100, seed=8,
         )
         tr = Trainer(cfg, task, device=device)
+        tr.label_cases = set(task.clean_case_ids())
+        inner_refresh = tr._refresh_labels
+
+        def refresh(epoch, traincase, device=device, inner=inner_refresh):
+            for n in traincase:
+                case_dice[device, epoch, n] = {r.case_id: r.dice for r in traincase[n]}
+            inner(epoch, traincase)
+
+        tr._refresh_labels = refresh
         if weights is None:
             weights = [{k: v.detach().cpu().clone() for k, v in n.state_dict().items()}
                        for n in tr.state.nets]
         for net, sd in zip(tr.state.nets, weights):
             net.load_state_dict(sd)
         tr.view_params = view_params(tr.device)
-        results.append([tr._train_epoch(0, 0.5), tr._train_epoch(1, 0.5), tr._test_epoch()])
+        rows = [tr.run_epoch(e) for e in range(2)]
+        runs.append((rows, tr.refresh_log, [tr.train_pipe.labels.get(n) for n in (1, 2)]))
+    (gpu_rows, gpu_log, gpu_labels), (cpu_rows, cpu_log, cpu_labels) = runs
+    if gpu_log != cpu_log:
+        fail(f"refresh decisions differ: card {gpu_log}, CPU {cpu_log}")
+    agreement = [dice3d_np(g, c) for g, c in zip(gpu_labels, cpu_labels)]
     # thresholded dice sums can sit near 0, so the bar is relative above 1
     # and absolute below it
     worst = 0.0
-    for gpu_m, cpu_m in zip(*results):
-        for k in cpu_m:
-            worst = max(worst, abs(gpu_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1.0))
-    print(f"small slice, card vs CPU: worst metric difference {worst:.3e} "
-          f"(relative above 1, absolute below)", flush=True)
+    for g, c in zip(gpu_rows, cpu_rows):
+        for k, v in c.items():
+            if not k.startswith("time"):
+                worst = max(worst, abs(g[k] - v) / max(abs(v), 1.0))
+    margins = []
+    for (device, epoch, n), cpu_d in case_dice.items():
+        if device == "cpu":
+            gpu_d = case_dice["cuda", epoch, n]
+            ranked = sorted(cpu_d.values())
+            margins.append((ranked[1] - ranked[0],
+                            max(abs(gpu_d[c] - cpu_d[c]) for c in cpu_d)))
+    print("small slice, refresh margins (gap between the worst two cases, largest card-CPU "
+          "case-dice difference): " + json.dumps(margins), flush=True)
+    print(f"small slice, card vs CPU: refresh decisions identical {gpu_log}; working-label "
+          f"agreement {agreement[0]:.6f}/{agreement[1]:.6f}; worst metric difference "
+          f"{worst:.3e} (relative above 1, absolute below)", flush=True)
+    if min(agreement) < 0.995:
+        fail(f"working labels on the card and the CPU agree only to Dice {agreement}")
     if worst > 1e-3:
-        fail(f"small slice on the card disagrees with the CPU: {results}")
+        fail(f"small slice on the card disagrees with the CPU: {gpu_rows} vs {cpu_rows}")
 
 
 def main() -> int:

@@ -225,6 +225,31 @@ def test_best_checkpoint_epochs_and_export(runs):
             assert np.array_equal(got[k], v.numpy()), k
 
 
+def test_host_batches_take_the_unfused_path_to_the_same_epoch(tmp_path):
+    """device_cache='off' runs the separate test pass and the per-batch
+    predict path; it gives the same epochs as the device-resident trainer's
+    fused pass."""
+    _, cfg = _cfgs(tmp_path)
+    out = {}
+    for cache in ("auto", "off"):
+        cfg.data.device_cache = cache
+        cfg.history_dir = str(tmp_path / cache)
+        task = SyntheticTask(root=str(tmp_path / cache), **TASK_ARGS)
+        tr = ttrainer.Trainer(cfg, task, device="cpu")
+        assert (tr._dispatch_fused_test({}) is None) == (cache == "off")
+        # both trainers initialise their nets from cfg.seed and draw their
+        # views from (seed, epoch, step)
+        out[cache] = (tr, [tr.run_epoch(e) for e in range(2)])
+    (dev, dev_rows), (host, host_rows) = out["auto"], out["off"]
+    assert host.refresh_log == dev.refresh_log
+    for d, h in zip(dev_rows, host_rows):
+        for key, v in d.items():
+            if not key.startswith("time"):
+                np.testing.assert_allclose(h[key], v, rtol=1e-5, atol=1e-6, err_msg=key)
+    for net in (1, 2):
+        assert np.array_equal(host.train_pipe.labels.get(net), dev.train_pipe.labels.get(net))
+
+
 def test_trainer_refuses_a_resume_file(tmp_path):
     _, cfg = _cfgs(tmp_path)
     cfg.resume_file = str(tmp_path / "x_net1_besttraincasedice.pkl")
