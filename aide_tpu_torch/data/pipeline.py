@@ -43,9 +43,7 @@ class LabelStore:
     def get(self, net: int) -> np.ndarray:
         return self.labels[net - 1]
 
-    def refresh_case(
-        self, net: int, indices: Sequence[int], volume: np.ndarray, mirror: bool = True
-    ) -> None:
+    def refresh_case(self, net: int, indices: Sequence[int], volume: np.ndarray) -> None:
         """Replace one case's working labels (``indices`` into the slice
         table, ``volume`` (S, H, W) binary at img_size) and mirror them to
         disk."""
@@ -53,7 +51,7 @@ class LabelStore:
         for i, sl in zip(indices, volume):
             lab[i] = sl.astype(np.uint8)
         self.dirty[net - 1].extend(int(i) for i in indices)
-        if mirror and self.task.tempmask_folder:
+        if self.task.tempmask_folder:
             specs = [self.specs[i] for i in indices]
             self.task.write_case_tempmask(specs, volume.astype(np.uint8), net)
 

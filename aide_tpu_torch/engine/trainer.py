@@ -241,15 +241,13 @@ class Trainer:
     def _dispatch_fused_test(self, case_timing):
         """Queue the fused test pass (metrics and test-case labels in one
         loop); return a closure giving (test_metrics, testcase_results), or
-        None where it does not apply: a pipe that is not on the device, or a
+        None where it does not apply: data that is not on the device, or a
         test-case list that does not cover the test pipe once (the metrics
         come from the same packed stream, so partial cover would change
         them)."""
         if self.eval_predict_all is None:
             return None
         pipe = self.test_pipe
-        if pipe._device_data is None:
-            return None
         eb = self.cfg.data.eval_batch_size
         case_ids, counts, n, padded = pack_case_stream(pipe, self.test_cases, eb)
         if n != len(pipe) or len(set(padded[:n].tolist())) != n:
@@ -371,8 +369,7 @@ class Trainer:
         cases = sorted(self.label_cases)
         finish = start_case_evaluation(
             self.predict_step, self.state, self.train_pipe, cases,
-            self.cfg.data.eval_batch_size, dual=self.dual,
-            target_net="self" if self.dual else None,
+            self.cfg.data.eval_batch_size, dual=True, target_net="self",
             keep_largest_cc=self.cfg.eval.keep_largest_cc,
         )
         res = finish()
