@@ -464,7 +464,7 @@ def small_slice_vs_cpu(scratch):
     cfg.optim.lr = 1e-6
     # an initialisation whose two nets both predict foreground here, so that
     # no refresh picks among cases tied at dice 0 (with the default seed 2,
-    # net 2 predicts none at 32 px on the card's torch build)
+    # net 2 predicts none at 32 px under torch 2.11+cu128 on an H100)
     cfg.seed = 0
     views = {}
 
