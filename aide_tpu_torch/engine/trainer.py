@@ -127,9 +127,6 @@ class Trainer:
             task.load_case_list(d.testcase_csv) if d.testcase_csv else list(self.test_pipe.cases)
         )
         self.label_cases = set(task.load_case_list(d.labelcase_csv) if d.labelcase_csv else [])
-        # observation hook, called as on_refresh(epoch) once a refresh is
-        # applied and synced to the device
-        self.on_refresh = None
         # every refresh decision in order: (epoch, net, worst-k selection,
         # the subset actually rewritten)
         self.refresh_log: list = []
@@ -137,8 +134,9 @@ class Trainer:
         # None before the ramp ends
         self.engagement = None
         # the bootstrap skill probe {"bootstrap_skill1", "bootstrap_skill2"}:
-        # measured by a warm-started run before its first step, or set by
-        # the caller before run(); None when neither applies
+        # set when the caller runs _bootstrap_skill_probe before run() (a
+        # warm-started run will run it itself once warm start is ported,
+        # ROADMAP Queue 1 item 14); None otherwise
         self.engagement_probe = None
         self._label_fg_cache = None
         # the working labels as the first refresh found them: the reference
@@ -195,6 +193,11 @@ class Trainer:
         if self.device_resident:
             return batch
         return {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
+
+    def _predict_batch(self, state, batch) -> torch.Tensor:
+        """predict_step on a case-evaluation batch, moved to the device
+        first when the pipe serves host batches."""
+        return self.predict_step(state, self._on_device(batch))
 
     @staticmethod
     def _accumulate(totals, m):
@@ -279,11 +282,20 @@ class Trainer:
                 offset += cnt
             case_timing["host"] = case_timing.get("host", 0.0) + time.perf_counter() - t1
             testcase = score_case_volumes(
-                pipe, case_ids, volumes, dual=True, target_net=None, timing=case_timing,
+                pipe, case_ids, volumes, target_net=None, timing=case_timing,
             )
             return test_m, testcase
 
         return finish
+
+    def _start_cases(self, pipe, cases, target_net, case_timing, keep_volumes=False):
+        """Queue both nets' case evaluation of ``cases`` of ``pipe``; return
+        the closure that scores them (case_eval.start_case_evaluation)."""
+        return start_case_evaluation(
+            self._predict_batch, self.state, pipe, cases, self.cfg.data.eval_batch_size,
+            target_net=target_net, keep_largest_cc=self.cfg.eval.keep_largest_cc,
+            keep_volumes=keep_volumes, predict_all=self.predict_all, timing=case_timing,
+        )
 
     # ------------------------------ refresh ------------------------------
 
@@ -322,8 +334,6 @@ class Trainer:
                     "skipped)".format(net_idx + 1, refreshed)
                 )
         self.train_pipe.sync_labels_to_device()
-        if self.on_refresh is not None:
-            self.on_refresh(epoch)
 
     def _is_refresh_epoch(self, epoch: int) -> bool:
         e1 = epoch + 1
@@ -368,8 +378,8 @@ class Trainer:
         contaminated upward."""
         cases = sorted(self.label_cases)
         finish = start_case_evaluation(
-            self.predict_step, self.state, self.train_pipe, cases,
-            self.cfg.data.eval_batch_size, dual=True, target_net="self",
+            self._predict_batch, self.state, self.train_pipe, cases,
+            self.cfg.data.eval_batch_size, target_net="self",
             keep_largest_cc=self.cfg.eval.keep_largest_cc,
         )
         res = finish()
@@ -569,32 +579,21 @@ class Trainer:
         if fused_finish is None:
             test_m = self._test_epoch()
             phases["time_test"] = time.time() - ts - sum(phases.values())
-            finish_testcase = start_case_evaluation(
-                self.predict_step, self.state, self.test_pipe,
-                self.test_cases, cfg.data.eval_batch_size, dual=True,
-                target_net=None, keep_largest_cc=cfg.eval.keep_largest_cc,
-                predict_all=self.predict_all, timing=case_timing,
-            )
-            finish_traincase = start_case_evaluation(
-                self.predict_step, self.state, self.train_pipe,
-                self.train_cases, cfg.data.eval_batch_size, dual=True,
-                target_net="self", keep_largest_cc=cfg.eval.keep_largest_cc,
-                keep_volumes=True, predict_all=self.predict_all, timing=case_timing,
+            finish_testcase = self._start_cases(self.test_pipe, self.test_cases, None, case_timing)
+            finish_traincase = self._start_cases(
+                self.train_pipe, self.train_cases, "self", case_timing, keep_volumes=True
             )
             testcase = finish_testcase()
             traincase = finish_traincase()
         else:
             # the train-case re-inference is queued behind the fused test
             # pass, so the host's CC of the test cases overlaps it
-            finish_train = start_case_evaluation(
-                self.predict_step, self.state, self.train_pipe,
-                self.train_cases, cfg.data.eval_batch_size, dual=True,
-                target_net="self", keep_largest_cc=cfg.eval.keep_largest_cc,
-                keep_volumes=True, predict_all=self.predict_all, timing=case_timing,
+            finish_traincase = self._start_cases(
+                self.train_pipe, self.train_cases, "self", case_timing, keep_volumes=True
             )
             test_m, testcase = fused_finish()
             phases["time_test"] = time.time() - ts - sum(phases.values())
-            traincase = finish_train()
+            traincase = finish_traincase()
         phases["time_cases"] = time.time() - ts - sum(phases.values())
 
         case_means = {
@@ -660,19 +659,6 @@ class Trainer:
         # explicit None check: run(0) is a no-op, not the full run
         n = self.cfg.num_epochs if num_epochs is None else num_epochs
         self.logger.info("Start Training ({})".format(self.cfg.data.task))
-        if (
-            self.cfg.coteach.engagement_check
-            and self.engagement_probe is None
-            and n > 0
-            and self.cfg.resume_file
-            and not self.cfg.resume_file.endswith("_full.msgpack")
-            and self.label_cases
-        ):
-            # a warm-started run measures its bootstrap skill before the
-            # first step; the port refuses resume_file until warm start is
-            # ported (ROADMAP Queue 1 item 14), so today only a caller that
-            # calls _bootstrap_skill_probe itself gets the probe
-            self._bootstrap_skill_probe()
         try:
             for epoch in range(n):
                 self.run_epoch(epoch)

@@ -7,10 +7,10 @@ connected component) and scored (3D Dice, optionally IoU and confusion
 counts). Labels come back from the device as uint8; the JAX package's
 width bit-packing, which only saved a TPU link's transfer, is not carried.
 
-``start_case_inference`` queues the device work and each chunk's copy to
-pinned host memory before it returns; the closure it returns waits for the
-chunks one by one, so the host runs CC on a chunk's cases while the device
-still computes the next chunks.
+The port runs the dual (two-net) trainer only, so every function here
+handles both nets. ``start_case_inference`` queues the device work and its
+copy to pinned host memory before it returns, so the host can run CC on
+another pass while the device computes this one.
 """
 
 from __future__ import annotations
@@ -124,20 +124,17 @@ def start_case_inference(
     pipe: SlicePipeline,
     cases: Sequence[str],
     batch_size: int,
-    dual: bool,
     keep_largest_cc: bool = True,
     predict_all: Optional[Callable] = None,
     timing: Optional[Dict[str, float]] = None,
-    pipeline_chunks: int = 4,
 ) -> Callable[[], List[Dict[int, np.ndarray]]]:
-    """Queue case inference now; return a closure that finishes it.
+    """Queue both nets' case inference now; return a closure that finishes it.
 
-    With ``predict_all`` and a device-resident pipe, the (N, B) index
-    matrix is split into up to ``pipeline_chunks`` row chunks, each queued
-    with its copy to the host; otherwise each batch goes through
-    ``predict_step``. The closure returns a list aligned with ``cases`` of
-    {net_index: (S, H, W) uint8} volumes, post-processing each case as soon
-    as its slices have landed.
+    With ``predict_all`` and a device-resident pipe, the whole (N, B) index
+    matrix goes through ``predict_all``; otherwise each batch goes through
+    ``predict_step``. Either way one copy to the host is queued behind the
+    forwards. The closure returns a list aligned with ``cases`` of
+    {net_index: (S, H, W) uint8} volumes.
 
     ``timing``, when given, accumulates "fetch" (dispatch, device compute
     and the device->host copy, one bucket) and "host" (largest-CC on the
@@ -149,80 +146,29 @@ def start_case_inference(
 
     t0 = time.perf_counter()
     if predict_all is not None and pipe.device_image_data is not None:
-        idx_mat = padded.reshape(-1, batch_size)
-        # chunk only sets big enough to hide a chunk's extra wait
-        n_chunks = max(1, min(pipeline_chunks, idx_mat.shape[0] // 4))
-        pending = [
-            start_host_copy(predict_all(state, pipe.device_image_data, rows))
-            for rows in np.array_split(idx_mat, n_chunks)
-        ]  # each (R, 2, B, H, W) dual / (R, B, H, W) single
-
-        def to_stream(out: np.ndarray) -> np.ndarray:
-            if dual:
-                return np.moveaxis(out, 1, 0).reshape(2, -1, *out.shape[3:])
-            return out.reshape(1, -1, *out.shape[2:])
-
+        out = predict_all(state, pipe.device_image_data, padded.reshape(-1, batch_size))
+        out = out.transpose(0, 1).reshape(2, -1, *out.shape[3:])  # (N, 2, B, ..) -> (2, N*B, ..)
     else:
-        # per-batch dispatch (host-batch pipelines), one copy at the end
-        labels = [
+        # per-batch dispatch (host-batch pipelines)
+        out = torch.cat([
             predict_step(state, pipe.batch_at(padded[s : s + batch_size], images_only=True))
             for s in range(0, len(padded), batch_size)
-        ]  # each (2, B, H, W) dual / (B, H, W) single
-        pending = [start_host_copy(torch.cat(labels, dim=1 if dual else 0))]
-
-        def to_stream(out: np.ndarray) -> np.ndarray:
-            return out if dual else out[None]
-
+        ], dim=1)  # each (2, B, H, W)
+    wait = start_host_copy(out)
     dispatch_t = time.perf_counter() - t0
 
     def finish() -> List[Dict[int, np.ndarray]]:
-        fetch_t = dispatch_t
-        host_t = 0.0
-        volumes: List[Dict[int, np.ndarray]] = []
-        buf: List[np.ndarray] = []  # per-chunk (n_nets, S_k, H, W) streams
-        buffered = 0  # slices in buf not yet assigned to a case
-        consumed = 0  # cases fully post-processed
-        produced = 0  # stream slices fetched so far, the final pad excluded
-
-        def drain():
-            """Post-process every case whose slices have all landed."""
-            nonlocal buf, buffered, consumed
-            ready = 0
-            while consumed < len(counts) and buffered - ready >= counts[consumed]:
-                ready += counts[consumed]
-                consumed += 1
-            if ready == 0:
-                return
-            stream = buf[0] if len(buf) == 1 else np.concatenate(buf, axis=1)
-            offset = 0
-            for case_i in range(len(volumes), consumed):
-                cnt = counts[case_i]
-                volumes.append(
-                    _postprocess_case(stream[:, offset : offset + cnt], keep_largest_cc)
-                )
-                offset += cnt
-            buf = [stream[:, ready:]]
-            buffered -= ready
-
-        for wait in pending:
-            t1 = time.perf_counter()
-            out = wait()  # this chunk only
-            fetch_t += time.perf_counter() - t1
-            t1 = time.perf_counter()
-            stream = to_stream(out)
-            take = min(stream.shape[1], n - produced)  # drop the final pad
-            stream = stream[:, :take]
-            produced += take
-            if stream.shape[1]:
-                buf.append(stream)
-                buffered += stream.shape[1]
-                drain()
-            host_t += time.perf_counter() - t1
-        if consumed != len(counts):
-            raise RuntimeError(f"case inference finished {consumed} of {len(counts)} cases")
+        t1 = time.perf_counter()
+        stream = wait()[:, :n]  # the final pad dropped
+        fetch_t = dispatch_t + time.perf_counter() - t1
+        t1 = time.perf_counter()
+        volumes, offset = [], 0
+        for cnt in counts:
+            volumes.append(_postprocess_case(stream[:, offset : offset + cnt], keep_largest_cc))
+            offset += cnt
         if timing is not None:
             timing["fetch"] = timing.get("fetch", 0.0) + fetch_t
-            timing["host"] = timing.get("host", 0.0) + host_t
+            timing["host"] = timing.get("host", 0.0) + time.perf_counter() - t1
         return volumes
 
     return finish
@@ -232,21 +178,19 @@ def score_case_volumes(
     pipe: SlicePipeline,
     cases: Sequence[str],
     volumes: List[Dict[int, np.ndarray]],
-    dual: bool,
     target_net: Union[int, str, None] = None,
     full_metrics: bool = False,
     keep_volumes: bool = False,
     timing: Optional[Dict[str, float]] = None,
 ) -> Dict[int, List[CaseResult]]:
-    """Score predicted case volumes into per-net CaseResult lists.
+    """Score both nets' predicted case volumes into per-net CaseResult lists.
 
     ``target_net``: None scores against ground truth, 1/2 against that
     net's working labels, "self" each net against its own working labels
     (ground truth when the pipe carries none)."""
     t0 = time.perf_counter()
     results: Dict[int, List[CaseResult]] = {}
-    n_nets = 2 if dual else 1
-    for net in range(n_nets):
+    for net in range(2):
         per_case = []
         for case, vols in zip(cases, volumes):
             pred = vols[net]
@@ -274,7 +218,6 @@ def start_case_evaluation(
     pipe: SlicePipeline,
     cases: Sequence[str],
     batch_size: int,
-    dual: bool,
     target_net: Union[int, str, None] = None,
     keep_largest_cc: bool = True,
     full_metrics: bool = False,
@@ -282,41 +225,20 @@ def start_case_evaluation(
     predict_all: Optional[Callable] = None,
     timing: Optional[Dict[str, float]] = None,
 ) -> Callable[[], Dict[int, List[CaseResult]]]:
-    """Queue the inference of ``evaluate_cases`` now; return a closure that
-    fetches, post-processes and scores."""
+    """Queue the case inference now; return a closure that fetches,
+    post-processes and scores: per-case 3D Dice (optionally IoU and
+    confusion counts) for each net, ``target_net`` as in
+    ``score_case_volumes``."""
     finish_infer = start_case_inference(
-        predict_step, state, pipe, cases, batch_size, dual, keep_largest_cc,
+        predict_step, state, pipe, cases, batch_size, keep_largest_cc,
         predict_all=predict_all, timing=timing,
     )
 
     def finish() -> Dict[int, List[CaseResult]]:
         return score_case_volumes(
-            pipe, cases, finish_infer(), dual, target_net=target_net,
+            pipe, cases, finish_infer(), target_net=target_net,
             full_metrics=full_metrics, keep_volumes=keep_volumes, timing=timing,
         )
 
     return finish
 
-
-def evaluate_cases(
-    predict_step: Callable,
-    state,
-    pipe: SlicePipeline,
-    cases: Sequence[str],
-    batch_size: int,
-    dual: bool,
-    target_net: Union[int, str, None] = None,
-    keep_largest_cc: bool = True,
-    full_metrics: bool = False,
-    keep_volumes: bool = False,
-    predict_all: Optional[Callable] = None,
-    timing: Optional[Dict[str, float]] = None,
-) -> Dict[int, List[CaseResult]]:
-    """Per-case 3D Dice (optionally IoU and confusion counts) for each net;
-    ``target_net`` as in ``score_case_volumes``."""
-    return start_case_evaluation(
-        predict_step, state, pipe, cases, batch_size, dual,
-        target_net=target_net, keep_largest_cc=keep_largest_cc,
-        full_metrics=full_metrics, keep_volumes=keep_volumes,
-        predict_all=predict_all, timing=timing,
-    )()

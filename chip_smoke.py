@@ -23,12 +23,19 @@ Phases:
      refresh decisions an epoch logged, the rewritten tempmasks must read
      back as the labels and the device labels equal the host's, each best
      .pkl must load with torch.load, and the kernel must have launched
-     exactly 3 times per train step and never in case evaluation;
+     exactly 3 times per train step and never in case evaluation. After
+     the run, the separate test pass (_test_epoch) and the per-batch
+     test-case predictions must agree with the last row's fused test pass
+     within 5e-3;
   6. a small slice (32 px, base width 4, f32, TF32 off, 4 train cases) on
-     the card against the same slice on the CPU from the same weights and
-     view parameters, 2 epochs of run_epoch with refresh: identical
-     refresh decisions, working labels within Dice 0.995, history metrics
-     within 1e-3 (relative above 1, absolute below).
+     the card, once with the data on the device (the fused test pass) and
+     once with host batches (device_cache "off": the separate test pass and
+     per-batch predictions), each against the same slice on the CPU from
+     the same weights and view parameters, 2 epochs of run_epoch with
+     refresh: identical refresh decisions, each with a margin (the CPU's
+     dice gap at the worst-k boundary above the largest card-CPU case-dice
+     difference), working labels within Dice 0.995, history metrics within
+     1e-3 (relative above 1, absolute below).
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
@@ -290,6 +297,34 @@ def check_best_exports(trainer) -> None:
               f"{os.path.getsize(path)} bytes", flush=True)
 
 
+def check_unfused_test(trainer, row) -> None:
+    """The test pass without the fusion, on the same weights as the last
+    epoch's: the separate test pass (_test_epoch, the eval step over the
+    pipe's batches) against the row's test metrics, and the per-batch
+    predictions (predict_step on batch_at) against its test-case dice.
+    Under bf16 autocast the separate pass's batch of 16 against the fused
+    pass's 32 (half of it padding) may take other convolution algorithms,
+    hence a bar of 5e-3, relative above 1 and absolute below."""
+    import numpy as np
+
+    from aide_tpu_torch.evaluation.case_eval import start_case_evaluation
+
+    test_m = trainer._test_epoch()
+    testcase = start_case_evaluation(
+        trainer._predict_batch, trainer.state, trainer.test_pipe, trainer.test_cases,
+        trainer.cfg.data.eval_batch_size, target_net=None,
+        keep_largest_cc=trainer.cfg.eval.keep_largest_cc,
+    )()
+    got = {f"test_{k}": v for k, v in test_m.items()}
+    got.update({f"testcase_dice{n + 1}": float(np.mean([r.dice for r in testcase[n]]))
+                for n in testcase})
+    diff = {k: abs(v - row[k]) / max(abs(row[k]), 1.0) for k, v in got.items()}
+    print("unfused test pass and per-batch test-case predictions vs the fused epoch row: "
+          + json.dumps({k: [got[k], row[k]] for k in got}), flush=True)
+    if len(got) != 6 or not all(math.isfinite(v) for v in got.values()) or max(diff.values()) > 5e-3:
+        fail(f"the unfused test pass disagrees with the fused one: {diff}")
+
+
 def run_slice(cuda_warp, scratch):
     """Phase 5: the main path at the CHAOS point, cut in depth only:
     Trainer.run(2) with case evaluation, the checkpoint gate and refresh."""
@@ -367,6 +402,7 @@ def run_slice(cuda_warp, scratch):
     if launches != 3 * n_steps or outside != 0:
         fail(f"warp kernel launched {launches} times over {n_steps} steps "
              f"({outside} outside the train steps), expected {3 * n_steps} and 0")
+    check_unfused_test(trainer, rows[-1])
     steady = statistics.median(step_ms[spe:])
     print(f"slice: {n_steps} steps, setup {setup_s:.2f} s, first step {step_ms[0]:.1f} ms, "
           f"median step after the first epoch {steady:.3f} ms, "
@@ -434,19 +470,9 @@ def profile_steps(trainer, steps: int = 3) -> None:
     }), flush=True)
 
 
-def small_slice_vs_cpu(scratch):
-    """Phase 6: two epochs of run_epoch at 32 px, with refresh, on the card
-    against the CPU, f32, from the same weights and view parameters. Also
-    prints each refresh's margin: the CPU run's dice gap between the worst
-    and the next case, and the largest case-dice difference between the
-    two runs."""
-    import numpy as np
-    import torch
-
+def small_config():
+    """Phase 6's slice: 32 px, base width 4, f32, both epochs refreshing."""
     from aide_tpu_torch.core.config import TrainConfig
-    from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
-    from aide_tpu_torch.engine.trainer import Trainer
-    from aide_tpu_torch.evaluation.case_eval import dice3d_np
 
     cfg = TrainConfig()
     cfg.model.base_width = 4
@@ -462,79 +488,141 @@ def small_slice_vs_cpu(scratch):
     # lr 1e-4 that alone moves the thresholded dice sums by up to ~5e-3
     # between two runs, at 1e-6 by ~1e-6 (tests/test_torch_trainer.py)
     cfg.optim.lr = 1e-6
-    # an initialisation whose two nets both predict foreground here, so that
-    # no refresh picks among cases tied at dice 0 (with the default seed 2,
-    # net 2 predicts none at 32 px under torch 2.11+cu128 on an H100)
-    cfg.seed = 0
-    views = {}
+    return cfg
 
-    def view_params(device):
-        def draw(epoch, step, b):
-            if (epoch, step) not in views:
-                g = np.random.default_rng(1000 * epoch + step)
-                views[(epoch, step)] = (
-                    g.uniform(-60, 60, (2, b)).astype(np.float32),
-                    (g.random((2, b)) < 0.5).astype(np.float32),
-                )
-            return tuple(torch.from_numpy(x).to(device) for x in views[(epoch, step)])
-        return draw
 
-    runs, weights, case_dice = [], None, {}
-    for device in ("cuda", "cpu"):
-        root = fresh_dir(os.path.join(scratch, f"small_{device}"))
-        cfg.checkpoint_dir = os.path.join(root, "ckpt")
-        cfg.history_dir = os.path.join(root, "hist")
-        # 4 train cases, so that int(0.25 * 4) = 1 case a net is refreshed
-        task = SyntheticTask(
-            root=root, tempmask_folder="tempmasks", two_modal=True, num_cases=4,
-            slices_per_case=4, size=32, noisy_fraction=0.5, clean_cases=1,
-            num_test_cases=1, test_case_offset=100, seed=8,
-        )
-        tr = Trainer(cfg, task, device=device)
-        tr.label_cases = set(task.clean_case_ids())
-        inner_refresh = tr._refresh_labels
+def small_run(cfg, device, cache, weights, scratch):
+    """Two epochs of run_epoch on phase 6's slice from ``weights`` (None:
+    the seed's own initialisation). Returns the rows, the refresh log, the
+    working labels, each refresh's case dice {(epoch, net): {case: dice}},
+    the worst-k count and the initial weights."""
+    import numpy as np
+    import torch
 
-        def refresh(epoch, traincase, device=device, inner=inner_refresh):
-            for n in traincase:
-                case_dice[device, epoch, n] = {r.case_id: r.dice for r in traincase[n]}
-            inner(epoch, traincase)
+    from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
+    from aide_tpu_torch.engine.trainer import Trainer
 
-        tr._refresh_labels = refresh
-        if weights is None:
-            weights = [{k: v.detach().cpu().clone() for k, v in n.state_dict().items()}
-                       for n in tr.state.nets]
-        for net, sd in zip(tr.state.nets, weights):
-            net.load_state_dict(sd)
-        tr.view_params = view_params(tr.device)
-        rows = [tr.run_epoch(e) for e in range(2)]
-        runs.append((rows, tr.refresh_log, [tr.train_pipe.labels.get(n) for n in (1, 2)]))
-    (gpu_rows, gpu_log, gpu_labels), (cpu_rows, cpu_log, cpu_labels) = runs
-    if gpu_log != cpu_log:
-        fail(f"refresh decisions differ: card {gpu_log}, CPU {cpu_log}")
-    agreement = [dice3d_np(g, c) for g, c in zip(gpu_labels, cpu_labels)]
-    # thresholded dice sums can sit near 0, so the bar is relative above 1
-    # and absolute below it
-    worst = 0.0
-    for g, c in zip(gpu_rows, cpu_rows):
-        for k, v in c.items():
-            if not k.startswith("time"):
-                worst = max(worst, abs(g[k] - v) / max(abs(v), 1.0))
-    margins = []
-    for (device, epoch, n), cpu_d in case_dice.items():
-        if device == "cpu":
-            gpu_d = case_dice["cuda", epoch, n]
-            ranked = sorted(cpu_d.values())
-            margins.append((ranked[1] - ranked[0],
-                            max(abs(gpu_d[c] - cpu_d[c]) for c in cpu_d)))
-    print("small slice, refresh margins (gap between the worst two cases, largest card-CPU "
-          "case-dice difference): " + json.dumps(margins), flush=True)
-    print(f"small slice, card vs CPU: refresh decisions identical {gpu_log}; working-label "
-          f"agreement {agreement[0]:.6f}/{agreement[1]:.6f}; worst metric difference "
-          f"{worst:.3e} (relative above 1, absolute below)", flush=True)
-    if min(agreement) < 0.995:
-        fail(f"working labels on the card and the CPU agree only to Dice {agreement}")
-    if worst > 1e-3:
-        fail(f"small slice on the card disagrees with the CPU: {gpu_rows} vs {cpu_rows}")
+    root = fresh_dir(os.path.join(scratch, f"small_{device}_{cache}"))
+    cfg.checkpoint_dir = os.path.join(root, "ckpt")
+    cfg.history_dir = os.path.join(root, "hist")
+    cfg.data.device_cache = cache
+    # 4 train cases, so that int(0.25 * 4) = 1 case a net is refreshed
+    task = SyntheticTask(
+        root=root, tempmask_folder="tempmasks", two_modal=True, num_cases=4,
+        slices_per_case=4, size=32, noisy_fraction=0.5, clean_cases=1,
+        num_test_cases=1, test_case_offset=100, seed=8,
+    )
+    tr = Trainer(cfg, task, device=device)
+    tr.label_cases = set(task.clean_case_ids())
+    # count the unfused branch's calls: the separate test pass and the
+    # per-batch predictions
+    calls = {"_test_epoch": 0, "predict_step": 0}
+
+    def counted(name, fn):
+        def wrapper(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapper
+
+    tr._test_epoch = counted("_test_epoch", tr._test_epoch)
+    tr.predict_step = counted("predict_step", tr.predict_step)
+    case_dice = {}
+    inner_refresh = tr._refresh_labels
+
+    def refresh(epoch, traincase):
+        for n in traincase:
+            case_dice[epoch, n] = {r.case_id: r.dice for r in traincase[n]}
+        inner_refresh(epoch, traincase)
+
+    tr._refresh_labels = refresh
+    if weights is None:
+        weights = [{k: v.detach().cpu().clone() for k, v in n.state_dict().items()}
+                   for n in tr.state.nets]
+    for net, sd in zip(tr.state.nets, weights):
+        net.load_state_dict(sd)
+
+    def view_params(epoch, step, b):
+        g = np.random.default_rng(1000 * epoch + step)
+        views = (g.uniform(-60, 60, (2, b)).astype(np.float32),
+                 (g.random((2, b)) < 0.5).astype(np.float32))
+        return tuple(torch.from_numpy(x).to(tr.device) for x in views)
+
+    tr.view_params = view_params
+    rows = [tr.run_epoch(e) for e in range(2)]
+    took = all(calls.values()) if cache == "off" else not any(calls.values())
+    if not took:
+        fail(f"device_cache {cache!r} on {device} did not take its branch: {calls}")
+    print(f"small slice on {device}, device_cache {cache!r}: unfused-branch calls {calls}",
+          flush=True)
+    k = int(cfg.coteach.update_percent * len(tr.train_cases))
+    labels = [tr.train_pipe.labels.get(n) for n in (1, 2)]
+    return rows, tr.refresh_log, labels, case_dice, k, weights
+
+
+def boundary_gaps(case_dice, k):
+    """{(epoch, net): the dice gap between the k-th and (k+1)-th worst case}."""
+    gaps = {}
+    for key, d in case_dice.items():
+        ranked = sorted(d.values())
+        gaps[key] = ranked[k] - ranked[k - 1]
+    return gaps
+
+
+def small_slice_vs_cpu(scratch):
+    """Phase 6: two epochs of run_epoch at 32 px, with refresh, f32, from
+    the same weights and view parameters: on the card with the data on the
+    device (the fused test pass, whole-set prediction) and with host
+    batches (device_cache "off": the separate test pass, per-batch
+    prediction), each against the CPU.
+
+    The refresh comparison means something only where the CPU run's worst-k
+    boundary is not a tie (a net that predicts no foreground scores several
+    cases 0). So the CPU runs first, from initialisation seeds 0, 1, ...,
+    until every refresh has a gap at that boundary; which seed gives one
+    depends on the torch build. Then each card run must repeat the CPU's
+    decisions, and each gap must exceed the largest card-CPU case-dice
+    difference."""
+    from aide_tpu_torch.evaluation.case_eval import dice3d_np
+
+    cfg = small_config()
+    for seed in range(10):
+        cfg.seed = seed
+        cpu_rows, cpu_log, cpu_labels, cpu_dice, k, weights = small_run(
+            cfg, "cpu", "auto", None, scratch)
+        gaps = boundary_gaps(cpu_dice, k)
+        print(f"small slice, CPU, initialisation seed {seed}: worst-{k} boundary gaps "
+              + json.dumps(sorted(gaps.items())), flush=True)
+        if len(gaps) == len(cpu_log) and min(gaps.values()) > 0.0:
+            break
+    else:
+        fail("no initialisation seed in 0-9 gives the CPU run a refresh without a tie")
+    for cache in ("auto", "off"):
+        gpu_rows, gpu_log, gpu_labels, gpu_dice, _, _ = small_run(
+            cfg, "cuda", cache, weights, scratch)
+        name = f"small slice, card (device_cache {cache!r}) vs CPU"
+        if gpu_log != cpu_log:
+            fail(f"{name}: refresh decisions differ: card {gpu_log}, CPU {cpu_log}")
+        agreement = [dice3d_np(g, c) for g, c in zip(gpu_labels, cpu_labels)]
+        # thresholded dice sums can sit near 0, so the bar is relative above
+        # 1 and absolute below it
+        worst = 0.0
+        for g, c in zip(gpu_rows, cpu_rows):
+            for key, v in c.items():
+                if not key.startswith("time"):
+                    worst = max(worst, abs(g[key] - v) / max(abs(v), 1.0))
+        margins = [(gaps[key], max(abs(gpu_dice[key][c] - d) for c, d in cpu_dice[key].items()))
+                   for key in sorted(cpu_dice)]
+        print(f"{name}: refresh margins (CPU gap at the worst-{k} boundary, largest card-CPU "
+              f"case-dice difference): " + json.dumps(margins), flush=True)
+        print(f"{name}: refresh decisions identical {gpu_log}; working-label agreement "
+              f"{agreement[0]:.6f}/{agreement[1]:.6f}; worst metric difference {worst:.3e} "
+              f"(relative above 1, absolute below)", flush=True)
+        if not all(gap > diff for gap, diff in margins):
+            fail(f"{name}: a refresh decision has no margin: {margins}")
+        if min(agreement) < 0.995:
+            fail(f"{name}: working labels agree only to Dice {agreement}")
+        if worst > 1e-3:
+            fail(f"{name}: metrics disagree: {gpu_rows} vs {cpu_rows}")
 
 
 def main() -> int:

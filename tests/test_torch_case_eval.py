@@ -147,8 +147,8 @@ def test_score_case_volumes_equals_jax(pipes, target_net):
         {n: rng.integers(0, 2, (len(tp.case_indices(c)), 32, 32)).astype(np.uint8) for n in (0, 1)}
         for c in cases
     ]
-    kw = dict(dual=True, target_net=target_net, full_metrics=True, keep_volumes=True)
-    want = jce.score_case_volumes(jp, cases, volumes, **kw)
+    kw = dict(target_net=target_net, full_metrics=True, keep_volumes=True)
+    want = jce.score_case_volumes(jp, cases, volumes, dual=True, **kw)
     timing = {}
     got = tce.score_case_volumes(tp, cases, volumes, timing=timing, **kw)
     assert set(got) == set(want) == {0, 1} and timing["host"] >= 0.0
@@ -218,7 +218,7 @@ def test_predict_all_labels_match_jax(predict_pair):
 def test_case_inference_paths_agree(predict_pair):
     _, tr = predict_pair
     cases = list(tr.train_pipe.cases)
-    kw = dict(batch_size=5, dual=True, keep_largest_cc=True)
+    kw = dict(batch_size=5, keep_largest_cc=True)
     timing = {}
     whole = tce.start_case_inference(
         tr.predict_step, tr.state, tr.train_pipe, cases, predict_all=tr.predict_all,
