@@ -1,9 +1,11 @@
-"""Train state of the dual-network co-teaching pair.
+"""Train states: the dual co-teaching pair and the single supervised net.
 
-The counterpart of ``aide_tpu.engine.state.DualTrainState``: where the JAX
-package stacks both nets on a leading axis and vmaps them, the port holds
-two ``nn.Module``s and ONE optimizer over both nets' parameters (AMSGrad is
-elementwise, so one optimizer over the union equals one per net).
+The counterparts of ``aide_tpu.engine.state.DualTrainState`` and
+``TrainState``. Where the JAX package stacks both nets on a leading axis and
+vmaps them, the port holds two ``nn.Module``s and ONE optimizer over both
+nets' parameters (AMSGrad is elementwise, so one optimizer over the union
+equals one per net). Both states offer ``.nets`` and ``.train(mode)``, so
+the predict programs and ``checkpoint.snapshot`` take either.
 """
 
 from __future__ import annotations
@@ -15,10 +17,16 @@ from torch import nn
 from aide_tpu_torch.ops.schedules import AMSGrad
 
 
-class DualTrainState:
-    def __init__(self, net1: nn.Module, net2: nn.Module, optimizer: AMSGrad):
-        self.nets: Tuple[nn.Module, nn.Module] = (net1, net2)
+class TrainState:
+    """One net and its optimizer (the supervised comparison trainer)."""
+
+    def __init__(self, net: nn.Module, optimizer: AMSGrad):
+        self.nets: Tuple[nn.Module, ...] = (net,)
         self.optimizer = optimizer
+
+    @property
+    def net(self) -> nn.Module:
+        return self.nets[0]
 
     @property
     def step(self) -> int:
@@ -28,3 +36,11 @@ class DualTrainState:
     def train(self, mode: bool = True) -> None:
         for net in self.nets:
             net.train(mode)
+
+
+class DualTrainState(TrainState):
+    """The co-teaching pair and one optimizer over both nets."""
+
+    def __init__(self, net1: nn.Module, net2: nn.Module, optimizer: AMSGrad):
+        super().__init__(net1, optimizer)
+        self.nets = (net1, net2)

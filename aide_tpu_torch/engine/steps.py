@@ -1,4 +1,5 @@
-"""The co-teaching train step, the dual eval step and the predict programs.
+"""The train steps (co-teaching and supervised), the eval steps and the
+predict programs.
 
 ``make_coteach_train_step`` is the counterpart of
 ``aide_tpu.engine.steps.make_coteach_train_step``, in this order: TTA views
@@ -14,9 +15,15 @@ net exactly its own gradient.
 The view parameters come in as arguments (the trainer draws them), so a
 test can hand the step the JAX package's stream.
 
-The predict programs (``make_predict_step``, ``make_predict_all``,
-``make_eval_predict_all``) run both nets without gradients in eval-mode BN
-under the model's own autocast, and give argmax labels as uint8.
+``make_supervised_train_step`` is the comparison trainer's step: one
+forward in train-mode BN that updates the running stats, the scalar
+criterion (``make_criterion``), one backward and one AMSGrad update.
+
+The eval steps and predict programs (``make_eval_step``,
+``make_predict_step``, ``make_predict_all``, ``make_eval_predict_all``) run
+the nets without gradients in eval-mode BN under the model's own autocast,
+and give argmax labels as uint8; ``dual`` selects the pair or the single
+net, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import numpy as np
 import torch
 
 from aide_tpu_torch.core.config import TrainConfig
-from aide_tpu_torch.engine.state import DualTrainState
+from aide_tpu_torch.engine.state import DualTrainState, TrainState
 from aide_tpu_torch.ops import losses, metrics, tta
 
 
@@ -54,6 +61,27 @@ def batch_fills(batch: Dict[str, torch.Tensor], two_modal: bool) -> Tuple[torch.
     return (batch["fill"],)
 
 
+def make_criterion(cfg: TrainConfig):
+    """Scalar criterion of supervised training (optim.loss ce | dice |
+    cedice) with the coteach section's class weights."""
+    ct = cfg.coteach
+    if cfg.optim.loss == "ce":
+        return lambda logits, t: losses.cross_entropy_2d(logits, t, class_weight=ct.ceclass_weight)
+    if cfg.optim.loss == "dice":
+        return lambda logits, t: losses.multiclass_dice_loss(
+            logits, t, class_weight=ct.diceclass_weight
+        )
+    if cfg.optim.loss == "cedice":
+        return lambda logits, t: losses.cem_dice_loss(
+            logits,
+            t,
+            cedice_weight=ct.cedice_weight,
+            ceclass_weight=ct.ceclass_weight,
+            diceclass_weight=ct.diceclass_weight,
+        )
+    raise ValueError(f"unknown loss {cfg.optim.loss!r}")
+
+
 def make_image_criterion(cfg: TrainConfig):
     """Per-image loss vector (CE + Dice) used for ranking."""
     ct = cfg.coteach
@@ -64,6 +92,31 @@ def make_image_criterion(cfg: TrainConfig):
         ceclass_weight=ct.ceclass_weight,
         diceclass_weight=ct.diceclass_weight,
     )
+
+
+def make_supervised_train_step(two_modal: bool, cfg: TrainConfig):
+    """step(state, batch) -> metrics {loss, dice_sum, count}; updates
+    ``state`` in place (parameters, BN running stats, optimizer moments)."""
+    criterion = make_criterion(cfg)
+    thr = cfg.eval.threshold
+
+    def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        images = batch_images(batch, two_modal)
+        target = batch["target"]
+        state.train(True)
+        logits = state.net(*images)
+        loss = criterion(logits, target)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        with torch.no_grad():
+            return {
+                "loss": loss.detach(),
+                "dice_sum": metrics.dice_fn(logits, target, threshold=thr),
+                "count": torch.tensor(float(target.shape[0]), device=loss.device),
+            }
+
+    return step
 
 
 def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
@@ -152,11 +205,28 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
     return step
 
 
-def make_eval_step(two_modal: bool, cfg: TrainConfig):
-    """Dual test-batch loss/dice without gradients, eval-mode BN: net k
-    against the other's working labels."""
-    image_criterion = make_image_criterion(cfg)
+def make_eval_step(two_modal: bool, cfg: TrainConfig, dual: bool = True):
+    """Test-batch loss/dice without gradients, eval-mode BN. Dual: net k
+    against the other's working labels, per-image criterion. Single net:
+    the scalar criterion against the batch's ``target``."""
     thr = cfg.eval.threshold
+    if not dual:
+        criterion = make_criterion(cfg)
+
+        @torch.no_grad()
+        def single(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+            images = batch_images(batch, two_modal)
+            target = batch["target"]
+            state.train(False)
+            logits = state.net(*images)
+            return {
+                "loss": criterion(logits, target),
+                "dice_sum": metrics.dice_fn(logits, target, threshold=thr),
+                "count": torch.tensor(float(target.shape[0]), device=logits.device),
+            }
+
+        return single
+    image_criterion = make_image_criterion(cfg)
 
     @torch.no_grad()
     def step(state: DualTrainState, batch) -> Dict[str, torch.Tensor]:
@@ -189,26 +259,30 @@ def _index_matrix(data: Dict[str, torch.Tensor], mat, dtype=torch.int64) -> torc
     return torch.from_numpy(np.asarray(mat)).to(device=device, dtype=dtype)
 
 
-def make_predict_step(two_modal: bool):
-    """predict(state, batch) -> (2, B, H, W) uint8 labels of the pair."""
+def make_predict_step(two_modal: bool, dual: bool = True):
+    """predict(state, batch) -> uint8 labels, (2, B, H, W) of the pair or
+    (B, H, W) of the single net."""
 
     @torch.no_grad()
-    def predict(state: DualTrainState, batch) -> torch.Tensor:
+    def predict(state: TrainState, batch) -> torch.Tensor:
         images = batch_images(batch, two_modal)
         state.train(False)
+        if not dual:
+            return _labels(state.net(*images))
         return torch.stack([_labels(net(*images)) for net in state.nets])
 
     return predict
 
 
-def make_predict_all(two_modal: bool):
-    """run(state, data, idx_mat) -> (N, 2, B, H, W) uint8 labels: one
-    predict per row of the (N, B) index matrix, each batch gathered on the
-    device from ``data`` (``SlicePipeline.device_image_data``)."""
-    predict = make_predict_step(two_modal)
+def make_predict_all(two_modal: bool, dual: bool = True):
+    """run(state, data, idx_mat) -> (N, 2, B, H, W) uint8 labels of the pair
+    or (N, B, H, W) of the single net: one predict per row of the (N, B)
+    index matrix, each batch gathered on the device from ``data``
+    (``SlicePipeline.device_image_data``)."""
+    predict = make_predict_step(two_modal, dual)
 
     @torch.no_grad()
-    def run(state: DualTrainState, data, idx_mat) -> torch.Tensor:
+    def run(state: TrainState, data, idx_mat) -> torch.Tensor:
         rows = _index_matrix(data, idx_mat)
         return torch.stack([predict(state, _gather(data, row)) for row in rows])
 

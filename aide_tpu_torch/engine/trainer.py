@@ -1,8 +1,8 @@
-"""The training engine's dual co-teaching epoch and run.
+"""The training engine: the dual co-teaching and the supervised epoch and run.
 
-The counterpart of ``aide_tpu.engine.trainer.Trainer`` for the dual
-co-teaching trainer (flagship reference: the CHAOS proposed trainer). Per
-epoch, ``run_epoch``:
+The counterpart of ``aide_tpu.engine.trainer.Trainer`` (flagship reference:
+the CHAOS proposed trainer). Per epoch of the dual co-teaching trainer,
+``run_epoch``:
 
   rate        <- min((epoch/warmup)^2, 1)
   train       <- the shuffled co-teaching steps (engine/steps.py)
@@ -15,10 +15,16 @@ epoch, ``run_epoch``:
                  disk and on the device
   guardrail   <- the end-of-ramp engagement verdict
 
+The supervised (comparison) trainer runs the same loop with one net, the
+scalar criterion, no TTA, no refresh and no guardrail; its best export
+embeds the epoch history. ``resume_file`` warm-starts both nets of the pair
+from one net's export with symmetry-breaking noise, and loads a supervised
+net's weights.
+
 ``run`` loops over the epochs and writes the history and the best-epoch
-exports even when an epoch fails. Not ported yet: the supervised path, the
-CLI, resume and warm start with their ``_full`` files (ROADMAP Queue 1
-items 10, 14, 15).
+exports even when an epoch fails; a warm-started dual run first probes the
+bootstrap skill on the labeled cases. Not ported yet: exact resume with its
+``_full`` files, and the CLI (ROADMAP Queue 1 items 14, 15).
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from aide_tpu_torch.core.logging import record_params, setup_logging
 from aide_tpu_torch.data.pipeline import SlicePipeline
 from aide_tpu_torch.engine import checkpoint as ckpt
 from aide_tpu_torch.engine import steps as steps_mod
-from aide_tpu_torch.engine.state import DualTrainState
+from aide_tpu_torch.engine.state import DualTrainState, TrainState
 from aide_tpu_torch.evaluation.case_eval import (
     _postprocess_case,
     dice3d_np,
@@ -87,10 +93,10 @@ def init_net(model_cfg, seed: int) -> nn.Module:
 class Trainer:
     def __init__(self, cfg: TrainConfig, task, device=None, logger=None):
         self.device = resolve_device(device)
-        if cfg.resume_file:
+        if cfg.resume_file.endswith(".msgpack"):
             raise NotImplementedError(
-                "resume_file (resume and warm start) is not ported yet: "
-                "ROADMAP Queue 1 item 14"
+                "exact resume from _full files and .msgpack checkpoints are not "
+                "ported yet: ROADMAP Queue 1 item 14 (a .pkl export warm-starts)"
             )
         if cfg.checkpoint_flush not in ("best", "end"):
             raise NotImplementedError(
@@ -100,12 +106,8 @@ class Trainer:
         self.task = task
         self.two_modal = task.two_modal
         self.dual = cfg.data.variant == "proposed" and cfg.coteach.enabled
-        if not self.dual:
-            raise NotImplementedError("the supervised path is not ported yet")
-        if not self.two_modal:
-            raise NotImplementedError("the port trains the two-modal FuseUNet only")
         if cfg.data.augment_main:
-            raise NotImplementedError("data.augment_main is not ported yet")
+            raise NotImplementedError("data.augment_main is not ported yet: ROADMAP item 12")
         self.logger = logger or setup_logging(cfg.history_dir, cfg.experiment_name)
         record_params(self.logger, cfg)
 
@@ -113,7 +115,7 @@ class Trainer:
         test_specs = task.load_manifest(cfg.data.test_csv, train=False)
         self.train_pipe = SlicePipeline(
             task, train_specs, cfg.data.img_size, cfg.data.data_mean,
-            cfg.data.data_std, working_labels=True,
+            cfg.data.data_std, working_labels=self.dual,
         )
         self.test_pipe = SlicePipeline(
             task, test_specs, cfg.data.img_size, cfg.data.data_mean,
@@ -134,9 +136,9 @@ class Trainer:
         # None before the ramp ends
         self.engagement = None
         # the bootstrap skill probe {"bootstrap_skill1", "bootstrap_skill2"}:
-        # set when the caller runs _bootstrap_skill_probe before run() (a
-        # warm-started run will run it itself once warm start is ported,
-        # ROADMAP Queue 1 item 14); None otherwise
+        # a warm-started dual run measures it before its first step; a
+        # caller may set it before run(), which suppresses the measurement;
+        # None otherwise
         self.engagement_probe = None
         self._label_fg_cache = None
         # the working labels as the first refresh found them: the reference
@@ -149,24 +151,40 @@ class Trainer:
             self.train_pipe.to_device(self.device)
             self.test_pipe.to_device(self.device)
 
-        nets = []
-        for seed in (cfg.seed, cfg.seed + 1):
-            net = init_net(cfg.model, seed)
-            nets.append(net.to(self.device, memory_format=torch.channels_last))
+        seeds = (cfg.seed, cfg.seed + 1) if self.dual else (cfg.seed,)
+        nets = [
+            init_net(cfg.model, seed).to(self.device, memory_format=torch.channels_last)
+            for seed in seeds
+        ]
         spe = self.train_pipe.steps_per_epoch(cfg.data.batch_size)
         params = [p for net in nets for p in net.parameters()]
         optimizer = make_optimizer(params, cfg.optim, spe, cfg.num_epochs)
-        self.state = DualTrainState(nets[0], nets[1], optimizer)
-        self.train_step = steps_mod.make_coteach_train_step(self.two_modal, cfg)
-        self.eval_step = steps_mod.make_eval_step(self.two_modal, cfg)
-        self.predict_step = steps_mod.make_predict_step(self.two_modal)
+        if self.dual:
+            self.state = DualTrainState(nets[0], nets[1], optimizer)
+            if cfg.resume_file:
+                # the kidney warm start from one net's export
+                ckpt.warm_start_dual(
+                    self.state, cfg.resume_file, cfg.coteach.warm_start_noise, cfg.seed
+                )
+            self.train_step = steps_mod.make_coteach_train_step(self.two_modal, cfg)
+        else:
+            self.state = TrainState(nets[0], optimizer)
+            if cfg.resume_file:
+                # weights only: the optimizer starts afresh
+                nets[0].load_state_dict(ckpt.load_net(cfg.resume_file), strict=True)
+            self.train_step = steps_mod.make_supervised_train_step(self.two_modal, cfg)
+        self.eval_step = steps_mod.make_eval_step(self.two_modal, cfg, dual=self.dual)
+        self.predict_step = steps_mod.make_predict_step(self.two_modal, dual=self.dual)
         # whole-set inference and the fused test tail gather on the device,
-        # so they need the device-resident data
+        # so they need the device-resident data; the fused tail is the dual
+        # trainer's, whose per-image criterion masks the ragged last batch
         self.predict_all = (
-            steps_mod.make_predict_all(self.two_modal) if self.device_resident else None
+            steps_mod.make_predict_all(self.two_modal, self.dual) if self.device_resident else None
         )
         self.eval_predict_all = (
-            steps_mod.make_eval_predict_all(self.two_modal, cfg) if self.device_resident else None
+            steps_mod.make_eval_predict_all(self.two_modal, cfg)
+            if self.device_resident and self.dual
+            else None
         )
 
         self.best_dice = 0.0
@@ -226,8 +244,11 @@ class Trainer:
         totals: Optional[dict] = None
         for i, batch in enumerate(self.train_pipe.batches(cfg.data.batch_size, rng=shuffle_rng)):
             batch = self._on_device(batch)
-            degrees, hflip = self.view_params(epoch, i, batch["target1"].shape[0])
-            m = self.train_step(self.state, batch, degrees, hflip, rate)
+            if self.dual:
+                degrees, hflip = self.view_params(epoch, i, batch["target1"].shape[0])
+                m = self.train_step(self.state, batch, degrees, hflip, rate)
+            else:
+                m = self.train_step(self.state, batch)
             totals = self._accumulate(totals, m)
         return self._finalize(totals)
 
@@ -237,7 +258,8 @@ class Trainer:
             self.cfg.data.eval_batch_size, shuffle=False, drop_last=False
         ):
             batch = self._on_device(batch)
-            batch = dict(batch, target1=batch["target"], target2=batch["target"])
+            if self.dual:
+                batch = dict(batch, target1=batch["target"], target2=batch["target"])
             totals = self._accumulate(totals, self.eval_step(self.state, batch))
         return self._finalize(totals)
 
@@ -289,12 +311,13 @@ class Trainer:
         return finish
 
     def _start_cases(self, pipe, cases, target_net, case_timing, keep_volumes=False):
-        """Queue both nets' case evaluation of ``cases`` of ``pipe``; return
+        """Queue the nets' case evaluation of ``cases`` of ``pipe``; return
         the closure that scores them (case_eval.start_case_evaluation)."""
         return start_case_evaluation(
             self._predict_batch, self.state, pipe, cases, self.cfg.data.eval_batch_size,
             target_net=target_net, keep_largest_cc=self.cfg.eval.keep_largest_cc,
             keep_volumes=keep_volumes, predict_all=self.predict_all, timing=case_timing,
+            dual=self.dual,
         )
 
     # ------------------------------ refresh ------------------------------
@@ -379,8 +402,8 @@ class Trainer:
         cases = sorted(self.label_cases)
         finish = start_case_evaluation(
             self._predict_batch, self.state, self.train_pipe, cases,
-            self.cfg.data.eval_batch_size, target_net="self",
-            keep_largest_cc=self.cfg.eval.keep_largest_cc,
+            self.cfg.data.eval_batch_size, target_net="self" if self.dual else None,
+            keep_largest_cc=self.cfg.eval.keep_largest_cc, dual=self.dual,
         )
         res = finish()
         self.engagement_probe = {
@@ -515,9 +538,11 @@ class Trainer:
 
     # ---------------------------- checkpoint ----------------------------
 
-    def _maybe_checkpoint(self, epoch: int, avg_dice: float, test_metrics) -> bool:
+    def _maybe_checkpoint(self, epoch: int, avg_dice: float, test_metrics, epoch_row) -> bool:
         """The best-checkpoint gate on the mean train-case dice, behind the
-        optional ascending (changepoint) gate."""
+        optional ascending (changepoint) gate. The supervised export embeds
+        the history: the earlier rows without their time keys, and this
+        epoch's ``epoch_row``."""
         cfg = self.cfg
         if cfg.ascending_checkpoint_gate and not self.ascending:
             if epoch > 0 and self.changepoint_dice < avg_dice:
@@ -535,6 +560,9 @@ class Trainer:
             "traincase_dice": avg_dice,
             **{k: float(v) for k, v in test_metrics.items()},
         }
+        if not self.dual:
+            hist = [{k: v for k, v in r.items() if not k.startswith("time")} for r in self.history]
+            meta["history"] = hist + [epoch_row]
         if cfg.checkpoint_flush == "best":
             ckpt.save_best(
                 cfg.checkpoint_dir, cfg.experiment_name,
@@ -546,7 +574,7 @@ class Trainer:
         # back up the best epoch's tempmask folder, as the prostate trainers
         # do; gate and path read the same field, so an empty folder name
         # never copies the dataset root
-        if self.task.tempmask_folder:
+        if self.dual and self.task.tempmask_folder:
             src = os.path.join(self.task.root, self.task.tempmask_folder)
             if os.path.isdir(src):
                 shutil.copytree(src, src.rstrip("/") + "_best", dirs_exist_ok=True)
@@ -567,7 +595,7 @@ class Trainer:
     def run_epoch(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg
         ts = time.time()
-        rate = rate_schedule(epoch, cfg.coteach.warmup_epochs)
+        rate = rate_schedule(epoch, cfg.coteach.warmup_epochs) if self.dual else 0.0
         phases: Dict[str, float] = {}
 
         train_m = self._train_epoch(epoch, rate)
@@ -581,7 +609,8 @@ class Trainer:
             phases["time_test"] = time.time() - ts - sum(phases.values())
             finish_testcase = self._start_cases(self.test_pipe, self.test_cases, None, case_timing)
             finish_traincase = self._start_cases(
-                self.train_pipe, self.train_cases, "self", case_timing, keep_volumes=True
+                self.train_pipe, self.train_cases, "self" if self.dual else None, case_timing,
+                keep_volumes=self.dual,
             )
             testcase = finish_testcase()
             traincase = finish_traincase()
@@ -604,7 +633,10 @@ class Trainer:
             f"testcase_dice{n + 1}": float(np.mean([r.dice for r in testcase[n]]))
             for n in testcase
         })
-        avg_dice = (case_means["traincase_dice1"] + case_means["traincase_dice2"]) / 2.0
+        if self.dual:
+            avg_dice = (case_means["traincase_dice1"] + case_means["traincase_dice2"]) / 2.0
+        else:
+            avg_dice = case_means["traincase_dice1"]
 
         row_metrics = {
             "epoch": epoch + 1,
@@ -612,14 +644,14 @@ class Trainer:
             **{f"test_{k}": v for k, v in test_m.items()},
             **case_means,
         }
-        if cfg.coteach.engagement_check:
+        if self.dual and cfg.coteach.engagement_check:
             eng = self._engagement_signals(traincase)
             row_metrics["crossnet_dice"] = eng["crossnet_dice"]
             if epoch + 1 == cfg.coteach.warmup_epochs:
                 self._engagement_verdict(eng)
-        self._maybe_checkpoint(epoch, avg_dice, test_m)
+        self._maybe_checkpoint(epoch, avg_dice, test_m, row_metrics)
         phases["time_ckpt"] = time.time() - ts - sum(phases.values())
-        if self._is_refresh_epoch(epoch):
+        if self.dual and self._is_refresh_epoch(epoch):
             self._refresh_labels(epoch, traincase)
         phases["time_refresh"] = time.time() - ts - sum(phases.values())
 
@@ -639,6 +671,20 @@ class Trainer:
 
     def _log_epoch(self, row: Dict[str, float]) -> None:
         e = row["epoch"]
+        if not self.dual:
+            self.logger.info(
+                "epoch[%d/%d]: train_loss: %.3f | test_loss: %.3f | "
+                "train_dice: %.3f | test_dice: %.3f || traincase_dice: %.3f || "
+                "testcase_dice: %.3f || time: %.1f"
+                % (
+                    e, self.cfg.num_epochs, row.get("train_loss", 0.0),
+                    row.get("test_loss", 0.0), row.get("train_dice_sum", 0.0),
+                    row.get("test_dice_sum", 0.0),
+                    row.get("traincase_dice1", 0.0),
+                    row.get("testcase_dice1", 0.0), row["time"],
+                )
+            )
+            return
         for n in (1, 2):
             self.logger.info(
                 "epoch[%d/%d]: train_loss%d: %.3f | test_loss%d: %.3f | "
@@ -659,6 +705,17 @@ class Trainer:
         # explicit None check: run(0) is a no-op, not the full run
         n = self.cfg.num_epochs if num_epochs is None else num_epochs
         self.logger.info("Start Training ({})".format(self.cfg.data.task))
+        if (
+            self.dual
+            and self.cfg.coteach.engagement_check
+            and self.engagement_probe is None
+            and n > 0
+            and self.cfg.resume_file
+            and self.label_cases
+        ):
+            # a warm-started dual run: the bootstrap skill before the first
+            # train step (see _bootstrap_skill_probe)
+            self._bootstrap_skill_probe()
         try:
             for epoch in range(n):
                 self.run_epoch(epoch)

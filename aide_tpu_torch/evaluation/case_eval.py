@@ -7,10 +7,11 @@ connected component) and scored (3D Dice, optionally IoU and confusion
 counts). Labels come back from the device as uint8; the JAX package's
 width bit-packing, which only saved a TPU link's transfer, is not carried.
 
-The port runs the dual (two-net) trainer only, so every function here
-handles both nets. ``start_case_inference`` queues the device work and its
-copy to pinned host memory before it returns, so the host can run CC on
-another pass while the device computes this one.
+``dual`` selects the pair or the single net: a single net's predictions
+get a net axis of 1, and its results are keyed ``{0: [...]}``.
+``start_case_inference`` queues the device work and its copy to pinned
+host memory before it returns, so the host can run CC on another pass while
+the device computes this one.
 """
 
 from __future__ import annotations
@@ -127,14 +128,15 @@ def start_case_inference(
     keep_largest_cc: bool = True,
     predict_all: Optional[Callable] = None,
     timing: Optional[Dict[str, float]] = None,
+    dual: bool = True,
 ) -> Callable[[], List[Dict[int, np.ndarray]]]:
-    """Queue both nets' case inference now; return a closure that finishes it.
+    """Queue the nets' case inference now; return a closure that finishes it.
 
     With ``predict_all`` and a device-resident pipe, the whole (N, B) index
     matrix goes through ``predict_all``; otherwise each batch goes through
     ``predict_step``. Either way one copy to the host is queued behind the
     forwards. The closure returns a list aligned with ``cases`` of
-    {net_index: (S, H, W) uint8} volumes.
+    {net_index: (S, H, W) uint8} volumes (net_index 0 for a single net).
 
     ``timing``, when given, accumulates "fetch" (dispatch, device compute
     and the device->host copy, one bucket) and "host" (largest-CC on the
@@ -147,13 +149,16 @@ def start_case_inference(
     t0 = time.perf_counter()
     if predict_all is not None and pipe.device_image_data is not None:
         out = predict_all(state, pipe.device_image_data, padded.reshape(-1, batch_size))
-        out = out.transpose(0, 1).reshape(2, -1, *out.shape[3:])  # (N, 2, B, ..) -> (2, N*B, ..)
+        if not dual:
+            out = out.unsqueeze(1)
+        out = out.transpose(0, 1).reshape(out.shape[1], -1, *out.shape[3:])  # (nets, N*B, ..)
     else:
         # per-batch dispatch (host-batch pipelines)
-        out = torch.cat([
+        out = [
             predict_step(state, pipe.batch_at(padded[s : s + batch_size], images_only=True))
             for s in range(0, len(padded), batch_size)
-        ], dim=1)  # each (2, B, H, W)
+        ]  # each (2, B, H, W) of the pair or (B, H, W) of a single net
+        out = torch.cat(out, dim=1) if dual else torch.cat(out)[None]
     wait = start_host_copy(out)
     dispatch_t = time.perf_counter() - t0
 
@@ -182,15 +187,17 @@ def score_case_volumes(
     full_metrics: bool = False,
     keep_volumes: bool = False,
     timing: Optional[Dict[str, float]] = None,
+    dual: bool = True,
 ) -> Dict[int, List[CaseResult]]:
-    """Score both nets' predicted case volumes into per-net CaseResult lists.
+    """Score the nets' predicted case volumes into per-net CaseResult lists
+    (both nets', or net 0's for a single net).
 
     ``target_net``: None scores against ground truth, 1/2 against that
     net's working labels, "self" each net against its own working labels
     (ground truth when the pipe carries none)."""
     t0 = time.perf_counter()
     results: Dict[int, List[CaseResult]] = {}
-    for net in range(2):
+    for net in range(2 if dual else 1):
         per_case = []
         for case, vols in zip(cases, volumes):
             pred = vols[net]
@@ -224,6 +231,7 @@ def start_case_evaluation(
     keep_volumes: bool = False,
     predict_all: Optional[Callable] = None,
     timing: Optional[Dict[str, float]] = None,
+    dual: bool = True,
 ) -> Callable[[], Dict[int, List[CaseResult]]]:
     """Queue the case inference now; return a closure that fetches,
     post-processes and scores: per-case 3D Dice (optionally IoU and
@@ -231,13 +239,13 @@ def start_case_evaluation(
     ``score_case_volumes``."""
     finish_infer = start_case_inference(
         predict_step, state, pipe, cases, batch_size, keep_largest_cc,
-        predict_all=predict_all, timing=timing,
+        predict_all=predict_all, timing=timing, dual=dual,
     )
 
     def finish() -> Dict[int, List[CaseResult]]:
         return score_case_volumes(
             pipe, cases, finish_infer(), target_net=target_net,
-            full_metrics=full_metrics, keep_volumes=keep_volumes, timing=timing,
+            full_metrics=full_metrics, keep_volumes=keep_volumes, timing=timing, dual=dual,
         )
 
     return finish

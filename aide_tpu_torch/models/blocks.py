@@ -1,7 +1,7 @@
 """Shared network blocks, NCHW in ``torch.channels_last`` memory.
 
-The counterparts of ``aide_tpu.models.blocks`` that the plain FuseUNet
-uses. Module names follow the original PyTorch code's state_dict
+The counterparts of ``aide_tpu.models.blocks`` that the plain FuseUNet and
+the UNet use. Module names follow the original PyTorch code's state_dict
 (``block.conv1``, ``bilinear_up.1``, ...), so its ``.pkl`` checkpoints and
 the JAX package's variables (``interop.weights``) load by name.
 
@@ -14,6 +14,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def resolve_dtype(name: str) -> torch.dtype:
+    """A ModelConfig.compute_dtype name as a torch dtype."""
+    if name not in _DTYPES:
+        raise ValueError(f"unknown compute_dtype {name!r}")
+    return _DTYPES[name]
+
+
+def autocast(x: torch.Tensor, dtype: torch.dtype):
+    """The model's compute-dtype region: autocast to ``dtype`` on ``x``'s
+    device, off for float32."""
+    return torch.autocast(device_type=x.device.type, dtype=dtype, enabled=dtype != torch.float32)
 
 
 class Norm(nn.Module):

@@ -13,9 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from aide_tpu_torch.models.blocks import DownBlock, UpBlock, max_pool_2x2
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+from aide_tpu_torch.models.blocks import DownBlock, UpBlock, autocast, max_pool_2x2, resolve_dtype
 
 
 class FuseUNet(nn.Module):
@@ -27,9 +25,7 @@ class FuseUNet(nn.Module):
         compute_dtype: str = "bfloat16",
     ):
         super().__init__()
-        if compute_dtype not in _DTYPES:
-            raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
-        self.compute_dtype = _DTYPES[compute_dtype]
+        self.compute_dtype = resolve_dtype(compute_dtype)
         w = base_width
         widths = [w, 2 * w, 4 * w, 8 * w, 16 * w]
         for level, feats in enumerate(widths):
@@ -49,11 +45,7 @@ class FuseUNet(nn.Module):
     ) -> torch.Tensor:
         y = modal1.permute(0, 3, 1, 2)
         x = modal2.permute(0, 3, 1, 2)
-        with torch.autocast(
-            device_type=y.device.type,
-            dtype=self.compute_dtype,
-            enabled=self.compute_dtype != torch.float32,
-        ):
+        with autocast(y, self.compute_dtype):
             fused = []
             for level in range(5):
                 if level > 0:

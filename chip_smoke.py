@@ -8,12 +8,14 @@ Phases:
      (33/64/100/256/512 px, C in {2, 3}, both directions, degrees over ±135
      plus the ±45, ±135 and ±180 boundaries, both flips, (B, C) fills, and
      single images): max abs <= 1e-5;
-  4. time the kernel at the main path's two shapes with a cold L2 (a 64 MB
+  4. time the kernel at the co-teaching paths' shapes (CHAOS: forward
+     (32, 256, 256, 3), inverse (64, 256, 256, 2); kidney: forward
+     (16, 512, 512, 3), inverse (32, 512, 512, 2)) with a cold L2 (a 64 MB
      buffer written between runs, outside the events) and a warm one, and
      the plain version (CUDA events, medians) beside the bytes-over-bandwidth
      bound; with --baseline FILE.cu (repeatable), other builds of the
      kernel's entry point are timed the same way, in turns with this one;
-  5. the main path: Trainer.run(2) at the CHAOS point at full width
+  5. the CHAOS path: Trainer.run(2) at the CHAOS point at full width
      (two-modal FuseUNet, base width 32, 256 px, batch 8, 4 TTA views, bf16
      autocast), cut in depth to 4 train cases x 16 slices (8 steps an
      epoch) and one 16-slice test case, the clean case labeled: each epoch
@@ -35,14 +37,31 @@ Phases:
      refresh: identical refresh decisions, each with a margin (the CPU's
      dice gap at the worst-k boundary above the largest card-CPU case-dice
      difference), working labels within Dice 0.995, history metrics within
-     1e-3 (relative above 1, absolute below).
+     1e-3 (relative above 1, absolute below). Then the same for the
+     single-modal UNet (base width 4): 2 supervised epochs on the card
+     (device-resident and host batches) against the CPU, history within
+     1e-3 and the same best epochs; and 2 dual epochs warm-started from the
+     CPU run's best export, with refresh, held as the FuseUNet's;
+  7. the kidney protocol at full width (single-modal UNet, base width 64,
+     512 px, batch 4, bf16 autocast), from the kidney_comparison_mask1 and
+     kidney_proposed_mask1 presets on a synthetic single-modal task (4 train
+     cases x 8 slices, 8 steps an epoch, one 8-slice test case, the clean
+     case labeled): (a) Trainer.run(2) of the supervised comparison run:
+     finite single-net history, a best .pkl that torch.load(weights_only=
+     True) reads with its embedded history, no warp launch; (b)
+     Trainer.run(2) of the dual co-teaching run warm-started from (a)'s best
+     export with noise 1e-3: each net's parameters off the export at the
+     noise scale and its BN stats equal to it, the bootstrap skill probe
+     before the first step with no warp launch, exactly 2 warp launches a
+     step and none in case evaluation, the refreshed labels as in phase 5,
+     and best exports exactly when the ascending gate logged a best epoch.
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
 Run from the repository root:
   python3 chip_smoke.py [--profile] [--baseline FILE.cu]
-(--profile adds, after phase 5, a torch.profiler breakdown of a few more
-steps; --baseline times another version of csrc/warp_rotate_flip.cu, for
+(--profile adds, after phases 5 and 7, a torch.profiler breakdown of a few
+more co-teaching steps of each; --baseline times another version of csrc/warp_rotate_flip.cu, for
 instance an earlier commit's, beside this one in phase 4; it may be given
 more than once).
 It exits non-zero, printing no result, without a CUDA device, or when any
@@ -67,6 +86,16 @@ SPIN_CYCLES = 200_000  # ~0.1 ms at the H100's clock
 # degrees where the residual angle, the rot90 or the shear coefficients
 # change regime
 BOUNDARY_DEGREES = (44.9, 45.0, 45.1, -44.9, -45.0, -45.1, 135.0, -135.0, 180.0, -180.0)
+# the warp launches of one co-teaching step of each path: (path, shape,
+# inverse, launches a step). CHAOS: both modalities' views of 4 x 8 images,
+# then both nets' 2-class view logits; kidney: one image's views of 4 x 4
+# images, then both nets' logits
+KERNEL_LAUNCHES = (
+    ("chaos_coteach", (32, 256, 256, 3), False, 2),
+    ("chaos_coteach", (64, 256, 256, 2), True, 1),
+    ("kidney_coteach", (16, 512, 512, 3), False, 1),
+    ("kidney_coteach", (32, 512, 512, 2), True, 1),
+)
 
 
 def fail(msg: str) -> None:
@@ -162,10 +191,10 @@ def raw_launch(lib, images, table, fills, inverse, out):
 
 
 def time_kernel(cuda_warp, device, baselines=()):
-    """Phase 4: kernel and plain-version times at the main path's shapes,
-    cold (L2 flushed before each run) and warm. Baseline libraries, given
-    as (name, ctypes library) pairs, are timed in turns with the kernel:
-    b1, b2, ..., kernel, kernel, ..., b2, b1."""
+    """Phase 4: kernel and plain-version times at the co-teaching paths'
+    shapes (KERNEL_LAUNCHES), cold (L2 flushed before each run) and warm.
+    Baseline libraries, given as (name, ctypes library) pairs, are timed in
+    turns with the kernel: b1, b2, ..., kernel, kernel, ..., b2, b1."""
     import torch
 
     scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=device)
@@ -174,7 +203,7 @@ def time_kernel(cuda_warp, device, baselines=()):
         scratch.fill_(1.0)
 
     rows = []
-    for shape, inverse in (((32, 256, 256, 3), False), ((64, 256, 256, 2), True)):
+    for path, shape, inverse, per_step in KERNEL_LAUNCHES:
         n, s, _, c = shape
         degrees = [60.0 * (2.0 * i / (n - 1) - 1.0) for i in range(n)]  # the main path's ±60
         images, degrees, hflip, fill = warp_inputs(degrees, [i % 2 for i in range(n)], s, c,
@@ -214,8 +243,9 @@ def time_kernel(cuda_warp, device, baselines=()):
               f"wrapper cold {w_ms:.4f} ms, plain {p_ms:.4f} ms, bytes {nbytes}, "
               f"bound {bound_ms * 1e3:.2f} us ({bound_ms / k_ms:.1%} of the bound cold, "
               f"{bound_ms / k_warm:.1%} warm)", flush=True)
-        row = dict(shape=shape, inverse=inverse, ms=k_ms, ms_warm=k_warm, wrapper_ms=w_ms,
-                   plain_ms=p_ms, bytes=nbytes, bound_ms=bound_ms, max_abs_err=err)
+        row = dict(path=path, shape=shape, inverse=inverse, per_step=per_step, ms=k_ms,
+                   ms_warm=k_warm, wrapper_ms=w_ms, plain_ms=p_ms, bytes=nbytes,
+                   bound_ms=bound_ms, max_abs_err=err)
         if baselines:
             row["baselines"] = {
                 name: {"ms": statistics.mean(cold[name]), "ms_warm": statistics.mean(warm[name])}
@@ -280,21 +310,30 @@ def check_refresh(trainer) -> None:
           f"{checked} rewritten slices read back equal; device labels equal the host's", flush=True)
 
 
-def check_best_exports(trainer) -> None:
-    """Each net's best-epoch .pkl loads with torch.load and holds the
-    net's state-dict keys."""
+def check_best_exports(trainer, best_epochs) -> list:
+    """The best-epoch exports exist exactly when the gate logged a best
+    epoch (``best_epochs``, 1-based); each .pkl loads with
+    torch.load(weights_only=True), holds its net's state-dict keys and the
+    last best epoch. Returns the export paths."""
     import torch
 
     from aide_tpu_torch.engine import checkpoint as ckpt
 
     cfg = trainer.cfg
-    for n, net in enumerate(trainer.state.nets, start=1):
-        path = ckpt.best_net_path(cfg.checkpoint_dir, cfg.experiment_name, n)
-        obj = torch.load(path, map_location="cpu")
-        if set(obj["net"]) != set(net.state_dict()):
-            fail(f"{path} does not hold net {n}'s state dict")
-        print(f"best export net{n}: epoch {obj['epoch']}, traincase_dice {obj['traincase_dice']:.6f}, "
-              f"{os.path.getsize(path)} bytes", flush=True)
+    nums = (1, 2) if trainer.dual else (None,)
+    paths = [ckpt.best_net_path(cfg.checkpoint_dir, cfg.experiment_name, n) for n in nums]
+    if not best_epochs:
+        if any(os.path.exists(p) for p in paths):
+            fail(f"no best epoch was logged, yet an export exists: {paths}")
+        print("best exports: none (the gate logged no best epoch)", flush=True)
+        return []
+    for path, net in zip(paths, trainer.state.nets):
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+        if set(obj["net"]) != set(net.state_dict()) or obj["epoch"] != best_epochs[-1]:
+            fail(f"{path} does not hold the net's state dict of epoch {best_epochs[-1]}")
+        print(f"best export {os.path.basename(path)}: epoch {obj['epoch']}, "
+              f"traincase_dice {obj['traincase_dice']:.6f}, {os.path.getsize(path)} bytes", flush=True)
+    return paths
 
 
 def check_unfused_test(trainer, row) -> None:
@@ -325,8 +364,86 @@ def check_unfused_test(trainer, row) -> None:
         fail(f"the unfused test pass disagrees with the fused one: {diff}")
 
 
+def drive(trainer, cuda_warp, epochs: int = 2) -> dict:
+    """Trainer.run(epochs) with the step times (host clock around a
+    synchronised step), the warp launches of each train epoch and of the
+    whole run (the count set to 0 just before and read just after), the
+    epochs the best-checkpoint gate logged, and the peak of
+    max_memory_allocated."""
+    import torch
+
+    step_ms, train_launches, best_epochs = [], [], []
+    inner_step, inner_epoch, inner_gate = (
+        trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint)
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_step(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def counted_epoch(*args):
+        before = cuda_warp.launches
+        out = inner_epoch(*args)
+        train_launches.append(cuda_warp.launches - before)
+        return out
+
+    def gate(epoch, *args, **kw):
+        saved = inner_gate(epoch, *args, **kw)
+        if saved:
+            best_epochs.append(epoch + 1)
+        return saved
+
+    trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint = (
+        timed_step, counted_epoch, gate)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    cuda_warp.reset_launches()
+    rows = trainer.run(epochs)
+    torch.cuda.synchronize()
+    launches = cuda_warp.launches
+    peak = torch.cuda.max_memory_allocated()
+    trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint = (
+        inner_step, inner_epoch, inner_gate)
+    spe = trainer.train_pipe.steps_per_epoch(trainer.cfg.data.batch_size)
+    values = [v for row in rows for v in row.values()]
+    if len(rows) != epochs or len(step_ms) != epochs * spe or not all(
+            math.isfinite(v) for v in values):
+        fail(f"run({epochs}) gave non-finite or missing history "
+             f"({len(rows)} rows, {len(step_ms)} steps)")
+    return dict(rows=rows, step_ms=step_ms, spe=spe, train_launches=train_launches,
+                launches=launches, outside=launches - sum(train_launches),
+                best_epochs=best_epochs, peak=peak,
+                steady=statistics.median(step_ms[spe:]))
+
+
+def print_run(name, run) -> None:
+    for row in run["rows"]:
+        print(f"{name} epoch {row['epoch']}: " + json.dumps(row), flush=True)
+        print(f"{name} epoch {row['epoch']} phases (s): " + json.dumps(
+            {k: row[k] for k in ("time_train", "time_test", "time_cases", "time_cases_fetch",
+                                 "time_cases_host", "time_ckpt", "time_refresh", "time")}),
+            flush=True)
+    n = len(run["step_ms"])
+    print(f"{name}: {n} steps, first step {run['step_ms'][0]:.1f} ms, median step after the "
+          f"first epoch {run['steady']:.3f} ms, max_memory_allocated {run['peak']} bytes, "
+          f"warp launches {run['launches']} ({run['launches'] / n:g} per step, "
+          f"{run['outside']} outside the train steps), best epochs {run['best_epochs']}",
+          flush=True)
+
+
+def check_launches(name, run, per_step) -> None:
+    """The kernel ran ``per_step`` times a train step and nowhere else."""
+    n = len(run["step_ms"])
+    if run["launches"] != per_step * n or run["outside"] != 0:
+        fail(f"{name}: warp kernel launched {run['launches']} times over {n} steps "
+             f"({run['outside']} outside the train steps), expected {per_step * n} and 0")
+
+
 def run_slice(cuda_warp, scratch):
-    """Phase 5: the main path at the CHAOS point, cut in depth only:
+    """Phase 5: the CHAOS path at full width, cut in depth only:
     Trainer.run(2) with case evaluation, the checkpoint gate and refresh."""
     import torch
 
@@ -353,62 +470,139 @@ def run_slice(cuda_warp, scratch):
     setup_s = time.perf_counter() - t0
     if trainer.device.type != "cuda":
         fail(f"Trainer chose {trainer.device}, not the card")
-
-    step_ms = []
-    train_launches = []
-    inner_step, inner_epoch = trainer.train_step, trainer._train_epoch
-
-    def timed_step(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = inner_step(*args)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    def counted_epoch(*args):
-        before = cuda_warp.launches
-        out = inner_epoch(*args)
-        train_launches.append(cuda_warp.launches - before)
-        return out
-
-    trainer.train_step = timed_step
-    trainer._train_epoch = counted_epoch
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    cuda_warp.reset_launches()
-    rows = trainer.run(2)
-    torch.cuda.synchronize()
-    launches = cuda_warp.launches
-    peak = torch.cuda.max_memory_allocated()
-    trainer.train_step, trainer._train_epoch = inner_step, inner_epoch
-
-    n_steps = len(step_ms)
-    spe = trainer.train_pipe.steps_per_epoch(cfg.data.batch_size)
-    for row in rows:
-        print(f"epoch {row['epoch']}: " + json.dumps(row), flush=True)
-        print(f"epoch {row['epoch']} phases (s): " + json.dumps(
-            {k: row[k] for k in ("time_train", "time_test", "time_cases", "time_cases_fetch",
-                                 "time_cases_host", "time_ckpt", "time_refresh", "time")}),
-            flush=True)
-    values = [v for row in rows for v in row.values()]
-    if len(rows) != 2 or n_steps != 2 * spe or not all(math.isfinite(v) for v in values):
-        fail(f"run(2) gave non-finite or missing history ({len(rows)} rows, {n_steps} steps)")
+    run = drive(trainer, cuda_warp)
+    print_run("chaos", run)
     if len(trainer.refresh_log) != 2 * 2:
         fail(f"expected 2 refresh decisions an epoch, got {trainer.refresh_log}")
     check_refresh(trainer)
-    check_best_exports(trainer)
-    outside = launches - sum(train_launches)
-    if launches != 3 * n_steps or outside != 0:
-        fail(f"warp kernel launched {launches} times over {n_steps} steps "
-             f"({outside} outside the train steps), expected {3 * n_steps} and 0")
-    check_unfused_test(trainer, rows[-1])
-    steady = statistics.median(step_ms[spe:])
-    print(f"slice: {n_steps} steps, setup {setup_s:.2f} s, first step {step_ms[0]:.1f} ms, "
-          f"median step after the first epoch {steady:.3f} ms, "
-          f"max_memory_allocated {peak} bytes, warp launches {launches} "
-          f"({launches // n_steps} per step, {outside} in case evaluation)", flush=True)
-    return trainer, launches, steady, peak
+    check_best_exports(trainer, run["best_epochs"])
+    check_launches("chaos", run, 3)
+    check_unfused_test(trainer, run["rows"][-1])
+    print(f"chaos: setup {setup_s:.2f} s", flush=True)
+    return trainer, run
+
+
+def kidney_config(preset: str, scratch: str, name: str):
+    """Phase 7's configuration: the preset as it stands, with the data
+    paths the synthetic task does not read (the CSV files and data.root)
+    cleared, and this run's own output directories."""
+    from aide_tpu_torch.cli.presets import get_preset
+
+    cfg = get_preset(preset)
+    d = cfg.data
+    d.root = d.train_csv = d.test_csv = d.traincase_csv = d.testcase_csv = d.labelcase_csv = ""
+    d.task = "synthetic"
+    d.tempmask_folder = "tempmasks"
+    cfg.checkpoint_dir = fresh_dir(os.path.join(scratch, name, "ckpt"))
+    cfg.history_dir = fresh_dir(os.path.join(scratch, name, "hist"))
+    return cfg
+
+
+def kidney_task(scratch: str, name: str):
+    """The kidney presets' shapes on the synthetic single-modal task: 4
+    train cases x 8 slices at 512 px (8 steps an epoch at batch 4), one
+    8-slice test case, the first case clean."""
+    from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
+
+    return SyntheticTask(
+        root=fresh_dir(os.path.join(scratch, name, "data")), tempmask_folder="tempmasks",
+        two_modal=False, num_cases=4, slices_per_case=8, size=512, noisy_fraction=0.5,
+        clean_cases=1, num_test_cases=1, test_case_offset=100, seed=7,
+    )
+
+
+def check_warm_start(trainer, path, noise) -> None:
+    """Each net's parameters sit off the export by noise of the configured
+    scale (the difference's std within 20% of noise * the leaf's population
+    std, on leaves of 1,000 elements or more), its BN stats equal the
+    export's, and the two nets differ."""
+    import torch
+
+    from aide_tpu_torch.engine import checkpoint as ckpt
+
+    sd = ckpt.load_net(path)
+    ratios = []
+    for net in trainer.state.nets:
+        for name, p in net.named_parameters():
+            src = sd[name].to(p.device)
+            if src.numel() >= 1000:
+                want = noise * float(src.std(correction=0))
+                ratios.append(float((p.detach() - src).std()) / want)
+        for name, buf in net.named_buffers():
+            if not torch.equal(buf, sd[name].to(buf.device)):
+                fail(f"warm start: BN buffer {name} differs from the export")
+    nets = trainer.state.nets
+    same = all(torch.equal(a, b) for a, b in zip(nets[0].parameters(), nets[1].parameters()))
+    print(f"warm start from {os.path.basename(path)}: noise std / ({noise} * leaf std) over "
+          f"{len(ratios)} leaves in [{min(ratios):.4f}, {max(ratios):.4f}]; BN stats equal the "
+          f"export's; nets differ: {not same}", flush=True)
+    if same or not ratios or max(abs(r - 1.0) for r in ratios) > 0.2:
+        fail("warm start: the nets are not the export plus noise of the configured scale")
+
+
+def run_kidney(cuda_warp, scratch):
+    """Phase 7: the kidney protocol at full width. (a) the supervised
+    comparison run, then (b) the dual co-teaching run warm-started from
+    (a)'s best export."""
+    import torch
+
+    from aide_tpu_torch.engine.trainer import Trainer
+
+    torch.cuda.empty_cache()
+    cfg = kidney_config("kidney_comparison_mask1", scratch, "kidney_sup")
+    trainer = Trainer(cfg, kidney_task(scratch, "kidney_sup"))
+    if trainer.device.type != "cuda" or trainer.dual:
+        fail(f"the supervised kidney run is dual={trainer.dual} on {trainer.device}")
+    sup = drive(trainer, cuda_warp)
+    print_run("kidney supervised", sup)
+    want = {"epoch", "train_loss", "train_dice_sum", "test_loss", "test_dice_sum",
+            "traincase_dice1", "testcase_dice1"}
+    got = {k for k in sup["rows"][0] if not k.startswith("time")}
+    if got != want:
+        fail(f"the supervised history has keys {sorted(got)}, not the single-net schema")
+    check_launches("kidney supervised", sup, 0)
+    paths = check_best_exports(trainer, sup["best_epochs"])
+    if not paths:
+        fail("the supervised kidney run wrote no best export to warm-start from")
+    obj = torch.load(paths[0], map_location="cpu", weights_only=True)
+    timeless = [{k: v for k, v in r.items() if not k.startswith("time")}
+                for r in sup["rows"][: obj["epoch"]]]
+    if obj["history"] != timeless:
+        fail("the supervised export's embedded history differs from the run's")
+    print(f"kidney supervised export: {len(obj['history'])} history rows embedded", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    cfg = kidney_config("kidney_proposed_mask1", scratch, "kidney_dual")
+    cfg.resume_file = paths[0]
+    task = kidney_task(scratch, "kidney_dual")
+    trainer = Trainer(cfg, task)
+    trainer.label_cases = set(task.clean_case_ids())
+    if trainer.device.type != "cuda" or not trainer.dual:
+        fail(f"the warm-started kidney run is dual={trainer.dual} on {trainer.device}")
+    check_warm_start(trainer, paths[0], cfg.coteach.warm_start_noise)
+    probes = []
+    inner_probe = trainer._bootstrap_skill_probe
+
+    def probe():
+        before = cuda_warp.launches
+        inner_probe()
+        probes.append((trainer.state.step, cuda_warp.launches - before))
+
+    trainer._bootstrap_skill_probe = probe
+    dual = drive(trainer, cuda_warp)
+    trainer._bootstrap_skill_probe = inner_probe
+    print_run("kidney co-teaching", dual)
+    print(f"kidney co-teaching: bootstrap probe {trainer.engagement_probe} "
+          f"(optimizer step, warp launches) {probes}", flush=True)
+    if probes != [(0, 0)]:
+        fail(f"the bootstrap probe did not run once before the first step without a launch: {probes}")
+    if len(trainer.refresh_log) != 2 * 2:
+        fail(f"expected 2 refresh decisions an epoch, got {trainer.refresh_log}")
+    check_refresh(trainer)
+    check_best_exports(trainer, dual["best_epochs"])
+    check_launches("kidney co-teaching", dual, 2)
+    return trainer, sup, dual
 
 
 # kernel-name fragments that group the profile (first match wins)
@@ -425,10 +619,10 @@ KERNEL_KINDS = (
 )
 
 
-def profile_steps(trainer, steps: int = 3) -> None:
+def profile_steps(name, trainer, steps: int = 3) -> None:
     """With --profile: device time by kernel over a few more co-teaching
-    steps at the CHAOS point, and the device's busy share of the host wall
-    time around them (torch.profiler, CUPTI)."""
+    steps of ``trainer``, and the device's busy share of the host wall time
+    around them (torch.profiler, CUPTI)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -459,7 +653,7 @@ def profile_steps(trainer, steps: int = 3) -> None:
         kind = next((k for k, keys in KERNEL_KINDS if any(w in e.name for w in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    print("profile: " + json.dumps({
+    print(f"profile ({name}): " + json.dumps({
         "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy / steps / 1e3,
         "device_idle_share": 1.0 - busy / wall_us if wall_us > 0 else None,
@@ -470,11 +664,13 @@ def profile_steps(trainer, steps: int = 3) -> None:
     }), flush=True)
 
 
-def small_config():
-    """Phase 6's slice: 32 px, base width 4, f32, both epochs refreshing."""
+def small_config(model: str = "fuseunet", supervised: bool = False):
+    """Phase 6's slice: 32 px, base width 4, f32, both epochs refreshing
+    (dual), or the supervised comparison trainer."""
     from aide_tpu_torch.core.config import TrainConfig
 
     cfg = TrainConfig()
+    cfg.model.name = model
     cfg.model.base_width = 4
     cfg.model.compute_dtype = "float32"
     cfg.data.task = "synthetic"
@@ -483,6 +679,9 @@ def small_config():
     cfg.data.eval_batch_size = 3
     cfg.data.num_tta_views = 2
     cfg.coteach.warmup_epochs = 3  # both epochs refresh
+    if supervised:
+        cfg.data.variant = "comparison"
+        cfg.coteach.enabled = False
     # AMSGrad's first steps move each parameter by about lr along its
     # gradient's sign, which rounding decides for near-zero gradients; at
     # lr 1e-4 that alone moves the thresholded dice sums by up to ~5e-3
@@ -491,24 +690,27 @@ def small_config():
     return cfg
 
 
-def small_run(cfg, device, cache, weights, scratch):
+def small_run(cfg, device, cache, weights, scratch, two_modal=True) -> dict:
     """Two epochs of run_epoch on phase 6's slice from ``weights`` (None:
-    the seed's own initialisation). Returns the rows, the refresh log, the
-    working labels, each refresh's case dice {(epoch, net): {case: dice}},
-    the worst-k count and the initial weights."""
+    the trainer's own initialisation or warm start). Returns the rows, the
+    refresh log, the working labels, each refresh's case dice {(epoch, net):
+    {case: dice}}, the worst-k count, the initial weights, the best epochs
+    and the best export of the last net."""
     import numpy as np
     import torch
 
     from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
+    from aide_tpu_torch.engine import checkpoint as ckpt
     from aide_tpu_torch.engine.trainer import Trainer
 
-    root = fresh_dir(os.path.join(scratch, f"small_{device}_{cache}"))
+    name = f"small_{cfg.model.name}_{cfg.data.variant}_{device}_{cache}"
+    root = fresh_dir(os.path.join(scratch, name))
     cfg.checkpoint_dir = os.path.join(root, "ckpt")
     cfg.history_dir = os.path.join(root, "hist")
     cfg.data.device_cache = cache
     # 4 train cases, so that int(0.25 * 4) = 1 case a net is refreshed
     task = SyntheticTask(
-        root=root, tempmask_folder="tempmasks", two_modal=True, num_cases=4,
+        root=root, tempmask_folder="tempmasks", two_modal=two_modal, num_cases=4,
         slices_per_case=4, size=32, noisy_fraction=0.5, clean_cases=1,
         num_test_cases=1, test_case_offset=100, seed=8,
     )
@@ -526,15 +728,21 @@ def small_run(cfg, device, cache, weights, scratch):
 
     tr._test_epoch = counted("_test_epoch", tr._test_epoch)
     tr.predict_step = counted("predict_step", tr.predict_step)
-    case_dice = {}
-    inner_refresh = tr._refresh_labels
+    case_dice, best = {}, []
+    inner_refresh, inner_gate = tr._refresh_labels, tr._maybe_checkpoint
 
     def refresh(epoch, traincase):
         for n in traincase:
             case_dice[epoch, n] = {r.case_id: r.dice for r in traincase[n]}
         inner_refresh(epoch, traincase)
 
-    tr._refresh_labels = refresh
+    def gate(epoch, *args, **kw):
+        saved = inner_gate(epoch, *args, **kw)
+        if saved:
+            best.append(epoch + 1)
+        return saved
+
+    tr._refresh_labels, tr._maybe_checkpoint = refresh, gate
     if weights is None:
         weights = [{k: v.detach().cpu().clone() for k, v in n.state_dict().items()}
                    for n in tr.state.nets]
@@ -549,14 +757,24 @@ def small_run(cfg, device, cache, weights, scratch):
 
     tr.view_params = view_params
     rows = [tr.run_epoch(e) for e in range(2)]
-    took = all(calls.values()) if cache == "off" else not any(calls.values())
+    tr.flush_checkpoints()
+    if tr.dual:
+        # host batches take the unfused branch, device-resident data the fused one
+        took = all(calls.values()) if cache == "off" else not any(calls.values())
+    else:
+        # the supervised test pass is always the separate one; predictions
+        # go per batch only from host batches
+        took = calls["_test_epoch"] > 0 and (calls["predict_step"] > 0) == (cache == "off")
     if not took:
-        fail(f"device_cache {cache!r} on {device} did not take its branch: {calls}")
-    print(f"small slice on {device}, device_cache {cache!r}: unfused-branch calls {calls}",
-          flush=True)
+        fail(f"{name}: the run did not take its branch: {calls}")
+    print(f"small slice {cfg.model.name} {cfg.data.variant} on {device}, device_cache {cache!r}: "
+          f"unfused-branch calls {calls}, best epochs {best}", flush=True)
     k = int(cfg.coteach.update_percent * len(tr.train_cases))
-    labels = [tr.train_pipe.labels.get(n) for n in (1, 2)]
-    return rows, tr.refresh_log, labels, case_dice, k, weights
+    labels = [tr.train_pipe.labels.get(n) for n in (1, 2)] if tr.dual else []
+    export = ckpt.best_net_path(cfg.checkpoint_dir, cfg.experiment_name,
+                                len(tr.state.nets) if tr.dual else None)
+    return dict(rows=rows, log=tr.refresh_log, labels=labels, case_dice=case_dice, k=k,
+                weights=weights, best=best, export=export)
 
 
 def boundary_gaps(case_dice, k):
@@ -568,53 +786,60 @@ def boundary_gaps(case_dice, k):
     return gaps
 
 
-def small_slice_vs_cpu(scratch):
-    """Phase 6: two epochs of run_epoch at 32 px, with refresh, f32, from
-    the same weights and view parameters: on the card with the data on the
-    device (the fused test pass, whole-set prediction) and with host
+def worst_difference(gpu_rows, cpu_rows) -> float:
+    """The largest difference of a history metric between two runs,
+    relative above 1 and absolute below (thresholded dice sums can sit near
+    0)."""
+    worst = 0.0
+    for g, c in zip(gpu_rows, cpu_rows):
+        for key, v in c.items():
+            if not key.startswith("time"):
+                worst = max(worst, abs(g[key] - v) / max(abs(v), 1.0))
+    return worst
+
+
+def small_dual_vs_cpu(scratch, model="fuseunet", two_modal=True, resume=""):
+    """Phase 6, dual: two epochs of run_epoch at 32 px, with refresh, f32,
+    from the same weights and view parameters: on the card with the data on
+    the device (the fused test pass, whole-set prediction) and with host
     batches (device_cache "off": the separate test pass, per-batch
-    prediction), each against the CPU.
+    prediction), each against the CPU. ``resume`` warm-starts the pair from
+    an export; the card runs take the CPU run's warm-started weights.
 
     The refresh comparison means something only where the CPU run's worst-k
     boundary is not a tie (a net that predicts no foreground scores several
-    cases 0). So the CPU runs first, from initialisation seeds 0, 1, ...,
-    until every refresh has a gap at that boundary; which seed gives one
-    depends on the torch build. Then each card run must repeat the CPU's
-    decisions, and each gap must exceed the largest card-CPU case-dice
-    difference."""
+    cases 0). So the CPU runs first, from seeds 0, 1, ... (initialisation or
+    warm-start noise), until every refresh has a gap at that boundary; which
+    seed gives one depends on the torch build. Then each card run must
+    repeat the CPU's decisions, and each gap must exceed the largest card-CPU
+    case-dice difference."""
     from aide_tpu_torch.evaluation.case_eval import dice3d_np
 
-    cfg = small_config()
+    cfg = small_config(model)
+    cfg.resume_file = resume
     for seed in range(10):
         cfg.seed = seed
-        cpu_rows, cpu_log, cpu_labels, cpu_dice, k, weights = small_run(
-            cfg, "cpu", "auto", None, scratch)
-        gaps = boundary_gaps(cpu_dice, k)
-        print(f"small slice, CPU, initialisation seed {seed}: worst-{k} boundary gaps "
+        cpu = small_run(cfg, "cpu", "auto", None, scratch, two_modal)
+        gaps = boundary_gaps(cpu["case_dice"], cpu["k"])
+        print(f"small slice {model}, CPU, seed {seed}: worst-{cpu['k']} boundary gaps "
               + json.dumps(sorted(gaps.items())), flush=True)
-        if len(gaps) == len(cpu_log) and min(gaps.values()) > 0.0:
+        if len(gaps) == len(cpu["log"]) and min(gaps.values()) > 0.0:
             break
     else:
-        fail("no initialisation seed in 0-9 gives the CPU run a refresh without a tie")
+        fail(f"{model}: no seed in 0-9 gives the CPU run a refresh without a tie")
     for cache in ("auto", "off"):
-        gpu_rows, gpu_log, gpu_labels, gpu_dice, _, _ = small_run(
-            cfg, "cuda", cache, weights, scratch)
-        name = f"small slice, card (device_cache {cache!r}) vs CPU"
-        if gpu_log != cpu_log:
-            fail(f"{name}: refresh decisions differ: card {gpu_log}, CPU {cpu_log}")
-        agreement = [dice3d_np(g, c) for g, c in zip(gpu_labels, cpu_labels)]
-        # thresholded dice sums can sit near 0, so the bar is relative above
-        # 1 and absolute below it
-        worst = 0.0
-        for g, c in zip(gpu_rows, cpu_rows):
-            for key, v in c.items():
-                if not key.startswith("time"):
-                    worst = max(worst, abs(g[key] - v) / max(abs(v), 1.0))
-        margins = [(gaps[key], max(abs(gpu_dice[key][c] - d) for c, d in cpu_dice[key].items()))
-                   for key in sorted(cpu_dice)]
-        print(f"{name}: refresh margins (CPU gap at the worst-{k} boundary, largest card-CPU "
-              f"case-dice difference): " + json.dumps(margins), flush=True)
-        print(f"{name}: refresh decisions identical {gpu_log}; working-label agreement "
+        gpu = small_run(cfg, "cuda", cache, cpu["weights"], scratch, two_modal)
+        name = f"small slice {model}{' warm-started' if resume else ''}, card (device_cache {cache!r}) vs CPU"
+        if gpu["log"] != cpu["log"]:
+            fail(f"{name}: refresh decisions differ: card {gpu['log']}, CPU {cpu['log']}")
+        agreement = [dice3d_np(g, c) for g, c in zip(gpu["labels"], cpu["labels"])]
+        worst = worst_difference(gpu["rows"], cpu["rows"])
+        margins = [(gaps[key], max(abs(gpu["case_dice"][key][c] - d)
+                                   for c, d in cpu["case_dice"][key].items()))
+                   for key in sorted(cpu["case_dice"])]
+        print(f"{name}: refresh margins (CPU gap at the worst-{cpu['k']} boundary, largest "
+              f"card-CPU case-dice difference): " + json.dumps(margins), flush=True)
+        print(f"{name}: refresh decisions identical {gpu['log']}; working-label agreement "
               f"{agreement[0]:.6f}/{agreement[1]:.6f}; worst metric difference {worst:.3e} "
               f"(relative above 1, absolute below)", flush=True)
         if not all(gap > diff for gap, diff in margins):
@@ -622,13 +847,35 @@ def small_slice_vs_cpu(scratch):
         if min(agreement) < 0.995:
             fail(f"{name}: working labels agree only to Dice {agreement}")
         if worst > 1e-3:
-            fail(f"{name}: metrics disagree: {gpu_rows} vs {cpu_rows}")
+            fail(f"{name}: metrics disagree: {gpu['rows']} vs {cpu['rows']}")
+
+
+def small_supervised_vs_cpu(scratch, model="unet", two_modal=False) -> str:
+    """Phase 6, supervised: two epochs of the comparison trainer at 32 px,
+    f32, from the same weights, on the card (device-resident and host
+    batches) against the CPU: history within 1e-3 (relative above 1,
+    absolute below), the same best epochs. Returns the CPU run's best
+    export."""
+    cfg = small_config(model, supervised=True)
+    cpu = small_run(cfg, "cpu", "auto", None, scratch, two_modal)
+    for cache in ("auto", "off"):
+        gpu = small_run(cfg, "cuda", cache, cpu["weights"], scratch, two_modal)
+        name = f"small slice {model} supervised, card (device_cache {cache!r}) vs CPU"
+        worst = worst_difference(gpu["rows"], cpu["rows"])
+        print(f"{name}: best epochs {gpu['best']} / {cpu['best']}; worst metric difference "
+              f"{worst:.3e} (relative above 1, absolute below)", flush=True)
+        if gpu["best"] != cpu["best"] or worst > 1e-3:
+            fail(f"{name}: runs disagree: {gpu['rows']} vs {cpu['rows']}")
+    if not cpu["best"]:
+        fail(f"{model}: the supervised CPU run logged no best epoch to warm-start from")
+    return cpu["export"]
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="a torch.profiler breakdown of a few more steps after phase 5")
+                        help="a torch.profiler breakdown of a few more co-teaching steps "
+                             "after phases 5 and 7")
     parser.add_argument("--baseline", metavar="FILE.cu", action="append", default=[],
                         help="another version of csrc/warp_rotate_flip.cu to time in phase 4 "
                              "(repeatable)")
@@ -663,33 +910,60 @@ def main() -> int:
     rows = time_kernel(cuda_warp, device, baselines)
     torch.backends.cudnn.allow_tf32 = True
 
-    trainer, launches, step_ms, peak = run_slice(cuda_warp, scratch)
+    trainer, chaos = run_slice(cuda_warp, scratch)
     if args.profile:
-        profile_steps(trainer)
+        profile_steps("chaos co-teaching", trainer)
     del trainer
 
     torch.backends.cudnn.allow_tf32 = False
-    small_slice_vs_cpu(scratch)
+    small_dual_vs_cpu(scratch, "fuseunet", two_modal=True)
+    export = small_supervised_vs_cpu(scratch, "unet", two_modal=False)
+    small_dual_vs_cpu(scratch, "unet", two_modal=False, resume=export)
+    torch.backends.cudnn.allow_tf32 = True
 
-    fwd, inv = rows
+    trainer, kidney_sup, kidney_dual = run_kidney(cuda_warp, scratch)
+    if args.profile:
+        profile_steps("kidney co-teaching", trainer)
+    del trainer
+
+    runs = {"chaos_coteach": chaos, "kidney_supervised": kidney_sup,
+            "kidney_coteach": kidney_dual}
+    by_path = {}
+    for path, run in runs.items():
+        launched = [r for r in rows if r["path"] == path]
+        by_path[path] = {
+            "launches": run["launches"],
+            "launches_per_step": run["launches"] / len(run["step_ms"]),
+            # one step's launches, each timed with a cold L2
+            "kernel_ms_per_step": sum(r["per_step"] * r["ms"] for r in launched),
+            "plain_ms_per_step": sum(r["per_step"] * r["plain_ms"] for r in launched),
+            "bound_ms_per_step": sum(r["per_step"] * r["bound_ms"] for r in launched),
+            "step_ms": run["steady"],
+            "first_step_ms": run["step_ms"][0],
+            "max_memory_allocated": run["peak"],
+        }
+    chaos_step = by_path["chaos_coteach"]
     kernels = [{
         "name": "warp_rotate_flip",
         "route": "cuda",
         "source": "aide_tpu_torch/csrc/warp_rotate_flip.cu",
         "replaces": "aide_tpu/ops/pallas_warp.py:77",
-        "launches": launches,
-        "max_abs_err": max(worst, fwd["max_abs_err"], inv["max_abs_err"]),
-        # one main-path step: two forward launches and one inverse launch,
-        # each timed with a cold L2 (per_launch also has the warm times)
-        "ms": 2 * fwd["ms"] + inv["ms"],
-        "plain_ms": 2 * fwd["plain_ms"] + inv["plain_ms"],
-        "bound_ms": 2 * fwd["bound_ms"] + inv["bound_ms"],
-        "bound_us": (2 * fwd["bound_ms"] + inv["bound_ms"]) * 1e3,
+        "launches": sum(run["launches"] for run in runs.values()),
+        "launches_by_path": {path: run["launches"] for path, run in runs.items()},
+        "max_abs_err": max([worst] + [r["max_abs_err"] for r in rows]),
+        # one CHAOS co-teaching step: two forward launches and one inverse
+        # launch, each timed with a cold L2 (by_path has the kidney step,
+        # per_launch the warm times)
+        "ms": chaos_step["kernel_ms_per_step"],
+        "plain_ms": chaos_step["plain_ms_per_step"],
+        "bound_ms": chaos_step["bound_ms_per_step"],
+        "bound_us": chaos_step["bound_ms_per_step"] * 1e3,
         "bound_by": "bytes",
         "library_ms": None,
         "per_launch": rows,
-        "step_ms": step_ms,
-        "max_memory_allocated": peak,
+        "by_path": by_path,
+        "step_ms": chaos["steady"],
+        "max_memory_allocated": chaos["peak"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,7 +17,8 @@ net, and epoch 3 ends the ramp, so the engagement verdict runs. The bars:
   net's state at that epoch;
 - the same log lines from "Start Training" on, with the time field masked.
 
-Also: the trainer refuses a resume file and an unknown checkpoint flush, and
+Also: the trainer refuses a ``_full`` resume file and an unknown checkpoint
+flush, and
 a refresh runs and reads back its tempmasks where Pillow cannot be imported.
 """
 
@@ -251,8 +252,10 @@ def test_host_batches_take_the_unfused_path_to_the_same_epoch(tmp_path):
 
 
 def test_trainer_refuses_a_resume_file(tmp_path):
+    """Exact resume from a _full file is not ported (a .pkl export warm-starts,
+    tests/test_torch_warmstart.py)."""
     _, cfg = _cfgs(tmp_path)
-    cfg.resume_file = str(tmp_path / "x_net1_besttraincasedice.pkl")
+    cfg.resume_file = str(tmp_path / "x_full.msgpack")
     with pytest.raises(NotImplementedError, match="item 14"):
         ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
 

@@ -182,7 +182,8 @@ def _port_modules():
 def test_port_imports_no_jax_in_a_fresh_process():
     mods = _port_modules()
     for m in ("ops.cuda_warp", "ops.cc", "engine.trainer", "engine.checkpoint",
-              "evaluation.case_eval", "core.logging", "data.io.png"):
+              "engine.state", "engine.steps", "evaluation.case_eval", "core.logging",
+              "data.io.png", "models.unet", "interop.weights", "cli.presets"):
         assert f"aide_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
