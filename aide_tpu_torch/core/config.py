@@ -2,9 +2,12 @@
 
 An own copy of ``aide_tpu.core.config``: the same dataclasses, the same
 fields and defaults, the same dotted ``.override``, so a config written for
-one package builds in the other. Knobs that only mean something on a TPU
-(``model.packed*``, the mesh axes) are accepted and ignored by the port;
-the packed layout computes the same network as the plain one.
+one package builds in the other. The TPU layout knobs ``model.packed*`` are
+accepted and ignored: the packed layout computes the same network as the
+plain one. The mesh settings are accepted here, but ``Trainer`` raises for
+any that asks for more than one device (``mesh.num_devices > 1``,
+``mesh.extra_axes``, ``mesh.coordinator_address``): multi-device runs are
+not ported yet (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -9,16 +9,60 @@ index. The per-net working labels live in a LabelStore, which starts from
 the targets, takes any refreshed labels already mirrored to disk, and
 mirrors each refresh back to disk; ``sync_labels_to_device`` then copies
 the refreshed rows into the device copy.
+
+With a ``cache_dir``, the decoded arrays are kept in a keyed npz file there
+(``decode_cache_path``), under the JAX package's key and array names, so a
+cache written by either package serves the other.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import glob
+import hashlib
+import os
+import zipfile
+import zlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from aide_tpu_torch.data.tasks.base import SliceSpec, Task, resize_image, resize_mask
+
+
+def decode_cache_path(
+    cache_dir: str, task: Task, specs: Sequence[SliceSpec], img_size: int, data_mean, data_std,
+) -> Tuple[str, str]:
+    """(prefix, file) of the decode cache of these specs, keyed as
+    ``aide_tpu.data.pipeline.SlicePipeline`` keys it: an identity (the
+    task's decode fingerprint, the specs' reprs, the size and the fixed
+    stats) and a content signature (size and mtime of every source file).
+
+    The signature stats the spec paths as given. The real tasks' paths are
+    relative to ``task.root``, so unless the working directory is the root
+    every file reads "?" and a re-annotated mask at the same path does not
+    invalidate the cache: the JAX package's behaviour, ported as it is."""
+
+    def stat_sig(spec: SliceSpec) -> str:
+        sig = []
+        for p in list(spec.image_paths) + [spec.mask_path]:
+            try:
+                st = os.stat(p)
+                sig.append(f"{st.st_size}:{st.st_mtime_ns}")
+            except OSError:
+                sig.append("?")
+        return ",".join(sig)
+
+    id_key = hashlib.sha1(
+        "|".join(
+            [task.decode_fingerprint()]
+            + [repr(s) for s in specs]
+            + [str(img_size), str(data_mean), str(data_std)]
+        ).encode()
+    ).hexdigest()[:16]
+    stat_key = hashlib.sha1("|".join(stat_sig(s) for s in specs).encode()).hexdigest()[:16]
+    prefix = os.path.join(cache_dir, f"decode_{id_key}_")
+    return prefix, f"{prefix}{stat_key}.npz"
 
 
 class LabelStore:
@@ -72,6 +116,7 @@ class SlicePipeline:
         data_mean: Optional[Sequence[float]] = None,
         data_std: Optional[Sequence[float]] = None,
         working_labels: bool = False,
+        cache_dir: Optional[str] = None,
     ):
         self.task = task
         self.specs = list(specs)
@@ -80,6 +125,22 @@ class SlicePipeline:
         if n == 0:
             raise ValueError("empty manifest")
         n_mod = 2 if task.two_modal else 1
+        cache_file = None
+        if cache_dir:
+            self._cache_prefix, cache_file = decode_cache_path(
+                cache_dir, task, self.specs, img_size, data_mean, data_std)
+            if os.path.exists(cache_file) and self._load_cache(cache_file, n_mod):
+                self._finish_init(working_labels)
+                return
+        self._decode_all(n_mod, data_mean, data_std)
+        if cache_file:
+            self._write_cache(cache_file, n_mod)
+        self._finish_init(working_labels)
+
+    def _decode_all(self, n_mod: int, data_mean, data_std) -> None:
+        """Decode, resize and reduce every slice to uint8 pixels and its
+        normalization coefficients."""
+        n, img_size = len(self.specs), self.img_size
         self.images = [np.zeros((n, img_size, img_size, 3), np.uint8) for _ in range(n_mod)]
         self.scales = [np.zeros((n, 3), np.float32) for _ in range(n_mod)]
         self.fills = [np.zeros((n, 3), np.float32) for _ in range(n_mod)]
@@ -89,7 +150,7 @@ class SlicePipeline:
         mean_arr = np.asarray(data_mean, np.float32) if fixed else None
         std_arr = np.asarray(data_std, np.float32) if fixed else None
         for i, spec in enumerate(self.specs):
-            imgs, mask = task.decode(spec)
+            imgs, mask = self.task.decode(spec)
             for m, img in enumerate(imgs):
                 resized_u8 = resize_image(img, img_size).astype(np.uint8)
                 resized = resized_u8.astype(np.float32) / 255.0
@@ -105,6 +166,47 @@ class SlicePipeline:
                 self.fills[m][i] = -mean / std
             self.targets[i] = resize_mask(mask, img_size)
 
+    def _load_cache(self, cache_file: str, n_mod: int) -> bool:
+        """Take the arrays from a cache file; False (and the file removed)
+        when it cannot be read, e.g. truncated by a crash."""
+        try:
+            with np.load(cache_file) as z:
+                self.images = [z[f"images{m}"] for m in range(n_mod)]
+                self.scales = [z[f"scales{m}"] for m in range(n_mod)]
+                self.fills = [z[f"fills{m}"] for m in range(n_mod)]
+                self.targets = z["targets"]
+            return True
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile, zlib.error):
+            try:
+                os.remove(cache_file)
+            except OSError:
+                pass
+            return False
+
+    def _write_cache(self, cache_file: str, n_mod: int) -> None:
+        """Write the arrays to a temporary file and rename it into place, so
+        an interrupted write leaves no truncated cache; then remove the
+        files of the same identity under an older content signature."""
+        os.makedirs(os.path.dirname(cache_file), exist_ok=True)
+        arrays = {"targets": self.targets}
+        for m in range(n_mod):
+            arrays[f"images{m}"] = self.images[m]
+            arrays[f"scales{m}"] = self.scales[m]
+            arrays[f"fills{m}"] = self.fills[m]
+        tmp = cache_file + ".tmp.npz"
+        np.savez(tmp, **arrays)
+        os.replace(tmp, cache_file)
+        # the pre-signature name decode_<id>.npz is stale too
+        legacy = f"{self._cache_prefix.rstrip('_')}.npz"
+        for stale in glob.glob(f"{self._cache_prefix}*.npz") + [legacy]:
+            if os.path.abspath(stale) == os.path.abspath(cache_file):
+                continue
+            try:
+                os.remove(stale)
+            except OSError:
+                pass
+
+    def _finish_init(self, working_labels: bool) -> None:
         self.case_slices: Dict[str, List[int]] = {}
         for i, spec in enumerate(self.specs):
             self.case_slices.setdefault(spec.case_id, []).append(i)
@@ -112,7 +214,7 @@ class SlicePipeline:
             idxs.sort(key=lambda i: self.specs[i].sort_key)
         self.cases = list(self.case_slices)
         self.labels: Optional[LabelStore] = (
-            LabelStore(task, self.specs, self.targets) if working_labels else None
+            LabelStore(self.task, self.specs, self.targets) if working_labels else None
         )
         self._device_data: Optional[Dict[str, torch.Tensor]] = None
         self._device_labels: Optional[Dict[str, torch.Tensor]] = None

@@ -392,6 +392,22 @@ class SyntheticTask(Task):
                 i += 1
         return specs
 
+    def decode_fingerprint(self) -> str:
+        # every generator knob that changes pixels or labels for the same
+        # specs (their paths are virtual, so the decode cache's file
+        # signature cannot see them); render_v is the JAX package's
+        # generator version, so that a cache of either package serves both
+        return (
+            "SyntheticTask:render_v=2,"
+            f"style={self.style},seed={self.seed},"
+            f"size={self.size},two_modal={self.two_modal},"
+            f"noisy_fraction={self.noisy_fraction},"
+            f"clean_cases={self.clean_cases},"
+            f"noise_shift_divisor={self.noise_shift_divisor},"
+            f"num_classes={self.num_classes},"
+            f"domain_split={self.domain_split}"
+        )
+
     # ---- decode ----
     def decode(self, spec: SliceSpec) -> Tuple[Tuple[np.ndarray, ...], np.ndarray]:
         geom: dict = {}

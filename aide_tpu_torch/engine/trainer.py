@@ -21,10 +21,17 @@ embeds the epoch history. ``resume_file`` warm-starts both nets of the pair
 from one net's export with symmetry-breaking noise, and loads a supervised
 net's weights.
 
+``Trainer(cfg)`` builds the task that ``cfg.data.task`` names
+(``data.tasks.build_task``: CHAOS, prostate, kidney, breast or synthetic)
+and decodes its manifests once, through ``data.decode_cache_dir``'s npz
+cache when set; a task object passed in is used as it is.
+``log_every_steps`` logs the step losses every N steps.
+
 ``run`` loops over the epochs and writes the history and the best-epoch
 exports even when an epoch fails; a warm-started dual run first probes the
 bootstrap skill on the labeled cases. Not ported yet: exact resume with its
-``_full`` files, and the CLI (ROADMAP Queue 1 items 14, 15).
+``_full`` files and multi-device meshes, which raise, and the CLI (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from aide_tpu_torch.core import prng
 from aide_tpu_torch.core.config import TrainConfig
 from aide_tpu_torch.core.logging import record_params, setup_logging
 from aide_tpu_torch.data.pipeline import SlicePipeline
+from aide_tpu_torch.data.tasks import build_task
 from aide_tpu_torch.engine import checkpoint as ckpt
 from aide_tpu_torch.engine import steps as steps_mod
 from aide_tpu_torch.engine.state import DualTrainState, TrainState
@@ -90,8 +98,26 @@ def init_net(model_cfg, seed: int) -> nn.Module:
     return net
 
 
+def refuse_mesh(mesh) -> None:
+    """The port runs on one card: raise for mesh settings that ask for
+    more, rather than train on one card without a word."""
+    asked = []
+    if mesh.num_devices > 1:
+        asked.append(f"mesh.num_devices={mesh.num_devices}")
+    if mesh.extra_axes:
+        asked.append(f"mesh.extra_axes={mesh.extra_axes}")
+    if mesh.coordinator_address:
+        asked.append(f"mesh.coordinator_address={mesh.coordinator_address!r}")
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)}: multi-device and multi-host runs are not ported "
+            "yet (ROADMAP Queue 1 item 7); the port trains on one device"
+        )
+
+
 class Trainer:
-    def __init__(self, cfg: TrainConfig, task, device=None, logger=None):
+    def __init__(self, cfg: TrainConfig, task=None, device=None, logger=None):
+        refuse_mesh(cfg.mesh)
         self.device = resolve_device(device)
         if cfg.resume_file.endswith(".msgpack"):
             raise NotImplementedError(
@@ -103,23 +129,24 @@ class Trainer:
                 f"checkpoint_flush must be 'best' or 'end', got {cfg.checkpoint_flush!r}"
             )
         self.cfg = cfg
-        self.task = task
-        self.two_modal = task.two_modal
         self.dual = cfg.data.variant == "proposed" and cfg.coteach.enabled
         if cfg.data.augment_main:
             raise NotImplementedError("data.augment_main is not ported yet: ROADMAP item 12")
         self.logger = logger or setup_logging(cfg.history_dir, cfg.experiment_name)
         record_params(self.logger, cfg)
 
+        self.task = task = task if task is not None else build_task(cfg)
+        self.two_modal = task.two_modal
         train_specs = task.load_manifest(cfg.data.train_csv, train=True)
         test_specs = task.load_manifest(cfg.data.test_csv, train=False)
+        cache_dir = cfg.data.decode_cache_dir or None
         self.train_pipe = SlicePipeline(
             task, train_specs, cfg.data.img_size, cfg.data.data_mean,
-            cfg.data.data_std, working_labels=self.dual,
+            cfg.data.data_std, working_labels=self.dual, cache_dir=cache_dir,
         )
         self.test_pipe = SlicePipeline(
             task, test_specs, cfg.data.img_size, cfg.data.data_mean,
-            cfg.data.data_std, working_labels=False,
+            cfg.data.data_std, working_labels=False, cache_dir=cache_dir,
         )
         d = cfg.data
         self.train_cases = (
@@ -250,6 +277,12 @@ class Trainer:
             else:
                 m = self.train_step(self.state, batch)
             totals = self._accumulate(totals, m)
+            if cfg.log_every_steps and (i + 1) % cfg.log_every_steps == 0:
+                # opt-in mid-epoch visibility; each line costs a host sync
+                vals = " ".join(
+                    "%s: %.3f" % (k, float(v)) for k, v in sorted(m.items()) if k.startswith("loss")
+                )
+                self.logger.info("epoch %d step %d | %s", epoch + 1, i + 1, vals)
         return self._finalize(totals)
 
     def _test_epoch(self) -> Dict[str, float]:

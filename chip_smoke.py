@@ -54,7 +54,28 @@ Phases:
      noise scale and its BN stats equal to it, the bootstrap skill probe
      before the first step with no warp launch, exactly 2 warp launches a
      step and none in case evaluation, the refreshed labels as in phase 5,
-     and best exports exactly when the ascending gate logged a best epoch.
+     and best exports exactly when the ascending gate logged a best epoch;
+  8. the paper's presets from their native files: fixture trees written
+     from a seed at the paths each preset names (build/chip_smoke/*_preset/
+     data), 4 train cases x 16 slices (1 labeled through the labelcase
+     CSV) and 1 test case x 16 slices, then Trainer(cfg).run(2) with the
+     task built from cfg.data.task, the preset otherwise as it stands:
+     (a) chaos_proposed_30cases1labeled (two-modal FuseUNet-32, bf16, 256
+     px, batch 4) on 16-bit DICOM pairs whose values pass 255 and palette
+     PNG masks, 3 warp launches a step; (b)
+     prostate_proposed_isbi3t_transfer_isbidx (UNet-64, 256 px) on NRRD
+     volumes of 320 x 320 x 16, resized on the host, 2 a step; (c)
+     breast_proposed_272cases25labeled (UNet-64, 384 px) on NIfTI volumes
+     of 512 px, one segmentation-mask case and noisy PNG folders, 2 a step.
+     Each must give finite history, its launches a step and none in case
+     evaluation, 2 refresh decisions an epoch, tempmasks in the task's
+     convention that a fresh pipeline reads back as the trainer's working
+     labels (prostate: resized 256 -> 320 -> 256), and loadable best
+     exports; it prints the epoch phases, step times, peak memory and the
+     decode seconds of each SlicePipeline. (d) the kidney_proposed_mask1
+     task on single-slice NIfTI files at 400 px: its train (annotator 1)
+     and test (three-mask vote) pipelines at 512 px, decode only.
+Phases 3 and 4 also check and time the kernel at phase 8's launch shapes.
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
@@ -71,6 +92,7 @@ check fails.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -95,6 +117,20 @@ KERNEL_LAUNCHES = (
     ("chaos_coteach", (64, 256, 256, 2), True, 1),
     ("kidney_coteach", (16, 512, 512, 3), False, 1),
     ("kidney_coteach", (32, 512, 512, 2), True, 1),
+    # phase 8's presets at batch 4: the CHAOS preset's two modalities, the
+    # prostate (256 px) and breast (384 px) presets' one image
+    ("chaos_preset", (16, 256, 256, 3), False, 2),
+    ("chaos_preset", (32, 256, 256, 2), True, 1),
+    ("prostate_preset", (16, 256, 256, 3), False, 1),
+    ("prostate_preset", (32, 256, 256, 2), True, 1),
+    ("breast_preset", (16, 384, 384, 3), False, 1),
+    ("breast_preset", (32, 384, 384, 2), True, 1),
+)
+# phase 8: (path, preset, the fixture tree's native px, warp launches a step)
+PRESET_RUNS = (
+    ("chaos_preset", "chaos_proposed_30cases1labeled", 256, 3),
+    ("prostate_preset", "prostate_proposed_isbi3t_transfer_isbidx", 320, 2),
+    ("breast_preset", "breast_proposed_272cases25labeled", 512, 2),
 )
 
 
@@ -175,6 +211,22 @@ def check_kernel(cuda_warp, device):
                 fail(f"kernel disagrees with its plain version at N={n} {s}px C={c} "
                      f"inverse={inverse}: max abs {err}")
             worst = max(worst, err)
+    # the main paths' launch shapes, at their ±60 degrees and both flips
+    for shape, inverse in sorted({(shape, inverse) for _, shape, inverse, _ in KERNEL_LAUNCHES}):
+        n, s, _, c = shape
+        degrees = [60.0 * (2.0 * i / (n - 1) - 1.0) for i in range(n)]
+        images, degrees_t, hflip_t, fill = warp_inputs(degrees, [i % 2 for i in range(n)], s, c,
+                                                       seed=n + s + c, device=device)
+        table = cuda_warp.coef_table(degrees_t, hflip_t, inverse)
+        got = cuda_warp.warp_rotate_flip(images, degrees_t, hflip_t, fill, inverse=inverse)
+        ref = cuda_warp.warp_plain(images, table, cuda_warp.fill_table(fill, n, c, device), inverse)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        print(f"kernel vs plain at launch shape {shape} {'inverse' if inverse else 'forward'}: "
+              f"max abs {err:.3e}", flush=True)
+        if not bool(torch.isfinite(got).all()) or err > 1e-5:
+            fail(f"kernel disagrees with its plain version at launch shape {shape}: max abs {err}")
+        worst = max(worst, err)
     return worst
 
 
@@ -277,6 +329,17 @@ def chaos_config():
     cfg.coteach.warmup_epochs = 20
     cfg.num_epochs = 100
     return cfg
+
+
+def release_device_memory() -> None:
+    """Free what earlier runs left on the card before a run's peak is
+    measured: a driven trainer holds bound methods of itself as attributes
+    (drive() restores them so), a reference cycle that ``del`` alone does
+    not free, and the allocator counts its tensors until it is collected."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def fresh_dir(path: str) -> str:
@@ -445,8 +508,6 @@ def check_launches(name, run, per_step) -> None:
 def run_slice(cuda_warp, scratch):
     """Phase 5: the CHAOS path at full width, cut in depth only:
     Trainer.run(2) with case evaluation, the checkpoint gate and refresh."""
-    import torch
-
     from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
     from aide_tpu_torch.engine.trainer import Trainer
 
@@ -463,7 +524,7 @@ def run_slice(cuda_warp, scratch):
     # release the blocks phases 3-4 left cached before the trainer allocates:
     # the allocator counts a large block it does not split in full, so the
     # peak would depend on what the earlier phases allocated
-    torch.cuda.empty_cache()
+    release_device_memory()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, task)
     trainer.label_cases = set(task.clean_case_ids())  # as bench.py does
@@ -548,7 +609,7 @@ def run_kidney(cuda_warp, scratch):
 
     from aide_tpu_torch.engine.trainer import Trainer
 
-    torch.cuda.empty_cache()
+    release_device_memory()
     cfg = kidney_config("kidney_comparison_mask1", scratch, "kidney_sup")
     trainer = Trainer(cfg, kidney_task(scratch, "kidney_sup"))
     if trainer.device.type != "cuda" or trainer.dual:
@@ -571,7 +632,7 @@ def run_kidney(cuda_warp, scratch):
         fail("the supervised export's embedded history differs from the run's")
     print(f"kidney supervised export: {len(obj['history'])} history rows embedded", flush=True)
     del trainer
-    torch.cuda.empty_cache()
+    release_device_memory()
 
     cfg = kidney_config("kidney_proposed_mask1", scratch, "kidney_dual")
     cfg.resume_file = paths[0]
@@ -603,6 +664,150 @@ def run_kidney(cuda_warp, scratch):
     check_best_exports(trainer, dual["best_epochs"])
     check_launches("kidney co-teaching", dual, 2)
     return trainer, sup, dual
+
+
+def timed_pipelines(pipeline_cls, decode_s):
+    """A stand-in for ``pipeline_cls`` that records the seconds of each
+    construction (decode, resize, working labels) in ``decode_s``."""
+
+    def build(*args, **kw):
+        t = time.perf_counter()
+        pipe = pipeline_cls(*args, **kw)
+        decode_s.append(time.perf_counter() - t)
+        return pipe
+
+    return build
+
+
+def check_preset_labels(trainer) -> None:
+    """The tempmasks on disk are in the task's convention (CHAOS: PNG at 63;
+    breast: PNG at 255; prostate: one whole-case NRRD volume at the native
+    size); a fresh SlicePipeline built from the tree holds the trainer's
+    working labels (prostate: resized to the native size and back, as the
+    CPU tests hold the JAX package to); the device labels equal the host's."""
+    import numpy as np
+
+    from aide_tpu_torch.data.io import nrrd, png
+    from aide_tpu_torch.data.pipeline import SlicePipeline
+    from aide_tpu_torch.data.tasks import build_task
+    from aide_tpu_torch.data.tasks.base import resize_mask
+    from aide_tpu_torch.data.tasks.prostate import read_volume
+
+    pipe, task, cfg = trainer.train_pipe, trainer.task, trainer.cfg
+    fresh = SlicePipeline(build_task(cfg), pipe.specs, cfg.data.img_size, cfg.data.data_mean,
+                          cfg.data.data_std, working_labels=True)
+    files = 0
+    for net in (1, 2):
+        want = pipe.labels.get(net).copy()
+        for case in pipe.cases:
+            idxs = pipe.case_indices(case)
+            paths = sorted({task.tempmask_path(pipe.specs[i], net) for i in idxs})
+            if not os.path.exists(paths[0]):
+                continue
+            files += len(paths)
+            if task.name == "prostate":
+                vol = nrrd.read_nrrd(paths[0])[0]
+                native = read_volume(os.path.join(task.root, pipe.specs[idxs[0]].mask_path)).shape
+                if len(paths) != 1 or vol.shape != native or not set(np.unique(vol)) <= {0, 1}:
+                    fail(f"prostate tempmask {paths} is not one 0/1 volume of shape {native}")
+                for i in idxs:
+                    want[i] = resize_mask(resize_mask(want[i], native[1:]), cfg.data.img_size)
+            else:
+                scale = 63 if task.name == "chaos" else 255
+                for path in paths:
+                    if not path.endswith(".png") or not set(np.unique(png.read_mask(path))) <= {0, scale}:
+                        fail(f"{task.name} tempmask {path} is not a PNG at 0/{scale}")
+        if not np.array_equal(fresh.labels.get(net), want):
+            fail(f"{task.name}: a fresh pipeline's labels of net {net} differ from the trainer's")
+        dev = pipe._device_labels[f"target{net}"].cpu().numpy()
+        if not np.array_equal(dev, pipe.labels.get(net)):
+            fail(f"{task.name}: device labels of net {net} differ from the host's after the sync")
+    if not files:
+        fail(f"{task.name}: the refresh wrote no tempmask")
+    print(f"{task.name} refresh: {trainer.refresh_log}; {files} tempmask files in the task's "
+          f"convention; a fresh pipeline holds the trainer's working labels; device labels equal "
+          f"the host's", flush=True)
+
+
+def run_presets(cuda_warp, scratch):
+    """Phase 8: the CHAOS, prostate and breast proposed presets as they
+    stand, on fixture trees in their native formats, Trainer(cfg).run(2)
+    with the task built from the config; then the kidney preset's task and
+    pipelines on a NIfTI tree, decode only."""
+    import numpy as np
+
+    from aide_tpu_torch.cli.presets import get_preset
+    from aide_tpu_torch.data.fixtures import write_fixture_tree
+    from aide_tpu_torch.engine import trainer as trainer_mod
+
+    runs = {}
+    for path, preset, native, per_step in PRESET_RUNS:
+        work = fresh_dir(os.path.join(scratch, path))
+        cfg = get_preset(preset, os.path.join(work, "data"))
+        cfg.checkpoint_dir = os.path.join(work, "ckpt")
+        cfg.history_dir = os.path.join(work, "hist")
+        t0 = time.perf_counter()
+        write_fixture_tree(cfg, train_cases=4, test_cases=1, slices=16, size=native, labeled=1, seed=7)
+        print(f"{path}: preset {preset} as it stands ({cfg.model.name}, base width "
+              f"{cfg.model.base_width or 'default'}, {cfg.model.compute_dtype}, {cfg.data.img_size} px, "
+              f"batch {cfg.data.batch_size}, eval batch {cfg.data.eval_batch_size}); depth cut to 4 train "
+              f"cases x 16 slices (1 labeled through the labelcase CSV), 1 test case x 16 slices, "
+              f"native {native} px, run(2); fixture tree written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        release_device_memory()
+        decode_s, inner = [], trainer_mod.SlicePipeline
+        trainer_mod.SlicePipeline = timed_pipelines(inner, decode_s)
+        t0 = time.perf_counter()
+        try:
+            trainer = trainer_mod.Trainer(cfg)
+        finally:
+            trainer_mod.SlicePipeline = inner
+        setup_s = time.perf_counter() - t0
+        if trainer.device.type != "cuda" or trainer.task.name != cfg.data.task or not trainer.dual:
+            fail(f"{path}: Trainer built {trainer.task.name} dual={trainer.dual} on {trainer.device}")
+        if not trainer.label_cases:
+            fail(f"{path}: the labelcase CSV gave no labeled case")
+        run = drive(trainer, cuda_warp)
+        print_run(path, run)
+        print(f"{path}: setup {setup_s:.2f} s, SlicePipeline.__init__ decode s (train, test) "
+              f"{[round(v, 3) for v in decode_s]}, labeled {sorted(trainer.label_cases)}", flush=True)
+        if len(trainer.refresh_log) != 2 * 2:
+            fail(f"{path}: expected 2 refresh decisions an epoch, got {trainer.refresh_log}")
+        check_preset_labels(trainer)
+        check_best_exports(trainer, run["best_epochs"])
+        check_launches(path, run, per_step)
+        run["decode_s"] = decode_s
+        runs[path] = run
+        del trainer
+    # (d) kidney, decode only: the annotator-1 train manifest and the voted
+    # test manifest of a single-slice NIfTI tree at 400 px, resized to 512
+    from aide_tpu_torch.data.io import nifti
+    from aide_tpu_torch.data.pipeline import SlicePipeline
+    from aide_tpu_torch.data.tasks import build_task
+    from aide_tpu_torch.data.tasks.base import resize_mask
+
+    cfg = get_preset("kidney_proposed_mask1", fresh_dir(os.path.join(scratch, "kidney_decode")))
+    write_fixture_tree(cfg, train_cases=8, test_cases=4, size=400, seed=7)
+    task = build_task(cfg)
+    t0 = time.perf_counter()
+    train = SlicePipeline(task, task.load_manifest(cfg.data.train_csv), cfg.data.img_size,
+                          working_labels=True)
+    t1 = time.perf_counter()
+    test = SlicePipeline(task, task.load_manifest(cfg.data.test_csv, train=False), cfg.data.img_size)
+    t2 = time.perf_counter()
+    votes = []
+    for spec in test.specs:
+        masks = [nifti.read_nifti(os.path.join(cfg.data.root, m))[0] for m in spec.extras["all_masks"]]
+        votes.append(resize_mask((np.mean(masks, axis=0) > 0.5).astype(np.uint8), cfg.data.img_size))
+    first = nifti.read_nifti(os.path.join(cfg.data.root, train.specs[0].mask_path))[0]
+    if (type(task).__name__ != "KidneyTask" or train.images[0].shape != (8, 512, 512, 3)
+            or not np.array_equal(test.targets, np.stack(votes))
+            or not np.array_equal(train.targets[0], resize_mask((first > 0.5).astype(np.uint8), 512))
+            or not train.targets.any() or not test.targets.any()):
+        fail("kidney decode: the pipelines do not hold annotator 1's masks and the vote at 512 px")
+    print(f"kidney decode (400 -> 512 px, NIfTI): train {len(train)} slices (annotator 1) in "
+          f"{t1 - t0:.3f} s, test {len(test)} slices (three-mask vote) in {t2 - t1:.3f} s", flush=True)
+    return runs
 
 
 # kernel-name fragments that group the profile (first match wins)
@@ -926,8 +1131,10 @@ def main() -> int:
         profile_steps("kidney co-teaching", trainer)
     del trainer
 
+    presets = run_presets(cuda_warp, scratch)
+
     runs = {"chaos_coteach": chaos, "kidney_supervised": kidney_sup,
-            "kidney_coteach": kidney_dual}
+            "kidney_coteach": kidney_dual, **presets}
     by_path = {}
     for path, run in runs.items():
         launched = [r for r in rows if r["path"] == path]
@@ -941,6 +1148,7 @@ def main() -> int:
             "step_ms": run["steady"],
             "first_step_ms": run["step_ms"][0],
             "max_memory_allocated": run["peak"],
+            **({"decode_s": run["decode_s"]} if "decode_s" in run else {}),
         }
     chaos_step = by_path["chaos_coteach"]
     kernels = [{

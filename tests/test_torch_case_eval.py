@@ -354,18 +354,26 @@ def test_png_reads_every_row_filter(tmp_path, kinds):
 
 
 def test_png_refuses_other_kinds(tmp_path):
+    """16-bit, interlaced and non-PNG files raise; RGB and palette files
+    read as Pillow's convert("L") gives them (tests/test_torch_io.py has
+    every mode)."""
     rgb = tmp_path / "rgb.png"
-    Image.fromarray(np.zeros((4, 5, 3), np.uint8), mode="RGB").save(str(rgb))
+    rgb_arr = np.random.default_rng(0).integers(0, 256, (4, 5, 3)).astype(np.uint8)
+    Image.fromarray(rgb_arr, mode="RGB").save(str(rgb))
     deep = tmp_path / "deep.png"
     deep.write_bytes(_png_bytes(3, 2, 16, 0, b"\x00" * (2 * 7)))
     laced = tmp_path / "laced.png"
     laced.write_bytes(_png_bytes(3, 2, 8, 0, b"\x00" * 8, interlace=1))
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((4, 5), np.uint8), mode="L").convert("P").save(buf, format="PNG")
+    Image.fromarray(np.arange(20, dtype=np.uint8).reshape(4, 5) * 12, mode="L").convert("P").save(
+        buf, format="PNG")
     palette = tmp_path / "palette.png"
     palette.write_bytes(buf.getvalue())
     notpng = tmp_path / "x.png"
     notpng.write_bytes(b"GIF89a....")
-    for path in (rgb, deep, laced, palette, notpng):
+    for path in (deep, laced, notpng):
         with pytest.raises(ValueError):
             png.read_mask(str(path))
+    for path in (rgb, palette):
+        with Image.open(str(path)) as img:
+            assert np.array_equal(png.read_mask(str(path)), np.asarray(img.convert("L")))

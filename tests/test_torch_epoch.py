@@ -15,10 +15,11 @@ net, and epoch 3 ends the ramp, so the engagement verdict runs. The bars:
 - the same best-checkpoint epochs, and a best ``.pkl`` that the JAX
   package's ``import_reference_checkpoint`` reads back equal to the port
   net's state at that epoch;
-- the same log lines from "Start Training" on, with the time field masked.
+- the same log lines from "Start Training" on, with the time field masked,
+  the step-loss lines of ``log_every_steps=2`` among them.
 
-Also: the trainer refuses a ``_full`` resume file and an unknown checkpoint
-flush, and
+Also: the trainer refuses a ``_full`` resume file, an unknown checkpoint
+flush and mesh settings for more than one device, and
 a refresh runs and reads back its tempmasks where Pillow cannot be imported.
 """
 
@@ -68,6 +69,7 @@ def _cfgs(tmp_path):
     jcfg.coteach.warmup_epochs = EPOCHS
     jcfg.num_epochs = 10
     jcfg.mesh.num_devices = 1
+    jcfg.log_every_steps = 2
     jcfg.checkpoint_dir = str(tmp_path / "jckpt")
     jcfg.history_dir = str(tmp_path / "jhist")
     cfg = TrainConfig.from_dict(jcfg.to_dict())
@@ -204,6 +206,16 @@ def test_log_lines_match(runs):
     assert got == want
 
 
+def test_step_log_lines_match(runs):
+    """log_every_steps=2: every second step of the 4 an epoch logs its
+    losses, as the JAX trainer does."""
+    want = [line for line in _log_from_start(runs["jcfg"]) if line.startswith("epoch ")]
+    got = [line for line in _log_from_start(runs["cfg"]) if line.startswith("epoch ")]
+    assert [line.split(" |")[0] for line in got] == [
+        f"epoch {e} step {s}" for e in range(1, EPOCHS + 1) for s in (2, 4)]
+    assert got == want
+
+
 def test_best_checkpoint_epochs_and_export(runs):
     def best_epochs(cfg):
         return [int(m.group(1)) for line in _log_from_start(cfg)
@@ -264,6 +276,18 @@ def test_trainer_refuses_an_unknown_checkpoint_flush(tmp_path):
     _, cfg = _cfgs(tmp_path)
     cfg.checkpoint_flush = "never"
     with pytest.raises(NotImplementedError, match="checkpoint_flush"):
+        ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
+
+
+@pytest.mark.parametrize("setting", [
+    ("num_devices", 2), ("extra_axes", (("net", 2),)), ("coordinator_address", "localhost:1234"),
+])
+def test_trainer_refuses_mesh_settings(tmp_path, setting):
+    """The port trains on one device: settings that ask for more raise
+    instead of being ignored."""
+    _, cfg = _cfgs(tmp_path)
+    setattr(cfg.mesh, *setting)
+    with pytest.raises(NotImplementedError, match=f"mesh.{setting[0]}.*ROADMAP Queue 1 item 7"):
         ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
 
 
