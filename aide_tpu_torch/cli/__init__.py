@@ -1,1 +1,1 @@
-"""aide_tpu_torch.cli: config presets (the command line is not ported yet)."""
+"""aide_tpu_torch.cli: the command line (``main``) and the config presets."""

@@ -3,9 +3,8 @@
 An own copy of ``aide_tpu.cli.presets`` with the port's ``TrainConfig``:
 every preset, field for field. One preset per reference entry point (CSV
 paths from the scripts' ``__main__`` blocks, e.g.
-trainchaos_proposed_30cases1labeled.py:606-617). Config only: the port has
-no CLI yet (ROADMAP Queue 1 item 15), and a preset may name a model or a
-task the port does not have yet (``Trainer`` says which).
+trainchaos_proposed_30cases1labeled.py:606-617); ``python -m
+aide_tpu_torch.cli ... --preset NAME`` runs one.
 ``data_root`` is the directory containing the dataset folders
 (inputs_chaos/, inputs_prostatemr/, inputs_qubiq/,
 inputs_breastMR_Henan_372cases/).

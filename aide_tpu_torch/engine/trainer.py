@@ -29,9 +29,10 @@ cache when set; a task object passed in is used as it is.
 
 ``run`` loops over the epochs and writes the history and the best-epoch
 exports even when an epoch fails; a warm-started dual run first probes the
-bootstrap skill on the labeled cases. Not ported yet: exact resume with its
-``_full`` files and multi-device meshes, which raise, and the CLI (ROADMAP
-Queue 1).
+bootstrap skill on the labeled cases. ``resume_file`` is a ``.pkl`` export
+or a JAX ``.msgpack`` net export. The CLI (``aide_tpu_torch.cli``) drives
+this class. Not ported yet, and refused: exact resume from ``_full`` files
+(ROADMAP Queue 1 item 3) and multi-device meshes (item 7).
 """
 
 from __future__ import annotations
@@ -79,23 +80,35 @@ def resolve_device(device=None) -> torch.device:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device available; pass device='cpu' to run on the CPU"
+            "no CUDA device available; pass device='cpu' (the CLI's --device cpu) "
+            "to run on the CPU"
         )
     return torch.device("cuda")
 
 
-def init_net(model_cfg, seed: int) -> nn.Module:
-    """A model with flax's default initialisation, drawn from ``seed``:
-    conv kernels lecun_normal, conv biases 0, BN scale 1 and bias 0."""
-    net = build_model(model_cfg)
+def init_weights(module: nn.Module, seed: int) -> nn.Module:
+    """flax's default initialisation of ``module`` in place, drawn from
+    ``seed``: conv, transposed-conv and dense kernels lecun_normal over
+    flax's fan-in (input channels times the kernel's taps), their biases 0;
+    norm scales 1 and biases 0 as the norms are built."""
     gen = torch.Generator().manual_seed(seed)
-    for m in net.modules():
-        if isinstance(m, nn.Conv2d):
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
-            nn.init.zeros_(m.bias)
-    return net
+        elif isinstance(m, nn.Linear):
+            fan_in = m.in_features
+        else:
+            continue
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+        nn.init.zeros_(m.bias)
+    return module
+
+
+def init_net(model_cfg, seed: int) -> nn.Module:
+    """The model a ModelConfig names, with flax's default initialisation
+    drawn from ``seed`` (``init_weights``)."""
+    return init_weights(build_model(model_cfg), seed)
 
 
 def refuse_mesh(mesh) -> None:
@@ -119,10 +132,11 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, task=None, device=None, logger=None):
         refuse_mesh(cfg.mesh)
         self.device = resolve_device(device)
-        if cfg.resume_file.endswith(".msgpack"):
+        if cfg.resume_file.endswith("_full.msgpack"):
+            # what the JAX trainer reads as an exact resume
             raise NotImplementedError(
-                "exact resume from _full files and .msgpack checkpoints are not "
-                "ported yet: ROADMAP Queue 1 item 14 (a .pkl export warm-starts)"
+                "exact resume from _full files is not ported yet: ROADMAP Queue 1 "
+                "item 3 (a .pkl or a .msgpack net export warm-starts)"
             )
         if cfg.checkpoint_flush not in ("best", "end"):
             raise NotImplementedError(
@@ -131,7 +145,8 @@ class Trainer:
         self.cfg = cfg
         self.dual = cfg.data.variant == "proposed" and cfg.coteach.enabled
         if cfg.data.augment_main:
-            raise NotImplementedError("data.augment_main is not ported yet: ROADMAP item 12")
+            raise NotImplementedError(
+                "data.augment_main is not ported yet: ROADMAP Queue 1 item 5")
         self.logger = logger or setup_logging(cfg.history_dir, cfg.experiment_name)
         record_params(self.logger, cfg)
 
@@ -198,7 +213,7 @@ class Trainer:
             self.state = TrainState(nets[0], optimizer)
             if cfg.resume_file:
                 # weights only: the optimizer starts afresh
-                nets[0].load_state_dict(ckpt.load_net(cfg.resume_file), strict=True)
+                nets[0].load_state_dict(ckpt.load_net(cfg.resume_file, nets[0]), strict=True)
             self.train_step = steps_mod.make_supervised_train_step(self.two_modal, cfg)
         self.eval_step = steps_mod.make_eval_step(self.two_modal, cfg, dual=self.dual)
         self.predict_step = steps_mod.make_predict_step(self.two_modal, dual=self.dual)

@@ -11,7 +11,8 @@ width bit-packing, which only saved a TPU link's transfer, is not carried.
 get a net axis of 1, and its results are keyed ``{0: [...]}``.
 ``start_case_inference`` queues the device work and its copy to pinned
 host memory before it returns, so the host can run CC on another pass while
-the device computes this one.
+the device computes this one. ``infer_cases`` and ``evaluate_cases`` run
+them to their end: the CLI's ``predict`` and ``eval``.
 """
 
 from __future__ import annotations
@@ -250,3 +251,47 @@ def start_case_evaluation(
 
     return finish
 
+
+def infer_cases(
+    predict_step: Callable,
+    state,
+    pipe: SlicePipeline,
+    cases: Sequence[str],
+    batch_size: int,
+    dual: bool,
+    keep_largest_cc: bool = True,
+    predict_all: Optional[Callable] = None,
+    timing: Optional[Dict[str, float]] = None,
+) -> List[Dict[int, np.ndarray]]:
+    """Predicted volumes per case, post-processed: a list aligned with
+    ``cases`` of {net_index: (S, H, W) uint8} (net_index 0 for a single
+    net). ``start_case_inference`` run to its end."""
+    return start_case_inference(
+        predict_step, state, pipe, cases, batch_size, keep_largest_cc,
+        predict_all=predict_all, timing=timing, dual=dual,
+    )()
+
+
+def evaluate_cases(
+    predict_step: Callable,
+    state,
+    pipe: SlicePipeline,
+    cases: Sequence[str],
+    batch_size: int,
+    dual: bool,
+    target_net: Union[int, str, None] = None,
+    keep_largest_cc: bool = True,
+    full_metrics: bool = False,
+    keep_volumes: bool = False,
+    predict_all: Optional[Callable] = None,
+    timing: Optional[Dict[str, float]] = None,
+) -> Dict[int, List[CaseResult]]:
+    """Per-case 3D Dice (with ``full_metrics`` also IoU and the confusion
+    counts) for each net, the volumes kept on the results with
+    ``keep_volumes``; ``target_net`` as in ``score_case_volumes``.
+    ``start_case_evaluation`` run to its end."""
+    return start_case_evaluation(
+        predict_step, state, pipe, cases, batch_size, target_net=target_net,
+        keep_largest_cc=keep_largest_cc, full_metrics=full_metrics,
+        keep_volumes=keep_volumes, predict_all=predict_all, timing=timing, dual=dual,
+    )()

@@ -4,39 +4,50 @@ from __future__ import annotations
 
 from torch import nn
 
-from aide_tpu_torch.models.fuseunet import FuseUNet
+from aide_tpu_torch.models.fuseunet import VARIANTS, FuseUNet
 from aide_tpu_torch.models.unet import UNet
 
-# the JAX package's model registry names the port has, with their default
-# base widths (ModelConfig.base_width overrides them)
-UNET_WIDTHS = {"unet": 64, **{f"unet{w}": w for w in (2, 4, 8, 16, 32, 128)}}
+# the JAX package's model registry: the UNet family with its default base
+# widths (ModelConfig.base_width overrides them), and the FuseUNet variants
+UNET_WIDTHS = {"unet": 64, "unetsa": 64, **{f"unet{w}": w for w in (2, 4, 8, 16, 32, 128)}}
+FUSEUNET_VARIANTS = {name: variant for variant, name in VARIANTS.items()}
 
 
 def build_model(model_cfg) -> nn.Module:
-    """The network a ModelConfig names: the plain two-modal FuseUNet or the
-    single-modal UNet family, with BatchNorm. ``packed*`` keys are accepted
-    as no-ops (the packed layout computes the same network)."""
+    """The network a ModelConfig names: a FuseUNet variant or a member of
+    the UNet family, with its norm, upsample, attention and remat options.
+    ``packed*`` keys are accepted as no-ops (the packed layout computes the
+    same network)."""
     name = model_cfg.name
-    if name != "fuseunet" and name not in UNET_WIDTHS:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP Queue 1 item 11); "
-            f"the port has fuseunet and {sorted(UNET_WIDTHS)}"
-        )
-    if model_cfg.norm != "batch" or model_cfg.learned_bilinear or model_cfg.remat:
-        raise NotImplementedError(
-            "only norm='batch', learned_bilinear=False, remat=False are ported "
-            "(ROADMAP Queue 1 item 11)"
+    if name not in UNET_WIDTHS and name not in FUSEUNET_VARIANTS:
+        raise KeyError(
+            f"unknown model {name!r}; available: {sorted(UNET_WIDTHS) + sorted(FUSEUNET_VARIANTS)}"
         )
     if model_cfg.param_dtype != "float32":
         raise NotImplementedError("only float32 params are ported")
-    if name == "fuseunet":
-        return FuseUNet(
-            num_classes=model_cfg.num_classes,
-            base_width=model_cfg.base_width or 32,
-            compute_dtype=model_cfg.compute_dtype,
-        )
-    return UNet(
+    common = dict(
         num_classes=model_cfg.num_classes,
-        base_width=model_cfg.base_width or UNET_WIDTHS[name],
         compute_dtype=model_cfg.compute_dtype,
+        learned_bilinear=model_cfg.learned_bilinear,
+        attention_reduction=model_cfg.attention_reduction,
+        attention_dilation=model_cfg.attention_dilation,
+        norm=model_cfg.norm,
+        group_norm_groups=model_cfg.group_norm_groups,
+        remat=model_cfg.remat,
     )
+    if name in FUSEUNET_VARIANTS:
+        return FuseUNet(base_width=model_cfg.base_width or 32,
+                        variant=FUSEUNET_VARIANTS[name], **common)
+    return UNet(base_width=model_cfg.base_width or UNET_WIDTHS[name],
+                spatial_attention=name == "unetsa", **common)
+
+
+def build_eval_model(model_cfg) -> nn.Module:
+    """The forward-only twin of ``build_model(model_cfg)``. The JAX
+    package drops its packed block barrier here, a TPU layout knob the port
+    does not have, so this is ``build_model``."""
+    return build_model(model_cfg)
+
+
+def is_two_modal(name: str) -> bool:
+    return name.startswith("fuseunet")

@@ -1,19 +1,29 @@
 """Shared network blocks, NCHW in ``torch.channels_last`` memory.
 
-The counterparts of ``aide_tpu.models.blocks`` that the plain FuseUNet and
-the UNet use. Module names follow the original PyTorch code's state_dict
-(``block.conv1``, ``bilinear_up.1``, ...), so its ``.pkl`` checkpoints and
-the JAX package's variables (``interop.weights``) load by name.
+The counterparts of ``aide_tpu.models.blocks``: the norms, the conv, down
+and up blocks, the attention gates and the refine block. Module names
+follow the original PyTorch code's state_dict (``block.conv1``,
+``bilinear_up.1``, ``sa3.conv4``, ...), so its ``.pkl`` checkpoints and the
+JAX package's variables (``interop.weights``) load by name.
 
 Every block's ``forward`` takes ``update_stats``: the TTA forwards run in
 train-mode BatchNorm (batch statistics) without touching the running ones.
+GroupNorm has no running statistics and ignores it.
+
+``remat`` is ``torch.utils.checkpoint`` (non-reentrant) around a block, as
+the JAX package wraps its blocks in ``nn.remat``. The recompute in the
+backward pass runs with the BatchNorm folds switched off, so the running
+statistics are folded once per forward, as flax's functional remat does.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -31,19 +41,26 @@ def autocast(x: torch.Tensor, dtype: torch.dtype):
     return torch.autocast(device_type=x.device.type, dtype=dtype, enabled=dtype != torch.float32)
 
 
-class Norm(nn.Module):
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """flax's norm statistics dtype: at least float32."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+class BatchNorm(nn.Module):
     """BatchNorm with flax semantics.
 
     Train mode normalizes with the batch statistics and, when
     ``update_stats``, folds them into the running ones as flax does:
     ``running = 0.9*running + 0.1*batch`` with the BIASED batch variance
     (mean(x^2) - mean(x)^2). ``nn.BatchNorm2d`` folds in the unbiased one,
-    which is why this is its own module. Eval mode uses the running stats."""
+    which is why this is its own module. Eval mode uses the running stats.
+    ``fold`` is cleared while a remat block recomputes its forward."""
 
     def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.fold = True
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -55,9 +72,9 @@ class Norm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             )
-        if update_stats:
+        if update_stats and self.fold:
             with torch.no_grad():
-                xf = x.detach().to(torch.float32)
+                xf = x.detach().to(_stats_dtype(x))
                 mean = xf.mean(dim=(0, 2, 3))
                 var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
                 self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
@@ -65,15 +82,81 @@ class Norm(nn.Module):
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
+def group_count(channels: int, groups: int) -> int:
+    """flax's group count: ``min(groups, C)``, stepped down until it
+    divides C (``aide_tpu.models.blocks.Norm``)."""
+    g = min(groups, channels)
+    while channels % g:
+        g -= 1
+    return g
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm with flax semantics: epsilon 1e-6, statistics in at least
+    float32 as flax's fast variance ``max(0, E[x^2] - E[x]^2)`` over (H, W, C/g),
+    the output in the input's dtype. No running statistics: train and eval
+    mode give the same output, and ``update_stats`` is ignored."""
+
+    def __init__(self, channels: int, groups: int = 8, eps: float = 1e-6):
+        super().__init__()
+        self.num_groups = group_count(channels, groups)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        b, c, h, w = x.shape
+        # splitting C is a view in channels_last memory too
+        xg = x.to(_stats_dtype(x)).reshape(b, self.num_groups, c // self.num_groups, h, w)
+        mean = xg.mean(dim=(2, 3, 4), keepdim=True)
+        var = torch.clamp((xg * xg).mean(dim=(2, 3, 4), keepdim=True) - mean * mean, min=0.0)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(b, c, h, w)
+        y = y * self.weight.view(1, c, 1, 1) + self.bias.view(1, c, 1, 1)
+        return y.to(x.dtype)
+
+
+def Norm(channels: int, kind: str = "batch", groups: int = 8) -> nn.Module:
+    """The norm factory of ``aide_tpu.models.blocks.Norm``: 'batch' or
+    'group' (with flax's group count)."""
+    if kind == "batch":
+        return BatchNorm(channels)
+    if kind == "group":
+        return GroupNorm(channels, groups)
+    raise ValueError(f"unknown norm kind {kind!r}")
+
+
+@contextlib.contextmanager
+def _no_fold(module: nn.Module):
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.fold = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.fold = True
+
+
+def run_block(module: nn.Module, remat: bool, *args):
+    """``module(*args)``, rematerialised in the backward pass when ``remat``
+    and gradients are on (the recompute does not fold BN statistics)."""
+    if not (remat and torch.is_grad_enabled()):
+        return module(*args)
+    return checkpoint(
+        module, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _no_fold(module)),
+    )
+
+
 class ConvBlock(nn.Module):
     """Two conv3x3 -> norm -> relu stages."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, norm: str = "batch", groups: int = 8):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, features, 3, padding=1)
-        self.bn1 = Norm(features)
+        self.bn1 = Norm(features, norm, groups)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
-        self.bn2 = Norm(features)
+        self.bn2 = Norm(features, norm, groups)
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x), update_stats))
@@ -83,9 +166,9 @@ class ConvBlock(nn.Module):
 class DownBlock(nn.Module):
     """ConvBlock under the name ``block`` (pooling is the caller's)."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, norm: str = "batch", groups: int = 8):
         super().__init__()
-        self.block = ConvBlock(cin, features)
+        self.block = ConvBlock(cin, features, norm, groups)
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
         return self.block(x, update_stats)
@@ -106,27 +189,123 @@ class Upsample2x(nn.Module):
 
 
 class UpsampleConv(nn.Sequential):
-    """2x bilinear upsample, conv3x3, norm, relu: the original code's
-    ``bilinear_up`` Sequential, so the conv is ``.1`` and the norm ``.2``."""
+    """2x upsample, norm, relu: the original code's ``bilinear_up``
+    Sequential. Bilinear resize + conv3x3 (the conv is ``.1``, the norm
+    ``.2``), or with ``learned`` a ConvTranspose(k2, s2) (``.0``, the norm
+    ``.1``)."""
 
-    def __init__(self, cin: int, features: int):
-        super().__init__(
-            Upsample2x(), nn.Conv2d(cin, features, 3, padding=1), Norm(features), nn.ReLU()
-        )
+    def __init__(self, cin: int, features: int, learned: bool = False, norm: str = "batch",
+                 groups: int = 8):
+        up = [nn.ConvTranspose2d(cin, features, 2, stride=2)] if learned else [
+            Upsample2x(), nn.Conv2d(cin, features, 3, padding=1)]
+        super().__init__(*up, Norm(features, norm, groups), nn.ReLU())
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
-        x = self[1](self[0](x))
-        return self[3](self[2](x, update_stats))
+        *up, norm, relu = self
+        for m in up:
+            x = m(x)
+        return relu(norm(x, update_stats))
 
 
 class UpBlock(nn.Module):
     """Upsample, concat [upsampled, skip], ConvBlock."""
 
-    def __init__(self, cin: int, skip_features: int, features: int):
+    def __init__(self, cin: int, skip_features: int, features: int, learned: bool = False,
+                 norm: str = "batch", groups: int = 8):
         super().__init__()
-        self.bilinear_up = UpsampleConv(cin, skip_features)
-        self.block = ConvBlock(2 * skip_features, features)
+        self.bilinear_up = UpsampleConv(cin, skip_features, learned, norm, groups)
+        self.block = ConvBlock(2 * skip_features, features, norm, groups)
 
     def forward(self, skip: torch.Tensor, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
         x = self.bilinear_up(x, update_stats)
         return self.block(torch.cat([x, skip], dim=1), update_stats)
+
+
+class ChannelAttention(nn.Module):
+    """Squeeze-excite channel gate: (B, C, 1, 1) sigmoid weights from the
+    spatial mean through two dense layers (``fc1``, ``fc2``)."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        mid = max(1, channels // reduction)
+        self.fc1 = nn.Linear(channels, mid)
+        self.fc2 = nn.Linear(mid, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.sigmoid(self.fc2(F.relu(self.fc1(x.mean(dim=(2, 3))))))
+        return y[:, :, None, None]
+
+
+class _DilatedGate(nn.Module):
+    """1x1 reduce to max(1, C/reduction), two dilated 3x3 convs, 1x1 to one
+    channel, a norm of one group (``conv1``-``conv4``, ``bn``): the spatial
+    branch of SpatialAttention and BottleneckAttention, before the sigmoid."""
+
+    def __init__(self, channels: int, reduction: int, dilation: int, norm: str):
+        super().__init__()
+        mid = max(1, channels // reduction)
+        self.conv1 = nn.Conv2d(channels, mid, 1)
+        self.conv2 = nn.Conv2d(mid, mid, 3, padding=dilation, dilation=dilation)
+        self.conv3 = nn.Conv2d(mid, mid, 3, padding=dilation, dilation=dilation)
+        self.conv4 = nn.Conv2d(mid, 1, 1)
+        self.bn = Norm(1, norm, 1)
+
+    def spatial(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
+        y = self.conv3(self.conv2(self.conv1(x)))
+        return self.bn(self.conv4(y), update_stats)
+
+
+class SpatialAttention(_DilatedGate):
+    """Dilated-conv spatial gate: (B, 1, H, W) sigmoid weights."""
+
+    def __init__(self, channels: int, reduction: int = 16, dilation: int = 4, norm: str = "batch"):
+        super().__init__(channels, reduction, dilation, norm)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        return torch.sigmoid(self.spatial(x, update_stats))
+
+
+class BottleneckAttention(_DilatedGate):
+    """BAM-style combined gate: x + sigmoid(channel + spatial) * x."""
+
+    def __init__(self, channels: int, reduction: int = 16, dilation: int = 4, norm: str = "batch"):
+        super().__init__(channels, reduction, dilation, norm)
+        self.ca = ChannelAttention(channels, reduction)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        gate = torch.sigmoid(self.ca(x) + self.spatial(x, update_stats))
+        return x + gate * x
+
+
+class CAUpBlock(nn.Module):
+    """Up block with a channel-attention gate on the fused features;
+    ``residual`` adds the ungated features back."""
+
+    def __init__(self, cin: int, skip_features: int, features: int, residual: bool = False,
+                 learned: bool = False, reduction: int = 16, norm: str = "batch",
+                 groups: int = 8):
+        super().__init__()
+        self.residual = residual
+        self.bilinear_up = UpsampleConv(cin, skip_features, learned, norm, groups)
+        self.ca = ChannelAttention(2 * skip_features, reduction)
+        self.block = ConvBlock(2 * skip_features, features, norm, groups)
+
+    def forward(self, skip: torch.Tensor, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        x = torch.cat([self.bilinear_up(x, update_stats), skip], dim=1)
+        gated = self.ca(x) * x
+        return self.block(gated + x if self.residual else gated, update_stats)
+
+
+class FeatureRefine(nn.Module):
+    """Residual refine: relu(x + norm(conv(relu(norm(conv(x))))))."""
+
+    def __init__(self, features: int, norm: str = "batch", groups: int = 8):
+        super().__init__()
+        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
+        self.bn1 = Norm(features, norm, groups)
+        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        self.bn2 = Norm(features, norm, groups)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x), update_stats))
+        return F.relu(x + self.bn2(self.conv2(y), update_stats))

@@ -1,11 +1,19 @@
-"""Two-modal FuseUNet, plain variant.
+"""Two-modal FuseUNet: the plain variant and the two attention variants.
 
-The counterpart of ``aide_tpu.models.fuseunet.FuseUNet(variant="plain")``:
-two 5-level encoders fused by channel concat [modal1, modal2] at every
-scale, modal 1 descending through the FUSED maps, one decoder over the
-fused skips, and a 1x1 head. Public layout as in the JAX package: inputs
-(B, H, W, 3) each, logits (B, H, W, C) float32. Inside, the maps are NCHW
-in channels_last memory, so the NHWC logits are a view with no copy.
+The counterpart of ``aide_tpu.models.fuseunet.FuseUNet``: two 5-level
+encoders fused by channel concat [modal1, modal2] at every scale, one
+decoder over the fused skips, and a 1x1 head. Variants:
+
+* ``plain`` (``fuseunet``): modal 1 descends through the FUSED maps, so its
+  blocks from level 2 on take 2x the width;
+* ``sa`` (``fuseunetsa``): as plain, with a spatial-attention gate on each
+  modality's block output at every level (``modal{m}_sa{k}``);
+* ``sa_separate`` (``fuseunetsaseparate``): gated as ``sa``, but modal 1
+  descends through its own gated maps; the fusion only feeds the skips.
+
+Public layout as in the JAX package: inputs (B, H, W, 3) each, logits
+(B, H, W, C) float32. Inside, the maps are NCHW in channels_last memory, so
+the NHWC logits are a view with no copy.
 """
 
 from __future__ import annotations
@@ -13,7 +21,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from aide_tpu_torch.models.blocks import DownBlock, UpBlock, autocast, max_pool_2x2, resolve_dtype
+from aide_tpu_torch.models.blocks import (
+    DownBlock,
+    SpatialAttention,
+    UpBlock,
+    autocast,
+    max_pool_2x2,
+    resolve_dtype,
+    run_block,
+)
+
+VARIANTS = {"plain": "fuseunet", "sa": "fuseunetsa", "sa_separate": "fuseunetsaseparate"}
 
 
 class FuseUNet(nn.Module):
@@ -23,22 +41,48 @@ class FuseUNet(nn.Module):
         base_width: int = 32,
         in_channels: int = 3,
         compute_dtype: str = "bfloat16",
+        variant: str = "plain",
+        learned_bilinear: bool = False,
+        attention_reduction: int = 16,
+        attention_dilation: int = 4,
+        norm: str = "batch",
+        group_norm_groups: int = 8,
+        remat: bool = False,
     ):
         super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown FuseUNet variant {variant!r}")
         self.compute_dtype = resolve_dtype(compute_dtype)
+        self.gated = variant != "plain"
+        self.fused_descent = variant != "sa_separate"
+        self.remat = remat
+        # what interop.weights reads to pick the name map
+        self.arch = dict(model_name=VARIANTS[variant], learned_bilinear=learned_bilinear,
+                         norm=norm)
+        common = dict(norm=norm, groups=group_norm_groups)
         w = base_width
         widths = [w, 2 * w, 4 * w, 8 * w, 16 * w]
         for level, feats in enumerate(widths):
-            cin1 = in_channels if level == 0 else 2 * widths[level - 1]
-            cin2 = in_channels if level == 0 else widths[level - 1]
-            self.add_module(f"modal1_downblock{level + 1}", DownBlock(cin1, feats))
-            self.add_module(f"modal2_downblock{level + 1}", DownBlock(cin2, feats))
+            prev = widths[level - 1]
+            cin1 = in_channels if level == 0 else (2 * prev if self.fused_descent else prev)
+            cin2 = in_channels if level == 0 else prev
+            self.add_module(f"modal1_downblock{level + 1}", DownBlock(cin1, feats, **common))
+            self.add_module(f"modal2_downblock{level + 1}", DownBlock(cin2, feats, **common))
+            if self.gated:
+                for m in (1, 2):
+                    self.add_module(f"modal{m}_sa{level + 1}", SpatialAttention(
+                        feats, attention_reduction, attention_dilation, norm))
         for level in range(3, -1, -1):
-            self.add_module(
-                f"up_block{4 - level}",
-                UpBlock(2 * widths[level + 1], 2 * widths[level], 2 * widths[level]),
-            )
+            self.add_module(f"up_block{4 - level}", UpBlock(
+                2 * widths[level + 1], 2 * widths[level], 2 * widths[level], learned_bilinear,
+                **common))
         self.last_conv1 = nn.Conv2d(2 * widths[0], num_classes, 1)
+
+    def _encode(self, m: int, level: int, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
+        x = run_block(getattr(self, f"modal{m}_downblock{level + 1}"), self.remat, x, update_stats)
+        if self.gated:
+            x = getattr(self, f"modal{m}_sa{level + 1}")(x, update_stats) * x
+        return x
 
     def forward(
         self, modal1: torch.Tensor, modal2: torch.Tensor, update_stats: bool = True
@@ -49,13 +93,14 @@ class FuseUNet(nn.Module):
             fused = []
             for level in range(5):
                 if level > 0:
-                    y = max_pool_2x2(fused[-1])
+                    y = max_pool_2x2(fused[-1] if self.fused_descent else y)
                     x = max_pool_2x2(x)
-                y = getattr(self, f"modal1_downblock{level + 1}")(y, update_stats)
-                x = getattr(self, f"modal2_downblock{level + 1}")(x, update_stats)
+                y = self._encode(1, level, y, update_stats)
+                x = self._encode(2, level, x, update_stats)
                 fused.append(torch.cat([y, x], dim=1))
             out = fused[-1]
             for level in range(3, -1, -1):
-                out = getattr(self, f"up_block{4 - level}")(fused[level], out, update_stats)
+                out = run_block(getattr(self, f"up_block{4 - level}"), self.remat,
+                                fused[level], out, update_stats)
             logits = self.last_conv1(out)
         return logits.to(torch.float32).permute(0, 2, 3, 1)

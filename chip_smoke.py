@@ -74,15 +74,40 @@ Phases:
      exports; it prints the epoch phases, step times, peak memory and the
      decode seconds of each SlicePipeline. (d) the kidney_proposed_mask1
      task on single-slice NIfTI files at 400 px: its train (annotator 1)
-     and test (three-mask vote) pipelines at 512 px, decode only.
-Phases 3 and 4 also check and time the kernel at phase 8's launch shapes.
+     and test (three-mask vote) pipelines at 512 px, decode only;
+  9. the command line and the model zoo, through
+     aide_tpu_torch.cli.main.main(argv) in process (its trainer driven as
+     the phases above drive theirs): (a) train --preset synthetic_smoke as
+     it stands (UNet-8, GroupNorm, f32, 64 px, batch 4, 2 views, 3 epochs;
+     only the data and output directories set, under
+     build/chip_smoke/cli_smoke): finite history, 2 warp launches a step and
+     none in case evaluation, the refresh decisions the preset's schedule
+     gives, each logged, loadable best exports; then eval and predict of
+     the best export on the card (one CSV row a test case, one PNG a test
+     slice, no launch), and export refusing the GroupNorm net; (b) train
+     --preset chaos_proposed_30cases1labeled --set model.name=fuseunetsa
+     --epochs 2 on phase 8's fixture tree (FuseUNet-32 with spatial
+     attention, bf16, 256 px, batch 4): 3 launches a step, the epoch phases,
+     step times and peak as phase 8 prints them; then export of the best
+     export of net 1 to the reference .pkl, eval of that .pkl on the card
+     and on this machine's CPU (f32, TF32 off: per-case Dice within 1e-3,
+     under 0.1% of mask pixels differing) and predict on the card; (c) one
+     epoch of co-teaching steps of unetsa (UNet-64) and fuseunetsaseparate
+     (FuseUNet-32) at 256 px, batch 4, 4 views, bf16 (finite losses, 2 and
+     3 launches a step), phase 6's card-CPU comparison for a UNet with the
+     learned upsample and GroupNorm, and the supervised step at the kidney
+     comparison shapes (UNet-64, 512 px, batch 4) with remat off and on:
+     step ms and peak, the peak lower with remat and the first loss within
+     1e-3 relative.
+Phases 3 and 4 also check and time the kernel at phase 8's and phase 9's
+launch shapes.
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
 Run from the repository root:
   python3 chip_smoke.py [--profile] [--baseline FILE.cu]
-(--profile adds, after phases 5 and 7, a torch.profiler breakdown of a few
-more co-teaching steps of each; --baseline times another version of csrc/warp_rotate_flip.cu, for
+(--profile adds, after phases 5 and 7 and in phase 9 (a) and (b), a
+torch.profiler breakdown of a few more co-teaching steps of each; --baseline times another version of csrc/warp_rotate_flip.cu, for
 instance an earlier commit's, beside this one in phase 4; it may be given
 more than once).
 It exits non-zero, printing no result, without a CUDA device, or when any
@@ -92,7 +117,9 @@ check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -125,7 +152,17 @@ KERNEL_LAUNCHES = (
     ("prostate_preset", (32, 256, 256, 2), True, 1),
     ("breast_preset", (16, 384, 384, 3), False, 1),
     ("breast_preset", (32, 384, 384, 2), True, 1),
+    # phase 9 (a): synthetic_smoke through the CLI, 2 views of 4 images at
+    # 64 px, where every tile of the kernel is an edge tile
+    ("cli_smoke", (8, 64, 64, 3), False, 1),
+    ("cli_smoke", (16, 64, 64, 2), True, 1),
 )
+# phase 9's paths whose launches have an earlier path's shapes (and its
+# rows in phase 4): the CHAOS preset with fuseunetsa and the
+# fuseunetsaseparate steps at batch 4 launch as the CHAOS preset does, the
+# unetsa steps as the prostate preset (one 256 px image)
+SAME_SHAPES = {"cli_chaos": "chaos_preset", "zoo_fuseunetsaseparate": "chaos_preset",
+               "zoo_unetsa": "prostate_preset"}
 # phase 8: (path, preset, the fixture tree's native px, warp launches a step)
 PRESET_RUNS = (
     ("chaos_preset", "chaos_proposed_30cases1labeled", 256, 3),
@@ -427,12 +464,13 @@ def check_unfused_test(trainer, row) -> None:
         fail(f"the unfused test pass disagrees with the fused one: {diff}")
 
 
-def drive(trainer, cuda_warp, epochs: int = 2) -> dict:
+def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
     """Trainer.run(epochs) with the step times (host clock around a
     synchronised step), the warp launches of each train epoch and of the
     whole run (the count set to 0 just before and read just after), the
     epochs the best-checkpoint gate logged, and the peak of
-    max_memory_allocated."""
+    max_memory_allocated. ``runner(epochs)`` runs the epochs instead of
+    ``trainer.run`` when given (a subclass's own run)."""
     import torch
 
     step_ms, train_launches, best_epochs = [], [], []
@@ -464,7 +502,7 @@ def drive(trainer, cuda_warp, epochs: int = 2) -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     cuda_warp.reset_launches()
-    rows = trainer.run(epochs)
+    rows = (runner or trainer.run)(epochs)
     torch.cuda.synchronize()
     launches = cuda_warp.launches
     peak = torch.cuda.max_memory_allocated()
@@ -810,6 +848,331 @@ def run_presets(cuda_warp, scratch):
     return runs
 
 
+def cli_train(cuda_warp, argv):
+    """``main(["train", *argv])`` of the port's CLI, in process, with the
+    trainer it builds driven as ``drive`` drives one (the launch count set
+    to 0 just before its run and read just after). Returns (trainer, run)."""
+    from aide_tpu_torch.cli.main import main as cli
+    from aide_tpu_torch.engine import trainer as trainer_mod
+
+    base, driven = trainer_mod.Trainer, []
+
+    class Driven(base):
+        def run(self, num_epochs=None):
+            run = drive(self, cuda_warp, num_epochs, runner=lambda n: base.run(self, n))
+            driven.append((self, run))
+            return run["rows"]
+
+    release_device_memory()
+    trainer_mod.Trainer = Driven
+    try:
+        rc = cli(["train", *argv])
+    finally:
+        trainer_mod.Trainer = base
+    if rc != 0 or len(driven) != 1:
+        fail(f"train {argv}: rc {rc}, {len(driven)} driven runs")
+    return driven[0]
+
+
+def cli_command(cuda_warp, argv) -> tuple:
+    """``main(argv)`` of the port's CLI, in process: (its JSON output, the
+    seconds it took). It must return 0 without a warp launch."""
+    from aide_tpu_torch.cli.main import main as cli
+
+    buf = io.StringIO()
+    cuda_warp.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    seconds = time.perf_counter() - t0
+    if rc != 0 or cuda_warp.launches:
+        fail(f"{argv[0]} {argv[1:]}: rc {rc}, {cuda_warp.launches} warp launches")
+    return json.loads(buf.getvalue()), seconds
+
+
+def read_case_csv(path: str) -> dict:
+    """{case: [Dice, IoU, TP, TN, FP, FN]} of an eval CSV with the reference
+    header."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    if not lines or lines[0] != "Patient_case,Dice,IoU,TP,TN,FP,FN":
+        fail(f"{path} lacks the reference header: {lines[:1]}")
+    return {row.split(",")[0]: [float(v) for v in row.split(",")[1:]] for row in lines[1:]}
+
+
+def png_masks(folder: str) -> dict:
+    """{relative path: mask} of every PNG under ``folder``."""
+    from aide_tpu_torch.data.io import png
+
+    out = {}
+    for dirpath, _, files in os.walk(folder):
+        for f in sorted(files):
+            if f.endswith(".png"):
+                path = os.path.join(dirpath, f)
+                out[os.path.relpath(path, folder)] = png.read_mask(path)
+    return out
+
+
+def check_eval_outputs(name, out, checkpoint, cases, slices) -> dict:
+    """An eval's CSV holds one row a test case, and its masks one PNG a
+    test slice. Returns the CSV's rows."""
+    rows = read_case_csv(os.path.join(out, os.path.basename(checkpoint).split(".")[0] + ".csv"))
+    masks = png_masks(os.path.join(out, "generated_masks"))
+    if sorted(rows) != sorted(cases) or len(masks) != slices:
+        fail(f"{name}: eval wrote rows {sorted(rows)} and {len(masks)} masks for cases "
+             f"{sorted(cases)} of {slices} slices")
+    return rows
+
+
+def run_cli_smoke(cuda_warp, scratch, extra=(), profile=False):
+    """Phase 9 (a): ``train --preset synthetic_smoke`` as it stands, then
+    ``eval`` and ``predict`` of its best export on the card; ``export``
+    refuses the GroupNorm net. ``profile`` adds profile_steps of the
+    trained pair."""
+    from aide_tpu_torch.cli.main import main as cli
+
+    work = fresh_dir(os.path.join(scratch, "cli_smoke"))
+    argv = ["--preset", "synthetic_smoke", "--set", f"data.root={work}/data",
+            f"checkpoint_dir={work}/ckpt", f"history_dir={work}/hist", *extra]
+    trainer, run = cli_train(cuda_warp, argv)
+    cfg = trainer.cfg
+    print(f"cli_smoke: train --preset synthetic_smoke ({cfg.model.name}, norm {cfg.model.norm}, "
+          f"{cfg.model.compute_dtype}, {cfg.data.img_size} px, batch {cfg.data.batch_size}, "
+          f"{cfg.data.num_tta_views} views, {len(trainer.train_pipe)} train slices, "
+          f"{cfg.num_epochs} epochs)", flush=True)
+    print_run("cli_smoke", run)
+    if trainer.device.type != "cuda" or not trainer.dual or len(run["rows"]) != cfg.num_epochs:
+        fail(f"cli_smoke: {len(run['rows'])} epochs, dual={trainer.dual} on {trainer.device}")
+    check_launches("cli_smoke", run, 2)
+    want = 2 * sum(trainer._is_refresh_epoch(e) for e in range(cfg.num_epochs))
+    with open(os.path.join(cfg.history_dir, f"{cfg.experiment_name}.log")) as fh:
+        logged = sum("modify for net" in line for line in fh)
+    if len(trainer.refresh_log) != want or logged != want:
+        fail(f"cli_smoke: the schedule gives {want} refresh decisions; {len(trainer.refresh_log)} "
+             f"made, {logged} logged")
+    check_refresh(trainer)
+    paths = check_best_exports(trainer, run["best_epochs"])
+    if not paths:
+        fail("cli_smoke: no best export")
+    if profile:
+        profile_steps("cli_smoke co-teaching", trainer)
+    cases, slices = list(trainer.test_cases), len(trainer.test_pipe)
+    del trainer
+    release_device_memory()
+    summary, eval_s = cli_command(cuda_warp, ["eval", *argv, "--checkpoint", paths[0],
+                                              "--output", f"{work}/eval"])
+    check_eval_outputs("cli_smoke", f"{work}/eval", paths[0], cases, slices)
+    pred, pred_s = cli_command(cuda_warp, ["predict", *argv, "--checkpoint", paths[0],
+                                           "--output", f"{work}/pred"])
+    if pred["slices"] != slices or len(png_masks(f"{work}/pred")) != slices:
+        fail(f"cli_smoke: predict wrote {pred} for {slices} slices")
+    try:
+        cli(["export", *argv, "--checkpoint", paths[0], "--output", f"{work}/net.pkl"])
+    except ValueError as err:
+        refused = str(err)
+    else:
+        fail("cli_smoke: export of a GroupNorm net did not refuse")
+    print(f"cli_smoke: eval of {os.path.basename(paths[0])} on the card {json.dumps(summary)} in "
+          f"{eval_s:.2f} s; predict {json.dumps(pred)} in {pred_s:.2f} s; export refused: "
+          f"{refused}", flush=True)
+    return run
+
+
+def run_cli_chaos(cuda_warp, scratch, extra=(), profile=False):
+    """Phase 9 (b): ``train --preset chaos_proposed_30cases1labeled --set
+    model.name=fuseunetsa --epochs 2`` on phase 8's fixture tree at full
+    width; then ``export`` of the best export of net 1, ``eval`` of the
+    exported .pkl on the card and on this machine's CPU (f32, TF32 off:
+    per-case Dice within 1e-3, under 0.1% of mask pixels differing), and
+    ``predict`` on the card. ``profile`` adds profile_steps of the trained
+    pair."""
+    import numpy as np
+    import torch
+
+    from aide_tpu_torch.cli.presets import get_preset
+    from aide_tpu_torch.data.fixtures import write_fixture_tree
+
+    preset = "chaos_proposed_30cases1labeled"
+    work = fresh_dir(os.path.join(scratch, "cli_chaos"))
+    data = os.path.join(work, "data")
+    write_fixture_tree(get_preset(preset, data), train_cases=4, test_cases=1, slices=16,
+                       size=256, labeled=1, seed=7)
+    argv = ["--preset", preset, "--data-root", data, "--set", "model.name=fuseunetsa",
+            f"checkpoint_dir={work}/ckpt", f"history_dir={work}/hist", *extra]
+    trainer, run = cli_train(cuda_warp, argv + ["--epochs", "2"])
+    cfg = trainer.cfg
+    print(f"cli_chaos: train --preset {preset} --set model.name=fuseunetsa ({cfg.model.name}, "
+          f"base width {cfg.model.base_width or 'default'}, {cfg.model.compute_dtype}, "
+          f"{cfg.data.img_size} px, batch {cfg.data.batch_size}) on the fixture tree of phase 8",
+          flush=True)
+    print_run("cli_chaos", run)
+    if (trainer.device.type != "cuda" or not trainer.dual or cfg.model.name != "fuseunetsa"
+            or not hasattr(trainer.state.nets[0], "modal1_sa5")):
+        fail(f"cli_chaos: Trainer built {cfg.model.name} dual={trainer.dual} on {trainer.device}")
+    check_launches("cli_chaos", run, 3)
+    paths = check_best_exports(trainer, run["best_epochs"])
+    if not paths:
+        fail("cli_chaos: no best export")
+    if profile:
+        profile_steps("cli_chaos co-teaching", trainer)
+    keys = set(trainer.state.nets[0].state_dict())
+    cases, slices = list(trainer.test_cases), len(trainer.test_pipe)
+    del trainer
+    release_device_memory()
+
+    pkl = f"{work}/net1.pkl"
+    cli_command(cuda_warp, ["export", *argv, "--checkpoint", paths[0], "--output", pkl])
+    obj = torch.load(pkl, map_location="cpu", weights_only=True)
+    tracked = {k[: -len("running_var")] + "num_batches_tracked" for k in keys
+               if k.endswith("running_var")}
+    if set(obj) != {"net", "loss", "epoch"} or set(obj["net"]) != keys | tracked:
+        fail(f"cli_chaos: the exported {pkl} is not the reference layout of the net")
+    f32 = ["--set", "model.compute_dtype=float32", "--checkpoint", pkl]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card, card_s = cli_command(cuda_warp, ["eval", *argv, *f32, "--output", f"{work}/eval_card"])
+        cpu, cpu_s = cli_command(cuda_warp, ["eval", *argv, *f32, "--output", f"{work}/eval_cpu",
+                                             "--device", "cpu"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    rows = {k: check_eval_outputs(f"cli_chaos eval on the {k}", f"{work}/eval_{k}", pkl, cases,
+                                  slices) for k in ("card", "cpu")}
+    dice_gap = max(abs(rows["card"][c][0] - rows["cpu"][c][0]) for c in cases)
+    masks = {k: png_masks(f"{work}/eval_{k}/generated_masks") for k in ("card", "cpu")}
+    differ = sum(int(np.count_nonzero(masks["card"][k] != m)) for k, m in masks["cpu"].items())
+    total = sum(m.size for m in masks["cpu"].values())
+    print(f"cli_chaos: eval of the exported .pkl, f32 and TF32 off: card {json.dumps(card)} in "
+          f"{card_s:.2f} s, CPU {json.dumps(cpu)} in {cpu_s:.2f} s; per-case Dice gap "
+          f"{dice_gap:.3e}, mask pixels differing {differ} of {total} ({differ / total:.3e})",
+          flush=True)
+    if dice_gap > 1e-3 or differ >= 1e-3 * total:
+        fail(f"cli_chaos: the card's eval disagrees with the CPU's: Dice gap {dice_gap}, "
+             f"{differ} of {total} mask pixels")
+    pred, pred_s = cli_command(cuda_warp, ["predict", *argv, "--checkpoint", pkl,
+                                           "--output", f"{work}/pred"])
+    if pred["slices"] != slices or len(png_masks(f"{work}/pred")) != slices:
+        fail(f"cli_chaos: predict wrote {pred} for {slices} slices")
+    print(f"cli_chaos: predict {json.dumps(pred)} in {pred_s:.2f} s", flush=True)
+    return run
+
+
+def zoo_steps(cuda_warp, scratch, name, base_width, per_step) -> dict:
+    """Phase 9 (c): one epoch of co-teaching steps (3 cases x 8 slices, 6
+    steps) of ``name`` at full width, 256 px, batch 4, 4 views, bf16
+    autocast: finite losses and ``per_step`` warp launches a step."""
+    import torch
+
+    from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
+    from aide_tpu_torch.engine.trainer import Trainer
+    from aide_tpu_torch.models import is_two_modal
+
+    cfg = chaos_config()
+    cfg.model.name, cfg.model.base_width = name, base_width
+    cfg.data.batch_size = 4
+    cfg.checkpoint_dir = fresh_dir(os.path.join(scratch, f"zoo_{name}", "ckpt"))
+    cfg.history_dir = fresh_dir(os.path.join(scratch, f"zoo_{name}", "hist"))
+    task = SyntheticTask(
+        root=fresh_dir(os.path.join(scratch, f"zoo_{name}", "data")), tempmask_folder="tempmasks",
+        two_modal=is_two_modal(name), num_cases=3, slices_per_case=8, size=256,
+        noisy_fraction=0.5, clean_cases=1, num_test_cases=1, test_case_offset=100, seed=7,
+    )
+    release_device_memory()
+    trainer = Trainer(cfg, task)
+    step_ms, inner = [], trainer.train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    cuda_warp.reset_launches()
+    m = trainer._train_epoch(0, 0.5)
+    launches = cuda_warp.launches
+    trainer.train_step = inner
+    run = dict(step_ms=step_ms, launches=launches, outside=0, peak=torch.cuda.max_memory_allocated(),
+               steady=statistics.median(step_ms[1:]))
+    print(f"zoo_{name}: {len(step_ms)} co-teaching steps ({name}, base width {base_width}, 256 px, "
+          f"batch 4, 4 views, bf16): losses {m['loss1']:.4f}/{m['loss2']:.4f}, first step "
+          f"{step_ms[0]:.1f} ms, median of the rest {run['steady']:.3f} ms, max_memory_allocated "
+          f"{run['peak']} bytes, warp launches {launches}", flush=True)
+    if len(step_ms) != 6 or not all(math.isfinite(v) for v in m.values()):
+        fail(f"zoo_{name}: {len(step_ms)} steps, metrics {m}")
+    check_launches(f"zoo_{name}", run, per_step)
+    del trainer
+    return run
+
+
+def remat_peak() -> dict:
+    """Phase 9 (c): the supervised step at the kidney comparison shapes
+    (kidney_comparison_mask1: UNet-64, 512 px, batch 4, bf16 autocast) from
+    the same weights and batch, remat off then on: the first step's loss,
+    the median of 5 more steps and the peak of max_memory_allocated."""
+    import torch
+
+    from aide_tpu_torch.cli.presets import get_preset
+    from aide_tpu_torch.engine import steps as steps_mod
+    from aide_tpu_torch.engine.state import TrainState
+    from aide_tpu_torch.engine.trainer import init_net
+    from aide_tpu_torch.ops.schedules import make_optimizer
+
+    cfg = get_preset("kidney_comparison_mask1")
+    b, s = cfg.data.batch_size, cfg.data.img_size
+    g = torch.Generator().manual_seed(7)
+    batch = {"image": torch.randn((b, s, s, 3), generator=g).cuda(),
+             "target": (torch.rand((b, s, s), generator=g) < 0.3).long().cuda()}
+    weights, out = None, {}
+    for remat in (False, True):
+        cfg.model.remat = remat
+        release_device_memory()
+        net = init_net(cfg.model, cfg.seed)
+        if weights is None:
+            weights = {k: v.clone() for k, v in net.state_dict().items()}
+        net.load_state_dict(weights)
+        net = net.cuda().to(memory_format=torch.channels_last)
+        state = TrainState(net, make_optimizer(list(net.parameters()), cfg.optim, 10, 10))
+        step = steps_mod.make_supervised_train_step(False, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for _ in range(6):
+            t = time.perf_counter()
+            losses.append(float(step(state, batch)["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        out[remat] = dict(loss=losses[0], step_ms=statistics.median(ms[1:]),
+                          peak=torch.cuda.max_memory_allocated())
+        del state, net, step
+    rel = abs(out[True]["loss"] - out[False]["loss"]) / abs(out[False]["loss"])
+    print(f"remat at the kidney comparison shapes ({cfg.model.name}, {s} px, batch {b}, "
+          f"{cfg.model.compute_dtype}, supervised): off {json.dumps(out[False])}, on "
+          f"{json.dumps(out[True])}; peak {out[True]['peak'] / out[False]['peak']:.3f}x, step "
+          f"{out[True]['step_ms'] / out[False]['step_ms']:.3f}x, first-step loss relative "
+          f"difference {rel:.3e}", flush=True)
+    if out[True]["peak"] >= out[False]["peak"] or rel > 1e-3:
+        fail(f"remat: the peak did not fall or the loss moved: {out}")
+    return {"off": out[False], "on": out[True]}
+
+
+def run_zoo(cuda_warp, scratch) -> tuple:
+    """Phase 9 (c): the attention FuseUNet and UNet on the card, the learned
+    upsample and GroupNorm against this machine's CPU, remat's peak."""
+    import torch
+
+    runs = {"zoo_unetsa": zoo_steps(cuda_warp, scratch, "unetsa", 64, 2),
+            "zoo_fuseunetsaseparate": zoo_steps(cuda_warp, scratch, "fuseunetsaseparate", 32, 3)}
+    torch.backends.cudnn.allow_tf32 = False
+    small_dual_vs_cpu(scratch, "unet", two_modal=False,
+                      options={"learned_bilinear": True, "norm": "group"}, caches=("auto",))
+    torch.backends.cudnn.allow_tf32 = True
+    return runs, remat_peak()
+
+
 # kernel-name fragments that group the profile (first match wins)
 KERNEL_KINDS = (
     ("warp_kernel", ("warp_rotate_flip",)),
@@ -869,15 +1232,18 @@ def profile_steps(name, trainer, steps: int = 3) -> None:
     }), flush=True)
 
 
-def small_config(model: str = "fuseunet", supervised: bool = False):
+def small_config(model: str = "fuseunet", supervised: bool = False, options=None):
     """Phase 6's slice: 32 px, base width 4, f32, both epochs refreshing
-    (dual), or the supervised comparison trainer."""
+    (dual), or the supervised comparison trainer; ``options`` sets model
+    fields (phase 9's learned upsample and GroupNorm)."""
     from aide_tpu_torch.core.config import TrainConfig
 
     cfg = TrainConfig()
     cfg.model.name = model
     cfg.model.base_width = 4
     cfg.model.compute_dtype = "float32"
+    for key, value in (options or {}).items():
+        setattr(cfg.model, key, value)
     cfg.data.task = "synthetic"
     cfg.data.img_size = 32
     cfg.data.batch_size = 4
@@ -1003,7 +1369,8 @@ def worst_difference(gpu_rows, cpu_rows) -> float:
     return worst
 
 
-def small_dual_vs_cpu(scratch, model="fuseunet", two_modal=True, resume=""):
+def small_dual_vs_cpu(scratch, model="fuseunet", two_modal=True, resume="", options=None,
+                      caches=("auto", "off")):
     """Phase 6, dual: two epochs of run_epoch at 32 px, with refresh, f32,
     from the same weights and view parameters: on the card with the data on
     the device (the fused test pass, whole-set prediction) and with host
@@ -1017,10 +1384,12 @@ def small_dual_vs_cpu(scratch, model="fuseunet", two_modal=True, resume=""):
     warm-start noise), until every refresh has a gap at that boundary; which
     seed gives one depends on the torch build. Then each card run must
     repeat the CPU's decisions, and each gap must exceed the largest card-CPU
-    case-dice difference."""
+    case-dice difference. ``options`` sets model fields; ``caches`` are the
+    card runs' device_cache settings."""
     from aide_tpu_torch.evaluation.case_eval import dice3d_np
 
-    cfg = small_config(model)
+    cfg = small_config(model, options=options)
+    model = f"{model} {json.dumps(options)}" if options else model
     cfg.resume_file = resume
     for seed in range(10):
         cfg.seed = seed
@@ -1032,7 +1401,7 @@ def small_dual_vs_cpu(scratch, model="fuseunet", two_modal=True, resume=""):
             break
     else:
         fail(f"{model}: no seed in 0-9 gives the CPU run a refresh without a tie")
-    for cache in ("auto", "off"):
+    for cache in caches:
         gpu = small_run(cfg, "cuda", cache, cpu["weights"], scratch, two_modal)
         name = f"small slice {model}{' warm-started' if resume else ''}, card (device_cache {cache!r}) vs CPU"
         if gpu["log"] != cpu["log"]:
@@ -1080,7 +1449,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="a torch.profiler breakdown of a few more co-teaching steps "
-                             "after phases 5 and 7")
+                             "after phases 5, 7 and 9 (a), (b)")
     parser.add_argument("--baseline", metavar="FILE.cu", action="append", default=[],
                         help="another version of csrc/warp_rotate_flip.cu to time in phase 4 "
                              "(repeatable)")
@@ -1133,11 +1502,16 @@ def main() -> int:
 
     presets = run_presets(cuda_warp, scratch)
 
+    cli_smoke = run_cli_smoke(cuda_warp, scratch, profile=args.profile)
+    cli_chaos = run_cli_chaos(cuda_warp, scratch, profile=args.profile)
+    zoo, remat = run_zoo(cuda_warp, scratch)
+
     runs = {"chaos_coteach": chaos, "kidney_supervised": kidney_sup,
-            "kidney_coteach": kidney_dual, **presets}
+            "kidney_coteach": kidney_dual, **presets, "cli_smoke": cli_smoke,
+            "cli_chaos": cli_chaos, **zoo}
     by_path = {}
     for path, run in runs.items():
-        launched = [r for r in rows if r["path"] == path]
+        launched = [r for r in rows if r["path"] == SAME_SHAPES.get(path, path)]
         by_path[path] = {
             "launches": run["launches"],
             "launches_per_step": run["launches"] / len(run["step_ms"]),
@@ -1172,6 +1546,7 @@ def main() -> int:
         "by_path": by_path,
         "step_ms": chaos["steady"],
         "max_memory_allocated": chaos["peak"],
+        "remat_kidney_supervised": remat,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -264,11 +264,11 @@ def test_host_batches_take_the_unfused_path_to_the_same_epoch(tmp_path):
 
 
 def test_trainer_refuses_a_resume_file(tmp_path):
-    """Exact resume from a _full file is not ported (a .pkl export warm-starts,
-    tests/test_torch_warmstart.py)."""
+    """Exact resume from a _full file is not ported (a .pkl or .msgpack net
+    export warm-starts, tests/test_torch_warmstart.py, tests/test_torch_cli.py)."""
     _, cfg = _cfgs(tmp_path)
     cfg.resume_file = str(tmp_path / "x_full.msgpack")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
         ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
 
 

@@ -21,7 +21,7 @@ from aide_tpu.models import build_model as j_build_model
 from aide_tpu_torch.core.config import ModelConfig
 from aide_tpu_torch.engine import checkpoint as ckpt
 from aide_tpu_torch.interop import weights
-from aide_tpu_torch.models import build_model
+from aide_tpu_torch.models import build_model, is_two_modal
 from aide_tpu_torch.models.blocks import Norm
 from aide_tpu_torch.models.fuseunet import FuseUNet
 from aide_tpu_torch.models.unet import UNet
@@ -224,8 +224,25 @@ def test_unet_registry_widths(name, width):
     dict(learned_bilinear=True), dict(remat=True),
 ])
 def test_build_model_raises_for_unported(override):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_model(ModelConfig(**override))
+    """The five configurations the port refused before its model zoo was
+    ported (unetsa, fuseunetsa, GroupNorm, the learned upsample, remat, at
+    their default widths) now build, and each matches the JAX model: the
+    same variable names and shapes, and eval logits of the same weights to
+    1e-4 (tests/test_torch_zoo.py holds every option in both modes)."""
+    cfg = ModelConfig(compute_dtype="float32", **override)
+    tm = build_model(cfg).eval()
+    two_modal = is_two_modal(cfg.name)
+    x = [np.random.default_rng(1).normal(size=(1, 16, 16, 3)).astype(np.float32)
+         for _ in range(1 + two_modal)]
+    v = weights.state_dict_to_variables(tm.state_dict(), **tm.arch)
+    jm = j_build_model(JModelConfig(compute_dtype="float32", **override))
+    jx = [jnp.asarray(a) for a in x]
+    shapes = jax.eval_shape(lambda *a: jm.init(jax.random.key(0), *a, train=False), *jx)
+    assert weights.leaf_paths(v) == weights.leaf_paths(shapes)
+    with torch.no_grad():
+        out = tm(*[torch.from_numpy(a) for a in x]).numpy()
+    ref = np.asarray(jax.jit(lambda v, *a: jm.apply(v, *a, train=False))(v, *jx))
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
 
 
 def test_build_model_accepts_packed_keys():

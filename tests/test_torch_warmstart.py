@@ -13,7 +13,8 @@ On the CPU, single-modal UNet at base width 4, 32 px, f32:
   and equals the JAX probe within 1e-3; ``refresh_log`` is identical, and
   the JAX run's dice gap at each worst-k boundary is wider than the
   largest case-dice difference between the packages;
-- a ``_full.msgpack`` resume file is refused, naming ROADMAP item 14.
+- a ``_full.msgpack`` resume file is refused, naming ROADMAP Queue 1 item 3
+  (exact resume).
 """
 
 import jax
@@ -137,7 +138,7 @@ def test_trainer_refuses_a_full_resume_file(exports, tmp_path):
     _, cfg = _cfgs(tmp_path, exports["paths"])
     for name in ("x_full.msgpack", "x_last_full.msgpack"):
         cfg.resume_file = str(tmp_path / name)
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
             ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
 
 
