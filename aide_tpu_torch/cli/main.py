@@ -6,7 +6,10 @@ options: pick a preset (or a config JSON), override any field with dotted
 ``eval`` and ``predict`` run on the CUDA card, and raise without one unless
 ``--device cpu`` asks for the CPU. ``eval``, ``predict`` and ``export`` take
 a net checkpoint: the port's ``.pkl`` exports (or an original AIDE
-``.pkl``) or the JAX package's ``.msgpack`` net exports.
+``.pkl``) or the JAX package's ``.msgpack`` net exports. ``train --set
+resume_file=<checkpoint_dir>/<experiment>_last_full.msgpack`` goes on with a
+stopped run exactly (a ``_full`` file of either package); any other
+``resume_file`` warm-starts.
 """
 
 from __future__ import annotations

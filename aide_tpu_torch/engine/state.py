@@ -3,7 +3,7 @@
 The counterparts of ``aide_tpu.engine.state.DualTrainState`` and
 ``TrainState``. Where the JAX package stacks both nets on a leading axis and
 vmaps them, the port holds two ``nn.Module``s and ONE optimizer over both
-nets' parameters (AMSGrad is elementwise, so one optimizer over the union
+nets' parameters (the optimizers are elementwise, so one optimizer over the union
 equals one per net). Both states offer ``.nets`` and ``.train(mode)``, so
 the predict programs and ``checkpoint.snapshot`` take either.
 """
@@ -14,13 +14,13 @@ from typing import Tuple
 
 from torch import nn
 
-from aide_tpu_torch.ops.schedules import AMSGrad
+from aide_tpu_torch.ops.schedules import OptaxOptimizer
 
 
 class TrainState:
     """One net and its optimizer (the supervised comparison trainer)."""
 
-    def __init__(self, net: nn.Module, optimizer: AMSGrad):
+    def __init__(self, net: nn.Module, optimizer: OptaxOptimizer):
         self.nets: Tuple[nn.Module, ...] = (net,)
         self.optimizer = optimizer
 
@@ -41,6 +41,6 @@ class TrainState:
 class DualTrainState(TrainState):
     """The co-teaching pair and one optimizer over both nets."""
 
-    def __init__(self, net1: nn.Module, net2: nn.Module, optimizer: AMSGrad):
+    def __init__(self, net1: nn.Module, net2: nn.Module, optimizer: OptaxOptimizer):
         super().__init__(net1, optimizer)
         self.nets = (net1, net2)

@@ -19,6 +19,10 @@ test can hand the step the JAX package's stream.
 forward in train-mode BN that updates the running stats, the scalar
 criterion (``make_criterion``), one backward and one AMSGrad update.
 
+``make_augment_batch`` is the main-view augmentation of ``data.augment_main``
+(``aide_tpu.engine.steps.make_augment_batch``): one rotation and flip per
+image, shared by the images and the targets of the batch.
+
 The eval steps and predict programs (``make_eval_step``,
 ``make_predict_step``, ``make_predict_all``, ``make_eval_predict_all``) run
 the nets without gradients in eval-mode BN under the model's own autocast,
@@ -32,10 +36,11 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from aide_tpu_torch.core.config import TrainConfig
 from aide_tpu_torch.engine.state import DualTrainState, TrainState
-from aide_tpu_torch.ops import losses, metrics, tta
+from aide_tpu_torch.ops import losses, metrics, tta, warp
 
 
 def batch_images(batch: Dict[str, torch.Tensor], two_modal: bool) -> Tuple[torch.Tensor, ...]:
@@ -92,6 +97,45 @@ def make_image_criterion(cfg: TrainConfig):
         ceclass_weight=ct.ceclass_weight,
         diceclass_weight=ct.diceclass_weight,
     )
+
+
+TARGETS = ("target", "target1", "target2")
+
+
+def make_augment_batch(cfg: TrainConfig, two_modal: bool):
+    """augment(batch, degrees, hflip) -> the batch with its main view
+    warped: each image rotated by its (B,) ``degrees`` then flipped where
+    ``hflip``, normalised first and filled with its own per-image fill;
+    each target in the batch (``target``, and ``target1``, ``target2`` of a
+    dual batch) warped as a one-hot map with fill 0 and taken back to its
+    dtype by argmax, so that pixels from outside the source are background.
+
+    The warps of a step share one launch per kind: both modalities (the
+    same C) in one, all targets in another, so two launches a step on the
+    card whatever the batch holds; each image's warp is its own, so this
+    equals a launch per tensor."""
+    num_classes = cfg.model.num_classes
+    wm = cfg.data.warp_method
+    names = ("modal1", "modal2") if two_modal else ("image",)
+
+    @torch.no_grad()
+    def augment(batch, degrees, hflip) -> Dict[str, torch.Tensor]:
+        images = batch_images(batch, two_modal)
+        b = images[0].shape[0]
+        out = dict(batch)
+        k = len(images)
+        warped = warp.augment(torch.cat(images), degrees.repeat(k), hflip.repeat(k),
+                              torch.cat(batch_fills(batch, two_modal)), method=wm)
+        out.update(zip(names, warped.split(b)))
+        tnames = [t for t in TARGETS if t in batch]
+        k = len(tnames)
+        onehot = torch.cat([F.one_hot(batch[t].long(), num_classes).float() for t in tnames])
+        maps = warp.augment(onehot, degrees.repeat(k), hflip.repeat(k), 0.0, method=wm)
+        for t, m in zip(tnames, maps.split(b)):
+            out[t] = m.argmax(dim=-1).to(batch[t].dtype)
+        return out
+
+    return augment
 
 
 def make_supervised_train_step(two_modal: bool, cfg: TrainConfig):

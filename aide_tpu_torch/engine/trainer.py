@@ -17,8 +17,20 @@ the CHAOS proposed trainer). Per epoch of the dual co-teaching trainer,
 
 The supervised (comparison) trainer runs the same loop with one net, the
 scalar criterion, no TTA, no refresh and no guardrail; its best export
-embeds the epoch history. ``resume_file`` warm-starts both nets of the pair
-from one net's export with symmetry-breaking noise, and loads a supervised
+embeds the epoch history. With ``data.augment_main`` both trainers warp the
+main view's images and targets before each train step (one rotation and
+flip per image, ``augment_params``; ``steps.make_augment_batch``).
+
+``resume_file`` is either an exact resume or a warm start. A
+``*_full.msgpack`` file (the best epoch's ``_full`` or the end of a run's
+``_last_full``, of either package: ``engine.checkpoint``) restores the
+parameters, BN statistics, optimizer moments and count, and its sidecar the
+epoch clock, the best and changepoint gates and the history; the working
+labels come back through the tempmask folder, and the view, augment and
+shuffle streams depend only on (seed, epoch, step), so ``run`` goes on
+from ``start_epoch`` as the uninterrupted run would have. Any other file (a
+``.pkl`` or a JAX ``.msgpack`` net export) warm-starts both nets of the pair
+from one net's export with symmetry-breaking noise, or loads a supervised
 net's weights.
 
 ``Trainer(cfg)`` builds the task that ``cfg.data.task`` names
@@ -28,11 +40,10 @@ cache when set; a task object passed in is used as it is.
 ``log_every_steps`` logs the step losses every N steps.
 
 ``run`` loops over the epochs and writes the history and the best-epoch
-exports even when an epoch fails; a warm-started dual run first probes the
-bootstrap skill on the labeled cases. ``resume_file`` is a ``.pkl`` export
-or a JAX ``.msgpack`` net export. The CLI (``aide_tpu_torch.cli``) drives
-this class. Not ported yet, and refused: exact resume from ``_full`` files
-(ROADMAP Queue 1 item 3) and multi-device meshes (item 7).
+files even when an epoch fails, and ``{experiment_name}_last_full.msgpack``
+when the run ends; a warm-started dual run first probes the bootstrap skill
+on the labeled cases. The CLI (``aide_tpu_torch.cli``) drives this class.
+Not ported yet, and refused: multi-device meshes (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -132,21 +143,12 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, task=None, device=None, logger=None):
         refuse_mesh(cfg.mesh)
         self.device = resolve_device(device)
-        if cfg.resume_file.endswith("_full.msgpack"):
-            # what the JAX trainer reads as an exact resume
-            raise NotImplementedError(
-                "exact resume from _full files is not ported yet: ROADMAP Queue 1 "
-                "item 3 (a .pkl or a .msgpack net export warm-starts)"
-            )
         if cfg.checkpoint_flush not in ("best", "end"):
             raise NotImplementedError(
                 f"checkpoint_flush must be 'best' or 'end', got {cfg.checkpoint_flush!r}"
             )
         self.cfg = cfg
         self.dual = cfg.data.variant == "proposed" and cfg.coteach.enabled
-        if cfg.data.augment_main:
-            raise NotImplementedError(
-                "data.augment_main is not ported yet: ROADMAP Queue 1 item 5")
         self.logger = logger or setup_logging(cfg.history_dir, cfg.experiment_name)
         record_params(self.logger, cfg)
 
@@ -193,17 +195,22 @@ class Trainer:
             self.train_pipe.to_device(self.device)
             self.test_pipe.to_device(self.device)
 
+        # what both packages read as an exact resume
+        self.exact_resume = cfg.resume_file.endswith("_full.msgpack")
         seeds = (cfg.seed, cfg.seed + 1) if self.dual else (cfg.seed,)
         nets = [
-            init_net(cfg.model, seed).to(self.device, memory_format=torch.channels_last)
+            # an exact resume overwrites every weight: no initialisation draw
+            (build_model(cfg.model) if self.exact_resume else init_net(cfg.model, seed)).to(
+                self.device, memory_format=torch.channels_last)
             for seed in seeds
         ]
         spe = self.train_pipe.steps_per_epoch(cfg.data.batch_size)
         params = [p for net in nets for p in net.parameters()]
         optimizer = make_optimizer(params, cfg.optim, spe, cfg.num_epochs)
+        warm_start = cfg.resume_file and not self.exact_resume
         if self.dual:
             self.state = DualTrainState(nets[0], nets[1], optimizer)
-            if cfg.resume_file:
+            if warm_start:
                 # the kidney warm start from one net's export
                 ckpt.warm_start_dual(
                     self.state, cfg.resume_file, cfg.coteach.warm_start_noise, cfg.seed
@@ -211,10 +218,15 @@ class Trainer:
             self.train_step = steps_mod.make_coteach_train_step(self.two_modal, cfg)
         else:
             self.state = TrainState(nets[0], optimizer)
-            if cfg.resume_file:
+            if warm_start:
                 # weights only: the optimizer starts afresh
                 nets[0].load_state_dict(ckpt.load_net(cfg.resume_file, nets[0]), strict=True)
             self.train_step = steps_mod.make_supervised_train_step(self.two_modal, cfg)
+        if self.exact_resume:
+            ckpt.load_train_state(cfg.resume_file, self.state)
+        self.augment_batch = (
+            steps_mod.make_augment_batch(cfg, self.two_modal) if cfg.data.augment_main else None
+        )
         self.eval_step = steps_mod.make_eval_step(self.two_modal, cfg, dual=self.dual)
         self.predict_step = steps_mod.make_predict_step(self.two_modal, dual=self.dual)
         # whole-set inference and the fused test tail gather on the device,
@@ -230,14 +242,25 @@ class Trainer:
         )
 
         self.best_dice = 0.0
-        # checkpoint_flush == 'end': the best epoch's state dicts, cloned on
-        # the device, and their meta; flush_checkpoints writes them
-        self._best_snapshot: Optional[ckpt.StateDicts] = None
-        self._best_meta: Optional[Dict] = None
+        # checkpoint_flush == 'end': the best epoch's state (nets and
+        # optimizer), cloned on the device, and its (meta, full_meta);
+        # flush_checkpoints writes them
+        self._best_snapshot: Optional[Dict] = None
+        self._best_meta: Optional[tuple] = None
         # the kidney-style changepoint gate
         self.ascending = not cfg.ascending_checkpoint_gate
         self.changepoint_dice = 0.0
         self.history: List[Dict] = []
+        self.start_epoch = 0
+        if self.exact_resume:
+            # the bookkeeping of the _full file's sidecar, as the JAX
+            # trainer reads it
+            meta = ckpt.read_meta(cfg.resume_file)
+            self.start_epoch = int(meta.get("next_epoch", 0))
+            self.best_dice = float(meta.get("best_dice", 0.0))
+            self.ascending = bool(meta.get("ascending", self.ascending))
+            self.changepoint_dice = float(meta.get("changepoint_dice", 0.0))
+            self.history = list(meta.get("history", []))
 
     # ------------------------------------------------------------------
 
@@ -248,6 +271,17 @@ class Trainer:
         gen = prng.generator(self.device, self.cfg.seed, epoch, step)
         d = self.cfg.data
         return tta.sample_view_params(gen, d.num_tta_views, batch, d.rotation_degree, d.hflip_prob)
+
+    def augment_params(self, epoch: int, step: int, batch: int):
+        """(B,) rotation angles and flip flags of one train step's main-view
+        augmentation (data.augment_main), from a generator seeded by (seed,
+        epoch, 1_000_000 + step): the JAX package's key offset, a stream
+        apart from the step's views. Tests replace this method to inject
+        another stream."""
+        gen = prng.generator(self.device, self.cfg.seed, epoch, 1_000_000 + step)
+        d = self.cfg.data
+        degrees, hflip = tta.sample_view_params(gen, 1, batch, d.rotation_degree, d.hflip_prob)
+        return degrees[0], hflip[0]
 
     def _on_device(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self.device_resident:
@@ -286,6 +320,9 @@ class Trainer:
         totals: Optional[dict] = None
         for i, batch in enumerate(self.train_pipe.batches(cfg.data.batch_size, rng=shuffle_rng)):
             batch = self._on_device(batch)
+            if self.augment_batch is not None:
+                b = next(iter(batch.values())).shape[0]
+                batch = self.augment_batch(batch, *self.augment_params(epoch, i, b))
             if self.dual:
                 degrees, hflip = self.view_params(epoch, i, batch["target1"].shape[0])
                 m = self.train_step(self.state, batch, degrees, hflip, rate)
@@ -586,6 +623,16 @@ class Trainer:
 
     # ---------------------------- checkpoint ----------------------------
 
+    def _bookkeeping_meta(self, next_epoch: int) -> Dict:
+        """The resume bookkeeping of a _full file's sidecar."""
+        return {
+            "next_epoch": int(next_epoch),
+            "best_dice": float(self.best_dice),
+            "ascending": bool(self.ascending),
+            "changepoint_dice": float(self.changepoint_dice),
+            "history": list(self.history),
+        }
+
     def _maybe_checkpoint(self, epoch: int, avg_dice: float, test_metrics, epoch_row) -> bool:
         """The best-checkpoint gate on the mean train-case dice, behind the
         optional ascending (changepoint) gate. The supervised export embeds
@@ -611,14 +658,18 @@ class Trainer:
         if not self.dual:
             hist = [{k: v for k, v in r.items() if not k.startswith("time")} for r in self.history]
             meta["history"] = hist + [epoch_row]
+        # the _full file's bookkeeping replays this epoch on resume (its
+        # refresh and history row come after this save); _last_full is the
+        # exact continuation
+        full_meta = dict(meta, **self._bookkeeping_meta(epoch))
         if cfg.checkpoint_flush == "best":
             ckpt.save_best(
                 cfg.checkpoint_dir, cfg.experiment_name,
-                [net.state_dict() for net in self.state.nets], meta,
+                ckpt.snapshot(self.state, clone=False), meta, full_meta,
             )
         else:
             self._best_snapshot = ckpt.snapshot(self.state)
-            self._best_meta = meta
+            self._best_meta = (meta, full_meta)
         # back up the best epoch's tempmask folder, as the prostate trainers
         # do; gate and path read the same field, so an empty folder name
         # never copies the dataset root
@@ -635,7 +686,7 @@ class Trainer:
             return
         ckpt.save_best(
             self.cfg.checkpoint_dir, self.cfg.experiment_name,
-            self._best_snapshot, self._best_meta,
+            self._best_snapshot, *self._best_meta,
         )
 
     # ------------------------------- run -------------------------------
@@ -753,19 +804,23 @@ class Trainer:
         # explicit None check: run(0) is a no-op, not the full run
         n = self.cfg.num_epochs if num_epochs is None else num_epochs
         self.logger.info("Start Training ({})".format(self.cfg.data.task))
+        if self.start_epoch:
+            self.logger.info("Resuming at epoch %d", self.start_epoch + 1)
         if (
             self.dual
             and self.cfg.coteach.engagement_check
             and self.engagement_probe is None
+            and self.start_epoch == 0
             and n > 0
             and self.cfg.resume_file
+            and not self.exact_resume
             and self.label_cases
         ):
             # a warm-started dual run: the bootstrap skill before the first
             # train step (see _bootstrap_skill_probe)
             self._bootstrap_skill_probe()
         try:
-            for epoch in range(n):
+            for epoch in range(self.start_epoch, n):
                 self.run_epoch(epoch)
             unwinding = False
         except BaseException:
@@ -782,6 +837,12 @@ class Trainer:
                 if not unwinding:
                     raise
                 self.logger.exception("failure-path checkpoint/history flush failed")
+        # the exact continuation: the state at the end of epoch n, with the
+        # epoch clock, the gates and the history in the sidecar
+        ckpt.save_train_state(
+            ckpt.full_path(self.cfg.checkpoint_dir, self.cfg.experiment_name, last=True),
+            self.state, self._bookkeeping_meta(n),
+        )
         return self.history
 
     def _save_history(self) -> None:

@@ -145,11 +145,14 @@ def leaf_paths(variables: Mapping[str, Any]) -> Dict[str, Tuple[int, ...]]:
     return {"/".join(p): tuple(np.shape(v)) for p, v in _leaves(variables)}
 
 
-def tables_to_state_dict(variables: Mapping[str, Any], table: Table) -> Dict[str, np.ndarray]:
+def tables_to_state_dict(variables: Mapping[str, Any], table: Table,
+                         stats: bool = True) -> Dict[str, np.ndarray]:
     """JAX variables -> the port's state_dict (NumPy float32 arrays) through
-    ``table``. Raises if a JAX leaf is missing or left over."""
+    ``table``. Raises if a JAX leaf is missing or left over. ``stats=False``
+    maps a tree of ``params`` alone (an optimizer moment, elementwise in
+    the parameters) to the parameters' names."""
     params = dict(_leaves(variables["params"]))
-    stats = dict(_leaves(variables.get("batch_stats", {})))
+    bn_stats = dict(_leaves(variables.get("batch_stats", {})))
     used = set()
 
     def take(tree, path, tag):
@@ -163,9 +166,9 @@ def tables_to_state_dict(variables: Mapping[str, Any], table: Table) -> Dict[str
         if kind in ("bn", "gn"):
             sd[f"{ours}.weight"] = take(params, path + ("scale",), "params")
             sd[f"{ours}.bias"] = take(params, path + ("bias",), "params")
-            if kind == "bn":
-                sd[f"{ours}.running_mean"] = take(stats, path + ("mean",), "batch_stats")
-                sd[f"{ours}.running_var"] = take(stats, path + ("var",), "batch_stats")
+            if kind == "bn" and stats:
+                sd[f"{ours}.running_mean"] = take(bn_stats, path + ("mean",), "batch_stats")
+                sd[f"{ours}.running_var"] = take(bn_stats, path + ("var",), "batch_stats")
             continue
         k = take(params, path + ("kernel",), "params")
         if kind == "conv":
@@ -177,21 +180,23 @@ def tables_to_state_dict(variables: Mapping[str, Any], table: Table) -> Dict[str
         sd[f"{ours}.weight"] = np.ascontiguousarray(k)
         sd[f"{ours}.bias"] = take(params, path + ("bias",), "params")
     left = [("params", p) for p in params if ("params", p) not in used]
-    left += [("batch_stats", p) for p in stats if ("batch_stats", p) not in used]
+    left += [("batch_stats", p) for p in bn_stats if ("batch_stats", p) not in used]
     if left:
         raise ValueError(f"unmapped JAX leaves: {['/'.join((t,) + p) for t, p in left][:8]}")
     return sd
 
 
-def state_dict_to_tables(state_dict: Mapping[str, Any], table: Table) -> Dict[str, Any]:
+def state_dict_to_tables(state_dict: Mapping[str, Any], table: Table,
+                         stats: bool = True) -> Dict[str, Any]:
     """The inverse: a port state_dict -> JAX ``{'params', 'batch_stats'}``
-    (``batch_stats`` only where the table has BatchNorm rows)."""
+    (``batch_stats`` only where the table has BatchNorm rows and ``stats``
+    is set; without it, ``state_dict`` may hold the parameters alone)."""
     def arr(name):
         v = state_dict[name]
         return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
     params: Dict[str, Any] = {}
-    stats: Dict[str, Any] = {}
+    bn_stats: Dict[str, Any] = {}
 
     def put(tree, path, leaf, value):
         node = tree
@@ -202,9 +207,9 @@ def state_dict_to_tables(state_dict: Mapping[str, Any], table: Table) -> Dict[st
     for path, (ours, kind) in table.items():
         if kind in ("bn", "gn"):
             put(params, path, "scale", arr(f"{ours}.weight"))
-            if kind == "bn":
-                put(stats, path, "mean", arr(f"{ours}.running_mean"))
-                put(stats, path, "var", arr(f"{ours}.running_var"))
+            if kind == "bn" and stats:
+                put(bn_stats, path, "mean", arr(f"{ours}.running_mean"))
+                put(bn_stats, path, "var", arr(f"{ours}.running_var"))
         else:
             k = arr(f"{ours}.weight")
             if kind == "conv":
@@ -215,7 +220,7 @@ def state_dict_to_tables(state_dict: Mapping[str, Any], table: Table) -> Dict[st
                 k = k.T
             put(params, path, "kernel", k)
         put(params, path, "bias", arr(f"{ours}.bias"))
-    return {"params": params, **({"batch_stats": stats} if stats else {})}
+    return {"params": params, **({"batch_stats": bn_stats} if bn_stats else {})}
 
 
 def variables_to_state_dict(

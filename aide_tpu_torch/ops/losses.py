@@ -1,6 +1,9 @@
 """Segmentation losses on (B, H, W, C) logits.
 
-The counterparts of ``aide_tpu.ops.losses`` that the co-teaching step uses.
+The counterparts of ``aide_tpu.ops.losses``: the ones the train steps use,
+and the rest of the library (``dice_loss``, ``ce_dice_loss``,
+``binary_cross_entropy_2d``, ``focal_loss``, ``kl_bidirectional``), which
+no step calls.
 Targets are integer maps (B, H, W) or one-hot maps (B, H, W, C).
 Reductions: ``mean`` over images (Dice) / weighted mean over pixels (CE),
 ``sum``, or ``none`` (per-image vectors for Dice, per-pixel maps for CE).
@@ -76,6 +79,21 @@ def soft_dice_from_probs(
     return _reduce_per_image(loss, reduction)
 
 
+def dice_loss(
+    logits_or_probs: torch.Tensor,
+    targets: torch.Tensor,
+    smooth: float = 1.0,
+    reduction: str = "mean",
+) -> torch.Tensor:
+    """Binary soft Dice: a 4-D input is softmaxed and its foreground
+    channel taken, a 3-D input is used as probabilities."""
+    if logits_or_probs.ndim == 4:
+        fg = torch.softmax(logits_or_probs.to(torch.float32), dim=-1)[..., 1]
+    else:
+        fg = logits_or_probs
+    return soft_dice_from_probs(fg, targets, smooth, reduction)
+
+
 def multiclass_dice_loss(
     logits: torch.Tensor,
     targets: torch.Tensor,
@@ -131,3 +149,56 @@ def cem_dice_loss_image(
     ce = ce.mean(dim=(1, 2))
     dc = multiclass_dice_loss(logits, targets, diceclass_weight, reduction="none")
     return ce * cedice_weight[0] + dc * cedice_weight[1]
+
+
+def ce_dice_loss(
+    logits: torch.Tensor,
+    targets: torch.Tensor,
+    cedice_weight: Sequence[float] = (1.0, 1.0),
+    class_weight: Optional[Sequence[float]] = None,
+) -> torch.Tensor:
+    """CE + binary Dice, scalar."""
+    ce = cross_entropy_2d(logits, targets, class_weight, reduction="mean")
+    dc = dice_loss(logits, targets, reduction="mean")
+    return ce * cedice_weight[0] + dc * cedice_weight[1]
+
+
+def binary_cross_entropy_2d(
+    logits: torch.Tensor, targets: torch.Tensor, reduction: str = "none"
+) -> torch.Tensor:
+    """Binary CE over the two-channel softmax, per pixel
+    -(1-t)*logp0 - t*logp1; ``mean`` and ``sum`` reduce over everything."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    t = targets.to(torch.float32)
+    loss = -(1.0 - t) * logp[..., 0] - t * logp[..., 1]
+    return _reduce_per_image(loss, reduction)
+
+
+def focal_loss(
+    logits: torch.Tensor,
+    targets: torch.Tensor,
+    weight1: float = 1.0,
+    weight2: float = 1.0,
+    beta: float = 2.0,
+    reduction: str = "mean",
+) -> torch.Tensor:
+    """Binary focal loss with the reference's cross-class modulation: the
+    background log term is scaled by the foreground probability to the
+    ``beta`` and the foreground one by the background probability."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    t = targets.to(torch.float32)
+    loss = (
+        -weight1 * torch.pow(probs[..., 1], beta) * logp[..., 0] * (1.0 - t)
+        - weight2 * torch.pow(probs[..., 0], beta) * logp[..., 1] * t
+    )
+    return _reduce_per_image(loss, reduction)
+
+
+def kl_bidirectional(logits1: torch.Tensor, logits2: torch.Tensor) -> torch.Tensor:
+    """Symmetric KL between two nets' softmaxes, summed over classes, per
+    pixel (B, H, W); in log space."""
+    lp1 = torch.log_softmax(logits1.to(torch.float32), dim=-1)
+    lp2 = torch.log_softmax(logits2.to(torch.float32), dim=-1)
+    p1, p2 = lp1.exp(), lp2.exp()
+    return (p1 * (lp1 - lp2)).sum(dim=-1) + (p2 * (lp2 - lp1)).sum(dim=-1)

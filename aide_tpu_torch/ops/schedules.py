@@ -1,15 +1,29 @@
-"""Learning-rate schedules and the AMSGrad optimizer.
+"""Learning-rate schedules and the optimizers.
 
 The counterpart of ``aide_tpu.ops.schedules``: epoch-level StepLR / PolyLR
 as functions of the optimizer step count (the rate changes once per
-epoch), the co-teaching consistency ramp, and ``make_optimizer`` for
-``amsgrad_adam`` with optax's semantics.
+epoch), the co-teaching consistency ramp, and ``make_optimizer``, which
+builds every optimizer option of the JAX package with optax's semantics:
+``amsgrad_adam`` (``optax.amsgrad``), ``adam`` (``optax.adam``) and ``sgd``
+(``optax.sgd`` with momentum 0.9), each behind the optional
+``grad_clip_norm`` (``optax.clip_by_global_norm``) and ``weight_decay``
+(``optax.add_decayed_weights``, coupled L2 added to the gradient before the
+optimizer, not AdamW), in optax's chain order: clip, decay, optimizer.
+
+The optimizers are written out rather than taken from ``torch.optim``:
+``torch.optim.Adam(amsgrad=True)`` takes its max over the raw second
+moment, ``torch.optim.SGD`` dampens differently, and
+``clip_grad_norm_`` adds 1e-6 to the norm. Each keeps its state as named
+tensors per parameter (``MOMENTS``: mu/nu/nu_max, mu/nu or trace), made
+when it is built, and one step count, which is what the exact-resume file
+(``engine.checkpoint``) stores.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from aide_tpu_torch.core.config import OptimConfig
@@ -41,7 +55,85 @@ def rate_schedule(epoch: int, warmup_epochs: int) -> float:
     return min((float(epoch) / float(warmup_epochs)) ** 2, 1.0)
 
 
-class AMSGrad(torch.optim.Optimizer):
+class OptaxOptimizer(torch.optim.Optimizer):
+    """An optax chain over torch parameters: global-norm clipping, then the
+    decayed weights, then the optimizer's direction (``_direction``), then
+    ``-lr(count)`` times it added to the parameters. ``schedule`` maps the
+    step count before the update (0 at the first step) to the rate.
+
+    One optimizer over the union of both nets' parameters is the JAX
+    package's one transform over the stacked pair: its moments are
+    elementwise, and its clipping norm is one norm over both nets'
+    gradients, as JAX's over the stacked pytree."""
+
+    NAME = ""
+    MOMENTS: Tuple[str, ...] = ()
+
+    def __init__(
+        self,
+        params: Iterable[torch.nn.Parameter],
+        schedule: Callable[[int], float],
+        grad_clip_norm: Optional[float] = None,
+        weight_decay: float = 0.0,
+    ):
+        super().__init__(params, {})
+        self.schedule = schedule
+        self.grad_clip_norm = grad_clip_norm
+        self.weight_decay = weight_decay
+        self.count = 0
+        for p in self.params():
+            for m in self.MOMENTS:
+                self.state[p][m] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+    def params(self) -> List[torch.nn.Parameter]:
+        return [p for group in self.param_groups for p in group["params"]]
+
+    def moments(self, name: str, params: List[torch.nn.Parameter]) -> List[torch.Tensor]:
+        return [self.state[p][name] for p in params]
+
+    def _clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """optax.clip_by_global_norm: unchanged below the norm, else
+        g / norm * max_norm (no epsilon), decided on the device."""
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        keep = norm < self.grad_clip_norm
+        div = torch.where(keep, torch.ones_like(norm), norm)
+        mul = torch.where(keep, torch.ones_like(norm), torch.full_like(norm, self.grad_clip_norm))
+        out = torch._foreach_div(grads, div)
+        torch._foreach_mul_(out, mul)
+        return out
+
+    def _direction(self, params, grads, t: int) -> List[torch.Tensor]:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError(f"{type(self).__name__}.step takes no closure")
+        params = [p for p in self.params() if p.grad is not None]
+        lr = self.schedule(self.count)
+        self.count += 1
+        if not params:
+            return None
+        grads = [p.grad for p in params]
+        if self.grad_clip_norm:
+            grads = self._clip(grads)
+        if self.weight_decay:
+            grads = torch._foreach_add(grads, params, alpha=self.weight_decay)
+        upd = self._direction(params, grads, self.count)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(params, upd)
+        return None
+
+
+def _bias_correction(decay: float, t: int) -> float:
+    """1 - decay**t in f32 as optax computes it: decay**count on an int32
+    count is an f32 power (powf, NumPy's scalar float32 power), not t
+    multiplications, which part from it by an ulp of decay**t (2e-5 of
+    1 - 0.999**3)."""
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(t))
+
+
+class AMSGrad(OptaxOptimizer):
     """AMSGrad as ``optax.amsgrad`` computes it.
 
     mu = b1*mu + (1-b1)*g;  nu = b2*nu + (1-b2)*g^2;
@@ -50,70 +142,66 @@ class AMSGrad(torch.optim.Optimizer):
 
     The max runs over the bias-corrected second moment, where
     ``torch.optim.Adam(amsgrad=True)`` takes it over the raw one; the two
-    agree at t = 1 and part from t = 2. ``schedule`` maps the step count
-    before the update (0 at the first step) to the learning rate."""
+    agree at t = 1 and part from t = 2."""
 
-    def __init__(
-        self,
-        params: Iterable[torch.nn.Parameter],
-        schedule: Callable[[int], float],
-        b1: float = 0.9,
-        b2: float = 0.999,
-        eps: float = 1e-8,
-    ):
-        super().__init__(params, dict(b1=b1, b2=b2, eps=eps))
-        self.schedule = schedule
-        self.count = 0
+    NAME = "amsgrad_adam"
+    MOMENTS = ("mu", "nu", "nu_max")
+    b1, b2, eps = 0.9, 0.999, 1e-8
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        if closure is not None:
-            raise ValueError("AMSGrad.step takes no closure")
-        lr = self.schedule(self.count)
-        self.count += 1
-        t = self.count
-        for group in self.param_groups:
-            b1, b2, eps = group["b1"], group["b2"], group["eps"]
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
-                continue
-            grads = [p.grad for p in params]
-            for p in params:
-                st = self.state[p]
-                if not st:
-                    st["mu"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                    st["nu"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                    st["nu_max"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-            mu = [self.state[p]["mu"] for p in params]
-            nu = [self.state[p]["nu"] for p in params]
-            nu_max = [self.state[p]["nu_max"] for p in params]
-            # bias corrections in f32, as optax's decay**count on an int32 count
-            bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t)
-            bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** t)
-            torch._foreach_mul_(mu, b1)
-            torch._foreach_add_(mu, grads, alpha=1.0 - b1)
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-            nu_hat = torch._foreach_div(nu, bc2)
-            torch._foreach_maximum_(nu_max, nu_hat)
-            denom = torch._foreach_sqrt(nu_max)
-            torch._foreach_add_(denom, eps)
-            upd = torch._foreach_div(mu, bc1)
-            torch._foreach_div_(upd, denom)
-            torch._foreach_mul_(upd, -lr)
-            torch._foreach_add_(params, upd)
-        return None
+    def _second_moment(self, nu, params, bc2):
+        nu_max = self.moments("nu_max", params)
+        torch._foreach_maximum_(nu_max, torch._foreach_div(nu, bc2))
+        return nu_max
+
+    def _direction(self, params, grads, t):
+        mu, nu = self.moments("mu", params), self.moments("nu", params)
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_sqrt(self._second_moment(nu, params, _bias_correction(self.b2, t)))
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(mu, _bias_correction(self.b1, t))
+        torch._foreach_div_(upd, denom)
+        return upd
 
 
-def make_optimizer(params, cfg: OptimConfig, steps_per_epoch: int, num_epochs: int) -> AMSGrad:
-    """The optimizer of ``cfg`` over ``params``; the port has amsgrad_adam
-    without clipping or weight decay."""
-    if cfg.optimizer != "amsgrad_adam":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet (amsgrad_adam is)"
-        )
-    if cfg.grad_clip_norm or cfg.weight_decay:
-        raise NotImplementedError(
-            "grad_clip_norm and weight_decay are not ported yet"
-        )
-    return AMSGrad(params, make_lr_schedule(cfg, steps_per_epoch, num_epochs))
+class Adam(AMSGrad):
+    """``optax.adam``: AMSGrad's moments without the running max,
+    p -= lr(t-1) * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps), eps
+    outside the root (optax's eps_root is 0)."""
+
+    NAME = "adam"
+    MOMENTS = ("mu", "nu")
+
+    def _second_moment(self, nu, params, bc2):
+        return torch._foreach_div(nu, bc2)
+
+
+class SGD(OptaxOptimizer):
+    """``optax.sgd(momentum=0.9)``: optax.trace, t = g + 0.9*t (no
+    dampening, no Nesterov), then p -= lr(t-1) * t."""
+
+    NAME = "sgd"
+    MOMENTS = ("trace",)
+    momentum = 0.9
+
+    def _direction(self, params, grads, t):
+        trace = self.moments("trace", params)
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, grads)
+        return torch._foreach_mul(trace, 1.0)  # a copy: step() scales it in place
+
+
+OPTIMIZERS = {cls.NAME: cls for cls in (AMSGrad, Adam, SGD)}
+
+
+def make_optimizer(params, cfg: OptimConfig, steps_per_epoch: int, num_epochs: int) -> OptaxOptimizer:
+    """The optimizer of ``cfg`` over ``params``: ``cfg.optimizer`` behind
+    the optional clipping and weight decay."""
+    if cfg.optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    return OPTIMIZERS[cfg.optimizer](
+        params, make_lr_schedule(cfg, steps_per_epoch, num_epochs),
+        grad_clip_norm=cfg.grad_clip_norm, weight_decay=cfg.weight_decay,
+    )

@@ -98,9 +98,34 @@ Phases:
      learned upsample and GroupNorm, and the supervised step at the kidney
      comparison shapes (UNet-64, 512 px, batch 4) with remat off and on:
      step ms and peak, the peak lower with remat and the first loss within
-     1e-3 relative.
-Phases 3 and 4 also check and time the kernel at phase 8's and phase 9's
-launch shapes.
+     1e-3 relative;
+ 10. runs that stop and resume, and the main-view augmentation: (a) at the
+     CHAOS point of phase 5, Trainer.run(1), then a new Trainer with
+     resume_file=<experiment>_last_full.msgpack and run(2): the restored
+     parameters, BN statistics, optimizer moments and count equal the
+     saved ones bit for bit, start_epoch 1 and no bootstrap probe, 3
+     launches a step and none in case evaluation, epoch 2's row and refresh
+     decisions held to the same run's uninterrupted epoch 2 from the same
+     state (cuDNN deterministic in both; bit for bit where they are, else
+     within phase 6's 1e-3) and its refresh decisions to phase 5's epoch 2
+     (two runs on the card differ in the last bits, so phase 5's rows are
+     compared and printed, not held), the best _full file read back equal
+     to the state it saved, and the bytes the optimizer state adds to a
+     best-epoch snapshot; (b) the kidney_comparison_mask1 run of phase 7
+     (a) with data.augment_main=true, run(2): 2 launches a step (the image
+     and the target, each one launch), the first step's augmented batch
+     held to the kernel's plain version (max abs 0 on the image, equal
+     argmax targets), finite history, the step median beside phase 7
+     (a)'s; (c) through the CLI on a fixture tree as phase 9 (b)'s: train
+     --preset chaos_proposed_30cases1labeled --epochs 1 --set
+     data.augment_main=true optim.optimizer=adam optim.grad_clip_norm=1.0
+     optim.weight_decay=1e-4, then the same with --epochs 2 and resume_file
+     set to its _last_full ("Resuming at epoch 2" logged), 5 launches a
+     step (3 TTA, 2 augment), and one epoch with optim.optimizer=sgd whose
+     _last_full a new pair and optimizer read back equal to the saved
+     state.
+Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's and
+phase 10's launch shapes.
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
@@ -156,19 +181,41 @@ KERNEL_LAUNCHES = (
     # 64 px, where every tile of the kernel is an edge tile
     ("cli_smoke", (8, 64, 64, 3), False, 1),
     ("cli_smoke", (16, 64, 64, 2), True, 1),
+    # phase 10: data.augment_main's forward warps, one launch for the images
+    # of both modalities and one for the one-hot maps of every target of
+    # the batch (fill 0): the CHAOS point (2 x 8 images, 3 x 8 targets; no
+    # phase runs it, its bound is the reference), the CHAOS preset at batch
+    # 4 through the CLI, the kidney comparison preset (1 x 4 and 1 x 4)
+    ("chaos_augment", (16, 256, 256, 3), False, 1),
+    ("chaos_augment", (24, 256, 256, 2), False, 1),
+    ("chaos_preset_augment", (8, 256, 256, 3), False, 1),
+    ("chaos_preset_augment", (12, 256, 256, 2), False, 1),
+    ("kidney_augment", (4, 512, 512, 3), False, 1),
+    ("kidney_augment", (4, 512, 512, 2), False, 1),
 )
-# phase 9's paths whose launches have an earlier path's shapes (and its
-# rows in phase 4): the CHAOS preset with fuseunetsa and the
-# fuseunetsaseparate steps at batch 4 launch as the CHAOS preset does, the
-# unetsa steps as the prostate preset (one 256 px image)
-SAME_SHAPES = {"cli_chaos": "chaos_preset", "zoo_fuseunetsaseparate": "chaos_preset",
-               "zoo_unetsa": "prostate_preset"}
+# the paths whose launches have earlier paths' shapes (and their rows in
+# phase 4): the CHAOS preset with fuseunetsa and the fuseunetsaseparate
+# steps at batch 4 launch as the CHAOS preset does, the unetsa steps as the
+# prostate preset (one 256 px image), the resumed CHAOS point as phase 5,
+# phase 10 (c)'s runs as the CHAOS preset and its augment warps
+PRESET_AUGMENT = ("chaos_preset", "chaos_preset_augment")
+SAME_SHAPES = {"cli_chaos": ("chaos_preset",), "zoo_fuseunetsaseparate": ("chaos_preset",),
+               "zoo_unetsa": ("prostate_preset",), "chaos_resume": ("chaos_coteach",),
+               "cli_resume_first": PRESET_AUGMENT, "cli_resume": PRESET_AUGMENT,
+               "cli_sgd": PRESET_AUGMENT}
 # phase 8: (path, preset, the fixture tree's native px, warp launches a step)
 PRESET_RUNS = (
     ("chaos_preset", "chaos_proposed_30cases1labeled", 256, 3),
     ("prostate_preset", "prostate_proposed_isbi3t_transfer_isbidx", 320, 2),
     ("breast_preset", "breast_proposed_272cases25labeled", 512, 2),
 )
+
+
+START = time.perf_counter()
+
+
+def stamp(done: str) -> None:
+    print(f"{done} done at {time.perf_counter() - START:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -368,6 +415,18 @@ def chaos_config():
     return cfg
 
 
+def chaos_task(root: str):
+    """Phase 5's task: 4 train cases x 16 slices at 256 px, one 16-slice
+    test case, the first case clean."""
+    from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
+
+    return SyntheticTask(
+        root=root, tempmask_folder="tempmasks", two_modal=True, num_cases=4,
+        slices_per_case=16, size=256, noisy_fraction=0.5, clean_cases=1, num_test_cases=1,
+        test_case_offset=100, seed=7,
+    )
+
+
 def release_device_memory() -> None:
     """Free what earlier runs left on the card before a run's peak is
     measured: a driven trainer holds bound methods of itself as attributes
@@ -510,14 +569,16 @@ def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
         inner_step, inner_epoch, inner_gate)
     spe = trainer.train_pipe.steps_per_epoch(trainer.cfg.data.batch_size)
     values = [v for row in rows for v in row.values()]
-    if len(rows) != epochs or len(step_ms) != epochs * spe or not all(
+    ran = epochs - trainer.start_epoch  # a resumed run goes on from start_epoch
+    if len(rows) != epochs or len(step_ms) != ran * spe or not all(
             math.isfinite(v) for v in values):
         fail(f"run({epochs}) gave non-finite or missing history "
              f"({len(rows)} rows, {len(step_ms)} steps)")
+    # the median after the first epoch; of a single epoch, after its first step
     return dict(rows=rows, step_ms=step_ms, spe=spe, train_launches=train_launches,
                 launches=launches, outside=launches - sum(train_launches),
                 best_epochs=best_epochs, peak=peak,
-                steady=statistics.median(step_ms[spe:]))
+                steady=statistics.median(step_ms[spe:] or step_ms[1:]))
 
 
 def print_run(name, run) -> None:
@@ -546,19 +607,13 @@ def check_launches(name, run, per_step) -> None:
 def run_slice(cuda_warp, scratch):
     """Phase 5: the CHAOS path at full width, cut in depth only:
     Trainer.run(2) with case evaluation, the checkpoint gate and refresh."""
-    from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
     from aide_tpu_torch.engine.trainer import Trainer
 
     cfg = chaos_config()
     cfg.checkpoint_dir = fresh_dir(os.path.join(scratch, "ckpt"))
     cfg.history_dir = fresh_dir(os.path.join(scratch, "hist"))
     cfg.data.tempmask_folder = "tempmasks"
-    task = SyntheticTask(
-        root=fresh_dir(os.path.join(scratch, "chaos")), tempmask_folder="tempmasks",
-        two_modal=True, num_cases=4, slices_per_case=16, size=256,
-        noisy_fraction=0.5, clean_cases=1, num_test_cases=1,
-        test_case_offset=100, seed=7,
-    )
+    task = chaos_task(fresh_dir(os.path.join(scratch, "chaos")))
     # release the blocks phases 3-4 left cached before the trainer allocates:
     # the allocator counts a large block it does not split in full, so the
     # peak would depend on what the earlier phases allocated
@@ -1173,6 +1228,280 @@ def run_zoo(cuda_warp, scratch) -> tuple:
     return runs, remat_peak()
 
 
+# ------------------------------- phase 10 -------------------------------
+
+
+def tree_equal(got: dict, want: dict) -> bool:
+    """Two state trees (engine.checkpoint.state_tree) with the same leaves,
+    dtypes and values, empty maps included."""
+    import numpy as np
+
+    if got.keys() != want.keys():
+        return False
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            if not isinstance(g, dict) or not tree_equal(g, w):
+                return False
+        elif not (np.asarray(g).dtype == np.asarray(w).dtype and np.array_equal(g, w)):
+            return False
+    return True
+
+
+def snapshots_equal(a: dict, b: dict) -> bool:
+    """Two engine.checkpoint snapshots bit for bit on the card: every
+    state-dict tensor, every optimizer moment, the count."""
+    import torch
+
+    if a["count"] != b["count"] or a["chain"] != b["chain"]:
+        return False
+    for sa, sb in zip(a["nets"] + a["moments"], b["nets"] + b["moments"]):
+        if sa.keys() != sb.keys():
+            return False
+        for k, x in sa.items():
+            y = sb[k]
+            pairs = zip(x.values(), y.values()) if isinstance(x, dict) else [(x, y)]
+            if not all(torch.equal(u, v) for u, v in pairs):
+                return False
+    return True
+
+
+def run_resume_chaos(cuda_warp, scratch, chaos, chaos_log):
+    """Phase 10 (a): the CHAOS point stopped after epoch 1 and resumed from
+    its _last_full file for epoch 2. Two runs of the same epochs on the card
+    differ in the last bits (its atomics; the first epoch here against
+    phase 5's shows how far), so the resumed epoch 2 is held to the same
+    run's uninterrupted epoch 2 from the same state, both with cuDNN's
+    deterministic algorithms, and to phase 5's (``chaos``, ``chaos_log``)
+    refresh decisions; its rows' distance from phase 5's is printed."""
+    import torch
+
+    from aide_tpu_torch.engine import checkpoint as ckpt
+    from aide_tpu_torch.engine.trainer import Trainer
+
+    work = fresh_dir(os.path.join(scratch, "chaos_resume"))
+    cfg = chaos_config()
+    cfg.checkpoint_dir = os.path.join(work, "ckpt")
+    cfg.history_dir = os.path.join(work, "hist")
+    cfg.data.tempmask_folder = "tempmasks"
+    data = os.path.join(work, "data")
+    release_device_memory()
+    first = Trainer(cfg, chaos_task(data))
+    first.label_cases = set(first.task.clean_case_ids())
+    part1 = drive(first, cuda_warp, epochs=1)
+    check_launches("chaos_resume epoch 1", part1, 3)
+    spread = worst_difference(part1["rows"], chaos["rows"][:1])
+    print(f"chaos_resume: epoch 1 against phase 5's: refresh decisions {first.refresh_log} / "
+          f"{[e for e in chaos_log if e[0] == 0]}, worst metric difference {spread:.3e}", flush=True)
+    saved = ckpt.snapshot(first.state)
+    opt_bytes = sum(t.numel() * t.element_size() for net in saved["moments"]
+                    for named in net.values() for t in named.values())
+    net_bytes = sum(t.numel() * t.element_size() for sd in saved["nets"] for t in sd.values())
+    # the best _full file: epoch 1 is the first best, saved after its train
+    # steps, so it holds the state run(1) ended with; its sidecar replays it
+    best = ckpt.full_path(cfg.checkpoint_dir, cfg.experiment_name)
+    with open(best, "rb") as fh:
+        best_tree = ckpt.msgpack_restore(fh.read())
+    best_meta = ckpt.read_meta(best)
+    if (part1["best_epochs"] != [1] or best_meta["next_epoch"] != 0
+            or not tree_equal(best_tree, ckpt.state_tree(first.state))):
+        fail(f"chaos_resume: the best _full file (best epochs {part1['best_epochs']}, next_epoch "
+             f"{best_meta.get('next_epoch')}) does not hold the state it saved")
+    print(f"chaos_resume: run(1) then the best _full file read back equal to the state "
+          f"({os.path.getsize(best)} bytes); a best-epoch snapshot holds {net_bytes} bytes of state "
+          f"dicts and {opt_bytes} bytes of optimizer moments", flush=True)
+    last = ckpt.full_path(cfg.checkpoint_dir, cfg.experiment_name, last=True)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg.override([f"resume_file={last}"]), chaos_task(data))
+    setup_s = time.perf_counter() - t0
+    trainer.label_cases = set(trainer.task.clean_case_ids())
+    restored = ckpt.snapshot(trainer.state, clone=False)
+    if trainer.start_epoch != 1 or not snapshots_equal(restored, saved):
+        fail(f"chaos_resume: start_epoch {trainer.start_epoch}; the restored state differs from "
+             "the saved one")
+    del saved, restored
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # the same run, uninterrupted: epoch 2 from the state in memory (the
+        # resumed trainer has read the tempmasks this epoch rewrites)
+        straight = first.run_epoch(1)
+        straight_log = [e for e in first.refresh_log if e[0] == 1]
+        del first
+        release_device_memory()
+        probes = []
+        inner_probe = trainer._bootstrap_skill_probe
+        trainer._bootstrap_skill_probe = lambda: probes.append(1) or inner_probe()
+        run = drive(trainer, cuda_warp, epochs=2)
+        trainer._bootstrap_skill_probe = inner_probe
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print_run("chaos_resume", run)
+    check_launches("chaos_resume", run, 3)
+    check_refresh(trainer)
+    with open(os.path.join(cfg.history_dir, f"{cfg.experiment_name}.log")) as fh:
+        resumed_logged = "Resuming at epoch 2" in fh.read()
+    row = run["rows"][1]
+    bitwise = sorted(k for k in straight if not k.startswith("time") and row[k] != straight[k])
+    worst = worst_difference([row], [straight])
+    phase5 = worst_difference([row], chaos["rows"][1:2])
+    want_log = [e for e in chaos_log if e[0] == 1]
+    print(f"chaos_resume: restore bit for bit in {setup_s:.2f} s of setup, start_epoch 1, bootstrap "
+          f"probes {len(probes)}, 'Resuming at epoch 2' logged {resumed_logged}; epoch 2 against the "
+          f"same run's uninterrupted epoch 2 (cuDNN deterministic): refresh decisions "
+          f"{trainer.refresh_log} / {straight_log}, keys differing in any bit {bitwise or 'none'}, "
+          f"worst metric difference {worst:.3e} (relative above 1, absolute below); against phase "
+          f"5's epoch 2: refresh decisions {want_log}, worst metric difference {phase5:.3e} (epoch "
+          f"1's run-to-run spread {spread:.3e})", flush=True)
+    if (probes or not resumed_logged or trainer.refresh_log != straight_log
+            or trainer.refresh_log != want_log or worst > 1e-3):
+        fail("chaos_resume: the resumed epoch 2 is not the uninterrupted one")
+    run.update(bitwise=not bitwise, worst=worst, phase5=phase5, spread=spread,
+               snapshot_opt_bytes=opt_bytes, snapshot_net_bytes=net_bytes)
+    del trainer
+    return run
+
+
+def check_augment_plain(cuda_warp, trainer, batch, degrees, hflip, out) -> None:
+    """The augmented batch of a step against the kernel's plain version on
+    the same inputs: the images (both modalities in one warp) with max abs
+    0, the targets' warped one-hot maps (fill 0) with equal argmax."""
+    import torch
+    import torch.nn.functional as F
+
+    from aide_tpu_torch.engine import steps
+
+    two = trainer.two_modal
+    images = steps.batch_images(batch, two)
+    names = ("modal1", "modal2") if two else ("image",)
+    k, (b, _, _, c) = len(images), images[0].shape
+    table = cuda_warp.coef_table(degrees.repeat(k), hflip.repeat(k), False)
+    fills = cuda_warp.fill_table(torch.cat(steps.batch_fills(batch, two)), k * b, c, images[0].device)
+    ref = cuda_warp.warp_plain(torch.cat(images), table, fills, False)
+    img_err = float((torch.cat([out[n] for n in names]) - ref).abs().max())
+    tnames = [t for t in steps.TARGETS if t in batch]
+    nc = trainer.cfg.model.num_classes
+    onehot = torch.cat([F.one_hot(batch[t].long(), nc).float() for t in tnames])
+    kt = len(tnames)
+    ttable = cuda_warp.coef_table(degrees.repeat(kt), hflip.repeat(kt), False)
+    tref = cuda_warp.warp_plain(onehot, ttable, cuda_warp.fill_table(0.0, kt * b, nc, onehot.device),
+                                False).argmax(dim=-1)
+    tgot = torch.cat([out[t] for t in tnames])
+    differ = int((tgot != tref.to(tgot.dtype)).sum())
+    print(f"augment vs plain at the launch shapes {tuple(ref.shape)} and {tuple(onehot.shape)}: "
+          f"images max abs {img_err:.3e}, target pixels differing {differ} of {tgot.numel()}",
+          flush=True)
+    if img_err != 0.0 or differ:
+        fail(f"the augment warp disagrees with its plain version: {img_err}, {differ} pixels")
+
+
+def run_augment_supervised(cuda_warp, scratch, kidney_sup):
+    """Phase 10 (b): phase 7 (a)'s supervised kidney run with
+    data.augment_main."""
+    from aide_tpu_torch.engine.trainer import Trainer
+
+    release_device_memory()
+    cfg = kidney_config("kidney_comparison_mask1", scratch, "kidney_augment")
+    cfg.data.augment_main = True
+    trainer = Trainer(cfg, kidney_task(scratch, "kidney_augment"))
+    if trainer.dual or trainer.augment_batch is None:
+        fail("kidney_augment: not a supervised run with the augmentation")
+    inner, checked = trainer.augment_batch, []
+
+    def augment(batch, degrees, hflip):
+        out = inner(batch, degrees, hflip)
+        if not checked:
+            before = cuda_warp.launches  # the comparison's own launches do not count
+            check_augment_plain(cuda_warp, trainer, batch, degrees, hflip, out)
+            checked.append(cuda_warp.launches - before)
+        return out
+
+    trainer.augment_batch = augment
+    run = drive(trainer, cuda_warp)
+    trainer.augment_batch = inner
+    print_run("kidney_augment", run)
+    check_launches("kidney_augment", run, 2)
+    print(f"kidney_augment: median step {run['steady']:.3f} ms with augment_main against phase 7 "
+          f"(a)'s {kidney_sup['steady']:.3f} ms without ({run['steady'] / kidney_sup['steady']:.3f}x)",
+          flush=True)
+    if checked != [0]:
+        fail(f"kidney_augment: the plain comparison ran {checked}")
+    del trainer
+    return run
+
+
+def run_cli_resume(cuda_warp, scratch):
+    """Phase 10 (c): the CHAOS preset through the CLI with augment_main and
+    adam behind clipping and decay, stopped after epoch 1 and resumed from
+    its _last_full; then one sgd epoch whose _last_full a new pair and
+    optimizer read back."""
+    import copy
+
+    import torch
+
+    from aide_tpu_torch.cli.presets import get_preset
+    from aide_tpu_torch.data.fixtures import write_fixture_tree
+    from aide_tpu_torch.engine import checkpoint as ckpt
+    from aide_tpu_torch.engine.state import DualTrainState
+    from aide_tpu_torch.ops.schedules import make_optimizer
+
+    preset = "chaos_proposed_30cases1labeled"
+    work = fresh_dir(os.path.join(scratch, "cli_resume"))
+    data = os.path.join(work, "data")
+    write_fixture_tree(get_preset(preset, data), train_cases=4, test_cases=1, slices=16,
+                       size=256, labeled=1, seed=7)
+    opts = ["data.augment_main=true", "optim.optimizer=adam", "optim.grad_clip_norm=1.0",
+            "optim.weight_decay=1e-4"]
+    argv = ["--preset", preset, "--data-root", data, "--set", *opts,
+            f"checkpoint_dir={work}/ckpt", f"history_dir={work}/hist"]
+    trainer, first = cli_train(cuda_warp, argv + ["--epochs", "1"])
+    cfg = trainer.cfg
+    print_run("cli_resume epoch 1", first)
+    check_launches("cli_resume epoch 1", first, 5)
+    last = ckpt.full_path(cfg.checkpoint_dir, cfg.experiment_name, last=True)
+    del trainer
+    trainer, run = cli_train(cuda_warp, argv + ["--epochs", "2", "--set", f"resume_file={last}"])
+    print_run("cli_resume", run)
+    check_launches("cli_resume", run, 5)
+    with open(os.path.join(cfg.history_dir, f"{cfg.experiment_name}.log")) as fh:
+        logged = "Resuming at epoch 2" in fh.read()
+    opt = trainer.state.optimizer
+    print(f"cli_resume: train --preset {preset} --set {' '.join(opts)}: epoch 1, then --epochs 2 "
+          f"from {os.path.basename(last)}: start_epoch {trainer.start_epoch}, 'Resuming at epoch "
+          f"2' logged {logged}, optimizer {type(opt).__name__} (clip {opt.grad_clip_norm}, decay "
+          f"{opt.weight_decay}) at count {opt.count}", flush=True)
+    if trainer.start_epoch != 1 or not logged or opt.NAME != "adam":
+        fail("cli_resume: the run did not resume at epoch 2 under adam")
+    del trainer
+    sgd_argv = ["--preset", preset, "--data-root", data, "--set", "data.augment_main=true",
+                "optim.optimizer=sgd", f"checkpoint_dir={work}/ckpt_sgd",
+                f"history_dir={work}/hist_sgd"]
+    trainer, sgd = cli_train(cuda_warp, sgd_argv + ["--epochs", "1"])
+    print_run("cli_sgd", sgd)
+    check_launches("cli_sgd", sgd, 5)
+    path = ckpt.full_path(trainer.cfg.checkpoint_dir, trainer.cfg.experiment_name, last=True)
+    with open(path, "rb") as fh:
+        written = ckpt.msgpack_restore(fh.read())
+    # a new pair and optimizer (the trainer's nets copied and zeroed) read it
+    nets = [copy.deepcopy(net) for net in trainer.state.nets]
+    with torch.no_grad():
+        for t in (t for net in nets for t in net.state_dict().values()):
+            t.zero_()
+    spe = trainer.train_pipe.steps_per_epoch(trainer.cfg.data.batch_size)
+    reader = DualTrainState(nets[0], nets[1], make_optimizer(
+        [p for net in nets for p in net.parameters()], trainer.cfg.optim, spe, trainer.cfg.num_epochs))
+    ckpt.load_train_state(path, reader)
+    same = snapshots_equal(ckpt.snapshot(reader, clone=False),
+                           ckpt.snapshot(trainer.state, clone=False))
+    layout = sorted(written["opt_state"]["0"])
+    print(f"cli_sgd: its _last_full ({os.path.getsize(path)} bytes, opt_state['0'] keys {layout}) "
+          f"read back into a new pair and optimizer equal to the saved state: {same}", flush=True)
+    if not same or layout != ["trace"] or not tree_equal(written, ckpt.state_tree(reader)):
+        fail("cli_sgd: the sgd state did not read back")
+    del trainer, reader, nets
+    return first, run, sgd
+
+
 # kernel-name fragments that group the profile (first match wins)
 KERNEL_KINDS = (
     ("warp_kernel", ("warp_rotate_flip",)),
@@ -1484,34 +1813,53 @@ def main() -> int:
     rows = time_kernel(cuda_warp, device, baselines)
     torch.backends.cudnn.allow_tf32 = True
 
+    stamp("phases 1-4")
     trainer, chaos = run_slice(cuda_warp, scratch)
+    chaos_log = list(trainer.refresh_log)
     if args.profile:
         profile_steps("chaos co-teaching", trainer)
     del trainer
 
     torch.backends.cudnn.allow_tf32 = False
+    stamp("phase 5")
     small_dual_vs_cpu(scratch, "fuseunet", two_modal=True)
     export = small_supervised_vs_cpu(scratch, "unet", two_modal=False)
     small_dual_vs_cpu(scratch, "unet", two_modal=False, resume=export)
     torch.backends.cudnn.allow_tf32 = True
 
+    stamp("phase 6")
     trainer, kidney_sup, kidney_dual = run_kidney(cuda_warp, scratch)
     if args.profile:
         profile_steps("kidney co-teaching", trainer)
     del trainer
 
+    stamp("phase 7")
     presets = run_presets(cuda_warp, scratch)
+    stamp("phase 8")
 
     cli_smoke = run_cli_smoke(cuda_warp, scratch, profile=args.profile)
     cli_chaos = run_cli_chaos(cuda_warp, scratch, profile=args.profile)
     zoo, remat = run_zoo(cuda_warp, scratch)
 
+    stamp("phase 9")
+    t10 = [time.perf_counter()]
+    chaos_resume = run_resume_chaos(cuda_warp, scratch, chaos, chaos_log)
+    t10.append(time.perf_counter())
+    kidney_augment = run_augment_supervised(cuda_warp, scratch, kidney_sup)
+    t10.append(time.perf_counter())
+    cli_first, cli_resume, cli_sgd = run_cli_resume(cuda_warp, scratch)
+    t10.append(time.perf_counter())
+    print(f"phase 10: {t10[-1] - t10[0]:.2f} s ((a) {t10[1] - t10[0]:.2f}, (b) "
+          f"{t10[2] - t10[1]:.2f}, (c) {t10[3] - t10[2]:.2f})", flush=True)
+
     runs = {"chaos_coteach": chaos, "kidney_supervised": kidney_sup,
             "kidney_coteach": kidney_dual, **presets, "cli_smoke": cli_smoke,
-            "cli_chaos": cli_chaos, **zoo}
+            "cli_chaos": cli_chaos, **zoo, "chaos_resume": chaos_resume,
+            "kidney_augment": kidney_augment, "cli_resume_first": cli_first,
+            "cli_resume": cli_resume, "cli_sgd": cli_sgd}
     by_path = {}
     for path, run in runs.items():
-        launched = [r for r in rows if r["path"] == SAME_SHAPES.get(path, path)]
+        launched = [r for r in rows if r["path"] in SAME_SHAPES.get(path, (path,))]
         by_path[path] = {
             "launches": run["launches"],
             "launches_per_step": run["launches"] / len(run["step_ms"]),
@@ -1547,6 +1895,12 @@ def main() -> int:
         "step_ms": chaos["steady"],
         "max_memory_allocated": chaos["peak"],
         "remat_kidney_supervised": remat,
+        "resume_chaos": {"epoch2_bit_for_bit": chaos_resume["bitwise"],
+                         "epoch2_worst_difference": chaos_resume["worst"],
+                         "epoch2_vs_phase5": chaos_resume["phase5"],
+                         "epoch1_run_to_run": chaos_resume["spread"],
+                         "snapshot_optimizer_bytes": chaos_resume["snapshot_opt_bytes"],
+                         "snapshot_state_dict_bytes": chaos_resume["snapshot_net_bytes"]},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -45,6 +45,18 @@ from aide_tpu_torch.evaluation import case_eval as tce
 from aide_tpu_torch.interop.weights import load_variables
 from aide_tpu_torch.ops.cc import keep_largest_connected_components as port_cc
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TASK_ARGS = dict(
     two_modal=True, num_cases=3, slices_per_case=4, size=32,
     noisy_fraction=0.5, clean_cases=1, seed=3,

@@ -27,6 +27,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -53,6 +54,18 @@ from aide_tpu_torch.evaluation import report
 from aide_tpu_torch.evaluation.case_eval import CaseResult
 from aide_tpu_torch.interop import weights
 from aide_tpu_torch.models import build_model
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 # synthetic_supervised cut to a BatchNorm UNet-2 at 32 px on 2 train and 2
 # held-out test cases of 4 slices
@@ -427,7 +440,9 @@ def test_cli_train_then_eval_own_export(tmp_path):
 def test_msgpack_net_export_warm_starts(jax_export, tmp_path):
     """A JAX ``.msgpack`` net export as ``resume_file``: the supervised net
     takes it as it is, the co-teaching pair takes it plus noise with its BN
-    statistics unchanged; a ``*_full.msgpack`` file is refused."""
+    statistics unchanged; a ``*_full.msgpack`` file is read as an exact
+    resume: a net export under that name does not fit the train state, and
+    a train state saved there comes back as it was."""
     want = weights.variables_to_state_dict(jax_export["variables"], "unet2")
     sup = get_preset("synthetic_supervised").override(CUT + [
         f"data.root={tmp_path}/s", f"checkpoint_dir={tmp_path}/c", f"history_dir={tmp_path}/h",
@@ -445,6 +460,13 @@ def test_msgpack_net_export_warm_starts(jax_export, tmp_path):
                 assert np.array_equal(sd[k].numpy(), v), k
         moved = [k for k in want if k.endswith("conv1.weight")]
         assert all(0 < np.abs(sd[k].numpy() - want[k]).max() < 0.05 for k in moved)
+    sup_tr = ttrainer.Trainer(sup, device="cpu")
     for name in ("jaxrun_full.msgpack", "jaxrun_last_full.msgpack"):
-        with pytest.raises(NotImplementedError, match="exact resume"):
+        shutil.copy(jax_export["path"], tmp_path / name)
+        with pytest.raises(ValueError, match="does not fit this train state"):
             ttrainer.Trainer(sup.override([f"resume_file={tmp_path / name}"]), device="cpu")
+        ckpt.save_train_state(str(tmp_path / name), sup_tr.state, {"next_epoch": 3})
+        tr = ttrainer.Trainer(sup.override([f"resume_file={tmp_path / name}"]), device="cpu")
+        assert tr.start_epoch == 3
+        for k, v in tr.state.nets[0].state_dict().items():
+            assert np.array_equal(v.numpy(), want[k]), k

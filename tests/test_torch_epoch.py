@@ -18,8 +18,10 @@ net, and epoch 3 ends the ramp, so the engagement verdict runs. The bars:
 - the same log lines from "Start Training" on, with the time field masked,
   the step-loss lines of ``log_every_steps=2`` among them.
 
-Also: the trainer refuses a ``_full`` resume file, an unknown checkpoint
-flush and mesh settings for more than one device, and
+Also: the run's ``_last_full`` file resumes a new trainer at its end (a
+missing ``_full`` file raises rather than warm-starting), the trainer
+refuses an unknown checkpoint flush and mesh settings for more than one
+device, and
 a refresh runs and reads back its tempmasks where Pillow cannot be imported.
 """
 
@@ -47,6 +49,18 @@ from aide_tpu_torch.engine import checkpoint as tckpt
 from aide_tpu_torch.engine import trainer as ttrainer
 from aide_tpu_torch.evaluation.case_eval import dice3d_np
 from aide_tpu_torch.interop.weights import load_variables, variables_to_state_dict
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EPOCHS = 3
@@ -263,13 +277,24 @@ def test_host_batches_take_the_unfused_path_to_the_same_epoch(tmp_path):
         assert np.array_equal(host.train_pipe.labels.get(net), dev.train_pipe.labels.get(net))
 
 
-def test_trainer_refuses_a_resume_file(tmp_path):
-    """Exact resume from a _full file is not ported (a .pkl or .msgpack net
-    export warm-starts, tests/test_torch_warmstart.py, tests/test_torch_cli.py)."""
+def test_trainer_refuses_a_resume_file(runs, tmp_path):
+    """A ``_full`` resume file is an exact resume, never a warm start: one
+    that does not exist raises; the run's ``_last_full`` gives a trainer
+    at its end (tests/test_torch_resume.py holds the resume to the JAX
+    package's and to an uninterrupted run)."""
     _, cfg = _cfgs(tmp_path)
     cfg.resume_file = str(tmp_path / "x_full.msgpack")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(FileNotFoundError, match="x_full.msgpack"):
         ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
+    done = runs["cfg"]
+    cfg.resume_file = tckpt.full_path(done.checkpoint_dir, done.experiment_name, last=True)
+    tr = ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
+    assert tr.start_epoch == EPOCHS and tr.history == runs["port"].history
+    assert tr.best_dice == runs["port"].best_dice
+    assert tr.state.optimizer.count == runs["port"].state.optimizer.count == 4 * EPOCHS
+    for net, want in zip(tr.state.nets, runs["states"][EPOCHS]):
+        for k, v in net.state_dict().items():
+            assert torch.equal(v, want[k]), k
 
 
 def test_trainer_refuses_an_unknown_checkpoint_flush(tmp_path):

@@ -16,6 +16,18 @@ from aide_tpu.ops import metrics as jm
 from aide_tpu_torch.ops import losses as tl
 from aide_tpu_torch.ops import metrics as tm
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B, S = 3, 16
 
 

@@ -26,6 +26,18 @@ from aide_tpu_torch.models.blocks import Norm
 from aide_tpu_torch.models.fuseunet import FuseUNet
 from aide_tpu_torch.models.unet import UNet
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S, B = 32, 3
 # (model name, base width override): fuseunet at 4, unet4, unet8, and the
 # default unet at its own width 64

@@ -3,7 +3,9 @@
 Same weights, same batch, same TTA view parameters (drawn with the key the
 JAX step uses) and rate 0.5. Losses and dice sums to rtol 1e-4, the new BN
 running stats to rtol 1e-4, the new parameters to atol 1e-6 + 1e-2*lr, and
-a second step's losses to rtol 1e-3.
+a second step's losses to rtol 1e-3. With ``coteach.tta_bn="running"`` (the
+view forwards in eval-mode BN) one step's losses, dice sums and BN running
+stats are held the same way.
 
 AMSGrad's first update moves every parameter by lr * g/|g|: by lr in the
 direction of its gradient's sign. Where the sign is not determined in f32,
@@ -38,13 +40,26 @@ from aide_tpu_torch.interop.weights import load_variables, variables_to_state_di
 from aide_tpu_torch.models.fuseunet import FuseUNet
 from aide_tpu_torch.ops.schedules import make_optimizer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 32
 V = 2
 LR = 1e-4
 
 
-def _cfgs(b):
+def _cfgs(b, tta_bn="batch"):
     jcfg = JTrainConfig()
+    jcfg.coteach.tta_bn = tta_bn
     jcfg.model = JModelConfig(name="fuseunet", base_width=4, compute_dtype="float32")
     jcfg.data.img_size = S
     jcfg.data.batch_size = b
@@ -73,8 +88,8 @@ def _np_tree(t):
     return jax.tree_util.tree_map(lambda x: np.asarray(x), t)
 
 
-def _run_both(b, n_steps):
-    jcfg, cfg = _cfgs(b)
+def _run_both(b, n_steps, tta_bn="batch"):
+    jcfg, cfg = _cfgs(b, tta_bn)
     jmodel = JFuseUNet(num_classes=2, base_width=4, compute_dtype="float32")
     x = jnp.zeros((1, S, S, 3))
     v1 = jmodel.init(jax.random.key(0), x, x, train=False)
@@ -167,3 +182,29 @@ def test_second_step_losses(two_steps):
     jm, tm = results[1]
     for key in ("loss1", "loss2"):
         np.testing.assert_allclose(tm[key], jm[key], rtol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def running_step():
+    return _run_both(4, 1, tta_bn="running")
+
+
+@pytest.mark.parametrize("key", ["loss1", "loss2", "dice1_sum", "dice2_sum", "count"])
+def test_step_metrics_tta_bn_running(running_step, two_steps, key):
+    """The views' forwards in eval-mode BN (the running statistics) give
+    the JAX step's metrics too, and losses that differ from the batch
+    statistics' by more than the bar."""
+    jm, tm = running_step[1][0]
+    np.testing.assert_allclose(tm[key], jm[key], rtol=1e-4)
+    if key.startswith("loss"):
+        assert abs(tm[key] - two_steps[1][0][1][key]) > 2e-4 * abs(tm[key])
+
+
+@pytest.mark.parametrize("net", [0, 1])
+def test_step_running_stats_tta_bn_running(running_step, net):
+    (jvars, _, port_sd, port_step), _ = running_step
+    assert port_step == 1
+    ref = variables_to_state_dict(jvars[net])
+    for k, r in ref.items():
+        if "running" in k:
+            np.testing.assert_allclose(port_sd[net][k], r, rtol=1e-4, atol=1e-7, err_msg=k)

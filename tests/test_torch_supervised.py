@@ -51,6 +51,18 @@ from aide_tpu_torch.interop.weights import load_variables, variables_to_state_di
 from aide_tpu_torch.models import build_model
 from aide_tpu_torch.ops.schedules import make_optimizer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 32
 LR = 1e-4
 EPOCHS = 3

@@ -50,6 +50,18 @@ from aide_tpu_torch.data.tasks import TASKS, build_task
 from aide_tpu_torch.engine import trainer as ttrainer
 from aide_tpu_torch.interop.weights import load_variables
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SIZE = 32
 PRESETS = {
     "chaos": ("chaos_proposed_30cases1labeled", 40),

@@ -45,6 +45,18 @@ from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
 from aide_tpu_torch.engine import trainer as ttrainer
 from aide_tpu_torch.interop.weights import load_variables
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TASK_ARGS = dict(
     two_modal=True, num_cases=2, slices_per_case=4, size=32,

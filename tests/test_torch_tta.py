@@ -10,6 +10,18 @@ from aide_tpu.ops import tta as jtta
 from aide_tpu_torch.core import prng
 from aide_tpu_torch.ops import tta
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 V, B, S = 3, 4, 32
 
 

@@ -13,8 +13,9 @@ On the CPU, single-modal UNet at base width 4, 32 px, f32:
   and equals the JAX probe within 1e-3; ``refresh_log`` is identical, and
   the JAX run's dice gap at each worst-k boundary is wider than the
   largest case-dice difference between the packages;
-- a ``_full.msgpack`` resume file is refused, naming ROADMAP Queue 1 item 3
-  (exact resume).
+- a ``_full.msgpack`` or ``_last_full.msgpack`` resume file is an exact
+  resume and never a warm start: the pair comes back as saved, without
+  noise, and a missing one raises.
 """
 
 import jax
@@ -32,8 +33,21 @@ from aide_tpu.ops import tta as jtta
 
 from aide_tpu_torch.core.config import TrainConfig
 from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
+from aide_tpu_torch.engine import checkpoint as tckpt
 from aide_tpu_torch.engine import trainer as ttrainer
 from aide_tpu_torch.interop.weights import load_variables, variables_to_state_dict
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 EPOCHS = 2
 TASK_ARGS = dict(
@@ -135,11 +149,19 @@ def test_warm_start_noise_scale(exports, tmp_path):
 
 
 def test_trainer_refuses_a_full_resume_file(exports, tmp_path):
+    warm = _port_trainer(exports, tmp_path / "warm", noise=1e-3)
     _, cfg = _cfgs(tmp_path, exports["paths"])
+    cfg.coteach.warm_start_noise = 1e-3
     for name in ("x_full.msgpack", "x_last_full.msgpack"):
         cfg.resume_file = str(tmp_path / name)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        with pytest.raises(FileNotFoundError, match=name):
             ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
+        tckpt.save_train_state(cfg.resume_file, warm.state, {"next_epoch": 1})
+        tr = ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
+        assert tr.start_epoch == 1
+        for a, b in zip(tr.state.nets, warm.state.nets):
+            for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+                assert torch.equal(x, y), k
 
 
 def _record_case_dice(trainer, log):

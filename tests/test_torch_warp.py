@@ -25,6 +25,18 @@ import torch
 
 from aide_tpu_torch.ops import cuda_warp, warp
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DEGS = np.array([0.0, 23.0, -23.0, 45.0, -45.0, 52.0, -52.0, 60.0, -60.0, 90.0], np.float32)
 # where the residual angle, the rot90 or the shear coefficients change regime
 BOUNDARY_DEGS = np.array([44.9, 45.0, 45.1, -44.9, -45.0, -45.1, 135.0, -135.0, 180.0, -180.0],

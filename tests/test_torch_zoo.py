@@ -58,6 +58,18 @@ from aide_tpu_torch.models import blocks, build_model
 from aide_tpu_torch.ops import losses
 from aide_tpu_torch.ops.schedules import make_optimizer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the test processes run side by
+    side on the host's cores, and at these sizes torch's thread pool spends
+    more time waiting for its threads than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S, B = 32, 3
 # their float32 train-mode rounding exceeds the bar (module docstring)
 ATTENTION = {"unetsa", "fuseunetsa", "fuseunetsaseparate"}
