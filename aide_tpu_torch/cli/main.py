@@ -3,10 +3,12 @@
 The counterpart of ``aide_tpu.cli.main`` with the same commands and
 options: pick a preset (or a config JSON), override any field with dotted
 ``--set key=value`` pairs (repeatable; every occurrence applies). ``train``,
-``eval`` and ``predict`` run on the CUDA card, and raise without one unless
-``--device cpu`` asks for the CPU. ``eval``, ``predict`` and ``export`` take
-a net checkpoint: the port's ``.pkl`` exports (or an original AIDE
-``.pkl``) or the JAX package's ``.msgpack`` net exports. ``train --set
+``eval``, ``predict`` and ``export --format serve`` run on the CUDA card
+(the serving export traces a program for the card and one for the host),
+and raise without one unless ``--device cpu`` asks for the CPU. ``eval``,
+``predict`` and ``export`` take a net checkpoint: the port's ``.pkl``
+exports (or an original AIDE ``.pkl``) or the JAX package's ``.msgpack``
+net exports. ``train --set
 resume_file=<checkpoint_dir>/<experiment>_last_full.msgpack`` goes on with a
 stopped run exactly (a ``_full`` file of either package); any other
 ``resume_file`` warm-starts.
@@ -38,7 +40,7 @@ def _build_config(args) -> TrainConfig:
     return cfg
 
 
-def _add_common(p: argparse.ArgumentParser, device: bool = True) -> None:
+def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--preset", help="named preset (see `presets`)")
     p.add_argument("--config", help="path to a TrainConfig JSON file")
     p.add_argument("--data-root", default=".", help="directory containing the dataset folders")
@@ -47,9 +49,8 @@ def _add_common(p: argparse.ArgumentParser, device: bool = True) -> None:
         help="dotted config overrides, e.g. optim.lr=3e-4 data.batch_size=8 "
         "(repeatable; all occurrences apply)",
     )
-    if device:
-        p.add_argument("--device", help="torch device (default: the CUDA card; "
-                                        "'cpu' runs on the CPU)")
+    p.add_argument("--device", help="torch device (default: the CUDA card; 'cpu' runs on "
+                                    "the CPU; export --format pkl always runs on the host)")
 
 
 def cmd_train(args) -> int:
@@ -181,8 +182,11 @@ def cmd_predict(args) -> int:
 
 def cmd_export(args) -> int:
     """Convert a net checkpoint (a JAX ``.msgpack`` net export or a
-    ``.pkl``) into the reference-loadable torch ``.pkl``
-    (``{'net': state_dict, 'loss', 'epoch'}``), on the host."""
+    ``.pkl``) into either the reference-loadable torch ``.pkl``
+    (``{'net': state_dict, 'loss', 'epoch'}``, written on the host) or a
+    framework-free ``torch.export`` serving artifact (``--format serve``,
+    ``aide_tpu_torch/interop/serving.py``), traced on the card and the host,
+    or on the host alone with ``--device cpu``."""
     cfg = _build_config(args)
     from aide_tpu_torch.engine import checkpoint as ckpt
 
@@ -190,10 +194,13 @@ def cmd_export(args) -> int:
         print("error: export needs --checkpoint and --output", file=sys.stderr)
         return 2
     if args.format == "serve":
-        raise NotImplementedError(
-            "export --format serve is not ported yet: ROADMAP Queue 1 item 6 (serving export)"
-        )
-    if cfg.model.norm != "batch":
+        from aide_tpu_torch.engine.trainer import resolve_device
+
+        # the card's and the host's programs, or the host's alone; raises
+        # without a card unless --device cpu
+        device = resolve_device(args.device)
+        platforms = None if device.type == "cuda" else (device.type,)
+    elif cfg.model.norm != "batch":
         raise ValueError(
             f"model.norm={cfg.model.norm!r}: only norm='batch' models map onto the "
             "reference's BatchNorm checkpoints"
@@ -204,12 +211,23 @@ def cmd_export(args) -> int:
         meta = ckpt.read_meta(args.checkpoint)
     except FileNotFoundError:
         meta = {}
-    # the sidecar stores the test metrics unprefixed ('loss1' for a net of
-    # the pair, 'loss' for a single net)
-    ckpt.export_net(args.output, net.state_dict(), {
-        "loss": float(meta.get("loss1", meta.get("loss", 0.0))),
-        "epoch": int(meta.get("epoch", 0)),
-    })
+    if args.format == "serve":
+        from aide_tpu_torch.interop.serving import export_serving_artifact
+        from aide_tpu_torch.models import is_two_modal
+
+        export_serving_artifact(
+            args.output, net, cfg.data.img_size, is_two_modal(cfg.model.name),
+            meta={"model": cfg.model.name, "epoch": int(meta.get("epoch", 0))},
+            weights_dtype=args.weights_dtype,
+            platforms=platforms,
+        )
+    else:
+        # the sidecar stores the test metrics unprefixed ('loss1' for a net of
+        # the pair, 'loss' for a single net)
+        ckpt.export_net(args.output, net.state_dict(), {
+            "loss": float(meta.get("loss1", meta.get("loss", 0.0))),
+            "epoch": int(meta.get("epoch", 0)),
+        })
     print(json.dumps({"output": os.path.abspath(args.output)}))
     return 0
 
@@ -249,14 +267,23 @@ def main(argv=None) -> int:
     p_pred.set_defaults(fn=cmd_predict)
 
     p_exp = sub.add_parser(
-        "export", help="convert a net checkpoint to a reference torch .pkl",
+        "export",
+        help="convert a net checkpoint to a reference torch .pkl or a torch.export "
+             "serving artifact",
     )
-    _add_common(p_exp, device=False)
+    _add_common(p_exp)
     p_exp.add_argument("--checkpoint", help="net checkpoint (a JAX .msgpack net export or a .pkl)")
     p_exp.add_argument("--output", help="output path")
     p_exp.add_argument(
         "--format", choices=("pkl", "serve"), default="pkl",
-        help="pkl: reference torch checkpoint; serve: not ported yet",
+        help="pkl: reference torch checkpoint; serve: framework-free torch.export "
+             "program with baked-in weights",
+    )
+    p_exp.add_argument(
+        "--weights-dtype", choices=("float32", "bfloat16"), default="float32",
+        dest="weights_dtype",
+        help="(serve only) precision of the baked-in weights; bfloat16 "
+             "halves the artifact and serving weight memory",
     )
     p_exp.set_defaults(fn=cmd_export)
 

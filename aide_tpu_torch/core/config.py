@@ -35,6 +35,7 @@ class ModelConfig:
     group_norm_groups: int = 8
     # bfloat16 compute (autocast) with float32 params and statistics
     compute_dtype: str = "bfloat16"
+    # accepted and ignored, as the JAX package does: params are float32
     param_dtype: str = "float32"
     remat: bool = False
     # TPU lane-layout knobs of the JAX package; no-ops here

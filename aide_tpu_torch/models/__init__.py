@@ -17,14 +17,15 @@ def build_model(model_cfg) -> nn.Module:
     """The network a ModelConfig names: a FuseUNet variant or a member of
     the UNet family, with its norm, upsample, attention and remat options.
     ``packed*`` keys are accepted as no-ops (the packed layout computes the
-    same network)."""
+    same network). So is ``param_dtype``: the JAX package reads it nowhere
+    (``aide_tpu/core/config.py:47``; every flax module pins
+    ``param_dtype=jnp.float32``), so its parameters are float32 whatever the
+    key says, and the port builds float32 parameters too."""
     name = model_cfg.name
     if name not in UNET_WIDTHS and name not in FUSEUNET_VARIANTS:
         raise KeyError(
             f"unknown model {name!r}; available: {sorted(UNET_WIDTHS) + sorted(FUSEUNET_VARIANTS)}"
         )
-    if model_cfg.param_dtype != "float32":
-        raise NotImplementedError("only float32 params are ported")
     common = dict(
         num_classes=model_cfg.num_classes,
         compute_dtype=model_cfg.compute_dtype,

@@ -123,7 +123,21 @@ Phases:
      set to its _last_full ("Resuming at epoch 2" logged), 5 launches a
      step (3 TTA, 2 augment), and one epoch with optim.optimizer=sgd whose
      _last_full a new pair and optimizer read back equal to the saved
-     state.
+     state;
+ 11. the serving export at full width, through the CLI (export --format
+     serve on the card: a torch.export program for the card and one for
+     the host, weights baked in): the CHAOS preset's FuseUNet-32 (phase 8
+     (a)'s best export) at f32 and bf16 weights and the kidney comparison
+     UNet-64 (phase 7 (a)'s) at f32, each served by a fresh process that
+     cannot import aide_tpu_torch (the container read with the standard
+     library, the program with torch.export.load) at batches 1, 8 and 32:
+     bytes, export and load s, serve ms (CUDA events, median of 20),
+     images/s and peak memory; the card's program computes in bf16 on the
+     card (its convolutions' dtypes and devices, its autocast region), sums
+     to 1, agrees with the eager net and the host's program with the
+     card's on >= 99.9% of argmax pixels; bf16 weights under 0.75x the
+     f32 artifact; an artifact traced for the host alone refuses the card.
+     No warp launches.
 Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's and
 phase 10's launch shapes.
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
@@ -724,6 +738,7 @@ def run_kidney(cuda_warp, scratch):
     if obj["history"] != timeless:
         fail("the supervised export's embedded history differs from the run's")
     print(f"kidney supervised export: {len(obj['history'])} history rows embedded", flush=True)
+    sup["exports"] = paths
     del trainer
     release_device_memory()
 
@@ -867,7 +882,7 @@ def run_presets(cuda_warp, scratch):
         if len(trainer.refresh_log) != 2 * 2:
             fail(f"{path}: expected 2 refresh decisions an epoch, got {trainer.refresh_log}")
         check_preset_labels(trainer)
-        check_best_exports(trainer, run["best_epochs"])
+        run["exports"] = check_best_exports(trainer, run["best_epochs"])
         check_launches(path, run, per_step)
         run["decode_s"] = decode_s
         runs[path] = run
@@ -1502,6 +1517,273 @@ def run_cli_resume(cuda_warp, scratch):
     return first, run, sgd
 
 
+# ------------------------------- phase 11 -------------------------------
+
+SERVE_BATCHES = (1, 8, 32)
+
+# Phase 11's serving process: it reads each artifact's container with the
+# standard library and torch.export.load alone (it fails if aide_tpu_torch
+# is importable), serves the card's program at SERVE_BATCHES and the host's
+# at batch 1, and prints one JSON line an artifact. argv: a JSON file
+# [{"name", "path", "inputs": [.npy of (32, S, S, 3)], "out": dir}, ...].
+SERVE_CHILD = r"""
+import importlib.util, io, json, statistics, sys, time
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+if importlib.util.find_spec("aide_tpu_torch") is not None:
+    sys.exit("aide_tpu_torch is importable in the serving process")
+BATCHES = %(batches)r
+
+
+def read(path, platform):
+    with open(path, "rb") as fh:
+        if fh.read(8) != b"AIDETRC1":
+            sys.exit(path + " is not a serving artifact")
+        n = int.from_bytes(fh.read(8), "little")
+        header = json.loads(fh.read(n))
+        start, size = header["payloads"][platform]
+        fh.seek(16 + n + start)
+        return header, torch.export.load(io.BytesIO(fh.read(size)))
+
+
+class Convs(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.convolution.default:
+            self.seen.add((str(args[0].dtype), str(args[1].dtype), args[0].device.type))
+            self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+for art in json.load(open(sys.argv[1])):
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    header, ep = read(art["path"], "cuda")
+    program = ep.module()
+    torch.cuda.synchronize()
+    res = {"name": art["name"], "header": header, "load_s": time.perf_counter() - t0,
+           "weight_bytes": {"cuda": sum(t.numel() * t.element_size() for t in ep.state_dict.values())},
+           "weight_devices": sorted({t.device.type for t in ep.state_dict.values()}),
+           "autocast": [[str(a) for a in n.args[:2]] for n in ep.graph.nodes
+                        if "autocast" in str(n.target).lower()]}
+    host = [np.load(f) for f in art["inputs"]]
+    dev = [torch.from_numpy(x).cuda() for x in host]
+    res["ms"], res["images_per_s"] = {}, {}
+    with torch.no_grad():
+        for b in BATCHES:
+            xs = [x[:b] for x in dev]
+            for _ in range(3):
+                out = program(*xs)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(20):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = program(*xs)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            res["ms"][b] = statistics.median(times)
+            res["images_per_s"][b] = b / res["ms"][b] * 1e3
+            np.save(f"{art['out']}/{art['name']}_cuda_b{b}.npy", out.float().cpu().numpy())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        program(*dev)
+        torch.cuda.synchronize()
+        res["peak_b32"] = torch.cuda.max_memory_allocated()
+        convs = Convs()
+        with convs:
+            program(*[x[:1] for x in dev])
+        res["convolutions"] = [convs.count, sorted(convs.seen)]
+        del program, ep, out
+        t0 = time.perf_counter()
+        _, ep = read(art["path"], "cpu")
+        program = ep.module()
+        res["cpu_load_s"] = time.perf_counter() - t0
+        res["weight_bytes"]["cpu"] = sum(t.numel() * t.element_size() for t in ep.state_dict.values())
+        t0 = time.perf_counter()
+        out = program(*[torch.from_numpy(x[:1]) for x in host])
+        res["cpu_b1_s"] = time.perf_counter() - t0
+        np.save(f"{art['out']}/{art['name']}_cpu_b1.npy", out.numpy())
+    del program, ep, out, dev
+    print(json.dumps(res), flush=True)
+""" % {"batches": SERVE_BATCHES}
+
+
+def serve_inputs(name, task, cfg, work) -> list:
+    """The first 32 slices of ``task``'s train manifest, normalized as the
+    CLI's eval normalizes them, saved as one .npy a modality. Returns the
+    files."""
+    import numpy as np
+
+    from aide_tpu_torch.data.pipeline import SlicePipeline
+    from aide_tpu_torch.engine import steps
+
+    pipe = SlicePipeline(task, task.load_manifest(cfg.data.train_csv), cfg.data.img_size,
+                         cfg.data.data_mean, cfg.data.data_std)
+    n = max(SERVE_BATCHES)
+    if len(pipe) < n:
+        fail(f"serve {name}: {len(pipe)} train slices, fewer than {n}")
+    files = []
+    for i, x in enumerate(steps.batch_images(pipe.batch_at(np.arange(n), images_only=True),
+                                             task.two_modal)):
+        files.append(os.path.join(work, f"{name}_modal{i + 1}.npy"))
+        np.save(files[-1], x.float().numpy())
+    return files
+
+
+def eager_probs(cfg, checkpoint, files, rounded=False) -> dict:
+    """{batch: softmax of the eager net (``_load_net`` on the card, its own
+    autocast)}; ``rounded`` rounds every floating leaf to bf16 first."""
+    import numpy as np
+    import torch
+
+    from aide_tpu_torch.cli.main import _load_net
+
+    net = _load_net(cfg, checkpoint, "cuda")
+    if rounded:
+        with torch.no_grad():
+            for t in net.state_dict().values():
+                t.copy_(t.to(torch.bfloat16))
+    xs = [torch.from_numpy(np.load(f)).cuda() for f in files]
+    with torch.no_grad():
+        out = {b: torch.softmax(net(*[x[:b] for x in xs]).float(), -1).cpu().numpy()
+               for b in SERVE_BATCHES}
+    del net, xs
+    release_device_memory()
+    return out
+
+
+def agreement(a, b) -> tuple:
+    """(share of pixels with the same argmax, mean |a - b|)."""
+    import numpy as np
+
+    return float(np.mean(a.argmax(-1) == b.argmax(-1))), float(np.abs(a - b).mean())
+
+
+def run_serving(cuda_warp, scratch, chaos_export, kidney_export):
+    """Phase 11: the serving export at full width. Through the CLI (``export
+    --format serve``, on the card: programs for the card and the host), the
+    CHAOS preset's FuseUNet-32 (phase 8 (a)'s best export of net 1) at f32
+    and bf16 weights and the kidney comparison UNet-64 (phase 7 (a)'s) at
+    f32; then one fresh process, which cannot import aide_tpu_torch, reads
+    each container with the standard library and serves it with
+    torch.export.load alone (batches 1, 8, 32 of 32 normalized slices of the
+    phase 8 (a) fixture tree or of a seeded synthetic kidney case; CUDA
+    events around each call, the median of 20 after 3 warm-ups; peak memory
+    at 32; the host's program at batch 1). The card's program is shown to
+    compute in bf16 on the card by the dtypes and devices of the
+    convolutions it runs (a TorchDispatchMode over one call) and by its
+    autocast region, whose device is "cuda". Each artifact must hold
+    platforms cuda and cpu, sum to 1 within 1e-5, agree with the eager net
+    (with bf16-rounded leaves for bf16 weights) under the same autocast on
+    >= 99.9% of argmax pixels with mean |delta| <= 1e-3, and its host
+    program with the card's at batch 1 on >= 99.9%; the bf16 artifact is
+    under 0.75x the f32 one and within mean |delta| 5e-3 of it. An export
+    for the host alone (--device cpu) must refuse the card."""
+    import numpy as np
+
+    from aide_tpu_torch.cli.presets import get_preset
+    from aide_tpu_torch.data.tasks import build_task
+    from aide_tpu_torch.interop.serving import load_serving_artifact
+
+    work = fresh_dir(os.path.join(scratch, "serve"))
+    release_device_memory()
+    chaos_preset, kidney_preset = "chaos_proposed_30cases1labeled", "kidney_comparison_mask1"
+    chaos_cfg = get_preset(chaos_preset, os.path.join(scratch, "chaos_preset", "data"))
+    kidney_cfg = kidney_config(kidney_preset, scratch, "serve_kidney")
+    kidney = kidney_task(scratch, "serve_kidney")
+    inputs = {"chaos": serve_inputs("chaos", build_task(chaos_cfg), chaos_cfg, work),
+              "kidney": serve_inputs("kidney", kidney, kidney_cfg, work)}
+    arts = [("chaos_f32", chaos_preset, chaos_export, "float32", "chaos"),
+            ("chaos_bf16", chaos_preset, chaos_export, "bfloat16", "chaos"),
+            ("kidney_f32", kidney_preset, kidney_export, "float32", "kidney")]
+    export_s = {}
+    for name, preset, checkpoint, dtype, _ in arts:
+        _, export_s[name] = cli_command(cuda_warp, [
+            "export", "--preset", preset, "--checkpoint", checkpoint, "--output",
+            f"{work}/{name}.serve", "--format", "serve", "--weights-dtype", dtype])
+    # the host alone: its artifact must refuse the card, no CPU program on it
+    cli_command(cuda_warp, ["export", "--preset", chaos_preset, "--checkpoint", chaos_export,
+                            "--output", f"{work}/chaos_cpu_only.serve", "--format", "serve",
+                            "--device", "cpu"])
+    try:
+        load_serving_artifact(f"{work}/chaos_cpu_only.serve", "cuda")
+    except ValueError as err:
+        refused = str(err)
+    else:
+        fail("serve: an artifact traced for the CPU alone loaded for the card")
+    print(f"serve: the --device cpu export refuses the card: {refused}", flush=True)
+
+    spec = os.path.join(work, "spec.json")
+    with open(spec, "w") as fh:
+        json.dump([{"name": name, "path": f"{work}/{name}.serve", "inputs": inputs[data],
+                    "out": work} for name, _, _, _, data in arts], fh)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-I", "-c", SERVE_CHILD, spec], cwd=work, env=env,
+                          capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"serve: the serving process failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    results = {r["name"]: r for r in map(json.loads, proc.stdout.splitlines()) if "name" in r}
+    if sorted(results) != sorted(a[0] for a in arts):
+        fail(f"serve: the serving process reported {sorted(results)}")
+
+    probs = {}
+    for name, preset, checkpoint, dtype, data in arts:
+        r, path = results[name], f"{work}/{name}.serve"
+        h = r["header"]
+        cfg = chaos_cfg if data == "chaos" else kidney_cfg
+        if (not {"cuda", "cpu"} <= set(h["platforms"]) or h["img_size"] != cfg.data.img_size
+                or h["two_modal"] != (data == "chaos") or h["weights_dtype"] != dtype):
+            fail(f"serve {name}: header {h}")
+        card = {b: np.load(f"{work}/{name}_cuda_b{b}.npy") for b in SERVE_BATCHES}
+        host = np.load(f"{work}/{name}_cpu_b1.npy")
+        probs[name] = card
+        want = eager_probs(cfg, checkpoint, inputs[data], rounded=dtype == "bfloat16")
+        sums = max(float(np.abs(p.sum(-1) - 1.0).max()) for p in [*card.values(), host])
+        vs_eager = {b: agreement(card[b], want[b]) for b in SERVE_BATCHES}
+        vs_host = agreement(host, card[1])
+        count, convs = r["convolutions"]
+        print(f"serve {name}: {os.path.getsize(path)} bytes, payloads {h['payloads']}, weight "
+              f"bytes {r['weight_bytes']} (on {r['weight_devices']}); export {export_s[name]:.2f} s "
+              f"(CLI, both programs), load {r['load_s']:.2f} s (card), {r['cpu_load_s']:.2f} s "
+              f"(host); serve ms {json.dumps(r['ms'])}, images/s "
+              f"{json.dumps({b: round(v, 1) for b, v in r['images_per_s'].items()})}, peak at "
+              f"batch 32 {r['peak_b32']} bytes; host program at batch 1 {r['cpu_b1_s']:.2f} s",
+              flush=True)
+        print(f"serve {name}: convolutions of one call {count}, (input, weight dtype, device) "
+              f"{convs}; autocast regions {r['autocast']}; sums off 1 by {sums:.2e}; against the "
+              f"eager net (argmax share, mean |delta|) {json.dumps(vs_eager)}; host program vs "
+              f"card at batch 1 {vs_host}", flush=True)
+        if (not count or convs != [["torch.bfloat16", "torch.bfloat16", "cuda"]]
+                or not r["autocast"] or any(a[0] != "cuda" for a in r["autocast"])
+                or r["weight_devices"] != ["cuda"]):
+            fail(f"serve {name}: the card's program does not compute in bf16 on the card")
+        if sums > 1e-5 or any(s < 0.999 or d > 1e-3 for s, d in vs_eager.values()) \
+                or vs_host[0] < 0.999:
+            fail(f"serve {name}: the served probabilities disagree")
+    size16, size32 = (os.path.getsize(f"{work}/chaos_{d}.serve") for d in ("bf16", "f32"))
+    bf16_vs_f32 = max(agreement(probs["chaos_bf16"][b], probs["chaos_f32"][b])[1]
+                      for b in SERVE_BATCHES)
+    print(f"serve: bf16 / f32 artifact bytes {size16 / size32:.4f}, mean |delta| at most "
+          f"{bf16_vs_f32:.3e}; serving process {child_s:.2f} s", flush=True)
+    if size16 >= 0.75 * size32 or bf16_vs_f32 >= 5e-3:
+        fail("serve: the bf16 artifact is not the f32 one with rounded weights at half the size")
+    return {name: {k: results[name][k] for k in ("ms", "images_per_s", "peak_b32", "load_s")}
+            | {"bytes": os.path.getsize(f"{work}/{name}.serve"), "export_s": export_s[name]}
+            for name, *_ in arts}
+
+
 # kernel-name fragments that group the profile (first match wins)
 KERNEL_KINDS = (
     ("warp_kernel", ("warp_rotate_flip",)),
@@ -1852,6 +2134,15 @@ def main() -> int:
     print(f"phase 10: {t10[-1] - t10[0]:.2f} s ((a) {t10[1] - t10[0]:.2f}, (b) "
           f"{t10[2] - t10[1]:.2f}, (c) {t10[3] - t10[2]:.2f})", flush=True)
 
+    stamp("phase 10")
+    if not presets["chaos_preset"]["exports"]:
+        fail("phase 8 (a) wrote no best export to serve")
+    t11 = time.perf_counter()
+    serving = run_serving(cuda_warp, scratch, presets["chaos_preset"]["exports"][0],
+                          kidney_sup["exports"][0])
+    print(f"phase 11: {time.perf_counter() - t11:.2f} s", flush=True)
+    stamp("phase 11")
+
     runs = {"chaos_coteach": chaos, "kidney_supervised": kidney_sup,
             "kidney_coteach": kidney_dual, **presets, "cli_smoke": cli_smoke,
             "cli_chaos": cli_chaos, **zoo, "chaos_resume": chaos_resume,
@@ -1901,6 +2192,8 @@ def main() -> int:
                          "epoch1_run_to_run": chaos_resume["spread"],
                          "snapshot_optimizer_bytes": chaos_resume["snapshot_opt_bytes"],
                          "snapshot_state_dict_bytes": chaos_resume["snapshot_net_bytes"]},
+        # phase 11 launches no warp: the serving programs' times and sizes
+        "serving": serving,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -14,10 +14,14 @@ On the CPU (``--device cpu``), f32, 32 px:
 - ``write_case_csv`` byte for byte what the JAX package's pandas writer
   gives, ``summarize`` and its raise on no cases;
 - ``presets``, the return code 2 without ``--checkpoint``/``--output``,
-  repeated ``--set``, the refusal without a card, ``--format serve``;
+  repeated ``--set``, the refusal without a card (``eval``, ``export
+  --format serve``);
+- ``export --format serve --device cpu`` of the JAX net export at f32 and
+  bf16 weights: bf16 under 0.75x f32, the header, probabilities summing to
+  1 and equal to the JAX CLI's f32 artifact within 1e-4;
 - a port ``train`` of a cut ``synthetic_smoke`` (GroupNorm) under
-  ``--profile``, ``eval`` of its own best export, and ``export`` refusing
-  GroupNorm;
+  ``--profile``, ``eval`` of its own best export, ``export`` refusing
+  GroupNorm as a ``.pkl`` and serving it;
 - a ``.msgpack`` net export as ``resume_file`` warm-starts both trainers;
   a ``*_full.msgpack`` one is refused.
 """
@@ -40,6 +44,7 @@ from aide_tpu.cli.presets import get_preset as j_get_preset
 from aide_tpu.engine import checkpoint as jckpt
 from aide_tpu.evaluation import report as jreport
 from aide_tpu.evaluation.case_eval import CaseResult as JCaseResult
+from aide_tpu.interop import serving as jserving
 from aide_tpu.models import build_model as j_build_model
 
 from aide_tpu_torch.cli.main import _build_config, main
@@ -52,7 +57,7 @@ from aide_tpu_torch.engine import steps
 from aide_tpu_torch.engine import trainer as ttrainer
 from aide_tpu_torch.evaluation import report
 from aide_tpu_torch.evaluation.case_eval import CaseResult
-from aide_tpu_torch.interop import weights
+from aide_tpu_torch.interop import serving, weights
 from aide_tpu_torch.models import build_model
 
 
@@ -378,12 +383,38 @@ def test_cli_needs_the_card_unless_cpu_is_asked(jax_export):
     argv = ["eval", *_common(str(jax_export["tmp"] / "nodev")), "--checkpoint", jax_export["path"]]
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(argv)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["export", *argv[1:], "--output", str(jax_export["tmp"] / "x.serve"),
+              "--format", "serve"])
 
 
-def test_export_serve_is_not_ported(jax_export, tmp_path):
-    with pytest.raises(NotImplementedError, match="serving export"):
-        main(["export", *_common(str(tmp_path / "d")), "--checkpoint", jax_export["path"],
-              "--output", str(tmp_path / "x.serve"), "--format", "serve"])
+def test_export_serve_of_a_jax_export(jax_export, tmp_path):
+    """``export --format serve --device cpu`` of the JAX net export at f32
+    and bf16 weights, as ``tests/test_cli.py`` holds the JAX CLI's: bf16
+    under 0.75x the f32 artifact, the header's dtype, platforms and meta,
+    probabilities (2, 32, 32, 2) summing to 1, equal to the JAX CLI's
+    f32 artifact of the same export within 1e-4."""
+    common = _common(str(tmp_path / "d"))
+    for dtype in ("float32", "bfloat16"):
+        rc, out = _run(main, ["export", *common, "--checkpoint", jax_export["path"], "--output",
+                              str(tmp_path / f"{dtype}.serve"), "--format", "serve",
+                              "--weights-dtype", dtype, "--device", "cpu"])
+        assert rc == 0 and json.loads(out)["output"] == str(tmp_path / f"{dtype}.serve")
+    sizes = {d: os.path.getsize(tmp_path / f"{d}.serve") for d in ("float32", "bfloat16")}
+    assert sizes["bfloat16"] < 0.75 * sizes["float32"], sizes
+    x = np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(np.float32)
+    probs = {}
+    for dtype in sizes:
+        call, header = serving.load_serving_artifact(str(tmp_path / f"{dtype}.serve"), "cpu")
+        assert (header["weights_dtype"], header["platforms"]) == (dtype, ["cpu"])
+        assert (header["model"], header["epoch"], header["img_size"]) == ("unet2", 7, 32)
+        probs[dtype] = call(x).numpy()
+        assert probs[dtype].shape == (2, 32, 32, 2)
+        np.testing.assert_allclose(probs[dtype].sum(-1), 1.0, atol=1e-5)
+    assert jmain(["export", *common, "--checkpoint", jax_export["path"], "--output",
+                  str(tmp_path / "jax.serve"), "--format", "serve"]) == 0
+    jcall, _ = jserving.load_serving_artifact(str(tmp_path / "jax.serve"))
+    np.testing.assert_allclose(probs["float32"], np.asarray(jcall(x)), rtol=1e-4, atol=1e-4)
 
 
 def test_load_net_names_what_does_not_fit(jax_export):
@@ -408,8 +439,8 @@ def test_load_net_names_what_does_not_fit(jax_export):
 def test_cli_train_then_eval_own_export(tmp_path):
     """``train`` of synthetic_smoke cut to UNet-2 at 32 px on 4 cases of 4
     slices, one epoch under --profile, then ``eval`` of its own best export
-    of net 1;
-    ``export`` refuses the GroupNorm net."""
+    of net 1; ``export`` refuses the GroupNorm net as a ``.pkl`` and
+    writes its serving artifact."""
     work = str(tmp_path)
     common = [
         "--preset", "synthetic_smoke", "--set", f"data.root={work}/data",
@@ -435,6 +466,13 @@ def test_cli_train_then_eval_own_export(tmp_path):
     assert len(_masks(f"{work}/eval/generated_masks")) == 16
     with pytest.raises(ValueError, match="norm='batch'"):
         main(["export", *common, "--checkpoint", best, "--output", f"{work}/x.pkl"])
+    # the serving export takes GroupNorm, as the JAX package's does
+    rc, _ = _run(main, ["export", *common, "--checkpoint", best, "--output", f"{work}/x.serve",
+                        "--format", "serve", "--device", "cpu"])
+    call, header = serving.load_serving_artifact(f"{work}/x.serve", "cpu")
+    assert rc == 0 and header["model"] == cfg.model.name and header["img_size"] == 32
+    np.testing.assert_allclose(call(np.zeros((1, 32, 32, 3), np.float32)).sum(-1).numpy(), 1.0,
+                               atol=1e-5)
 
 
 def test_msgpack_net_export_warm_starts(jax_export, tmp_path):
