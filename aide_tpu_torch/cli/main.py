@@ -12,6 +12,15 @@ net exports. ``train --set
 resume_file=<checkpoint_dir>/<experiment>_last_full.msgpack`` goes on with a
 stopped run exactly (a ``_full`` file of either package); any other
 ``resume_file`` warm-starts.
+
+``train`` runs one process a card through ``core.mesh.launch``:
+``mesh.num_devices`` 0 (the default) trains on every visible card (at the
+presets' batch currently slower per epoch than one card), N on N
+of them (shrunk to divide gcd(batch_size, eval_batch_size)), and with
+``--device cpu`` 0 means one CPU rank and N that many CPU ranks over
+gloo; ``mesh.coordinator_address`` with ``mesh.num_processes`` and
+``mesh.process_id`` makes this process one rank of a job. ``eval``,
+``predict`` and ``export`` run on one device, as the JAX CLI's do.
 """
 
 from __future__ import annotations
@@ -53,25 +62,33 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                                     "the CPU; export --format pkl always runs on the host)")
 
 
-def cmd_train(args) -> int:
-    cfg = _build_config(args)
+def _train_rank(rank: int, device, cfg: TrainConfig, epochs: int, profile_dir) -> None:
+    """One rank of ``train``: its trainer on its device, run to the end."""
     from aide_tpu_torch.engine.trainer import Trainer
 
-    trainer = Trainer(cfg, device=args.device)
-    epochs = args.epochs or cfg.num_epochs
-    if args.profile:
-        # a torch.profiler trace of the run (use --epochs 1 for a readable
-        # trace of one epoch), written as a Chrome trace under DIR
-        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-        activities = [ProfilerActivity.CPU]
-        if trainer.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(args.profile)):
-            trainer.run(epochs)
-        print(json.dumps({"profile_dir": os.path.abspath(args.profile)}))
-    else:
+    trainer = Trainer(cfg, device=device)
+    if not profile_dir:
         trainer.run(epochs)
+        return
+    # a torch.profiler trace of the run (use --epochs 1 for a readable trace
+    # of one epoch), written as a Chrome trace a rank under DIR
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if trainer.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        trainer.run(epochs)
+
+
+def cmd_train(args) -> int:
+    cfg = _build_config(args)
+    from aide_tpu_torch.core.mesh import launch
+
+    epochs = args.epochs or cfg.num_epochs
+    launch(_train_rank, cfg, args.device, (cfg, epochs, args.profile))
+    if args.profile:
+        print(json.dumps({"profile_dir": os.path.abspath(args.profile)}))
     return 0
 
 
@@ -245,7 +262,14 @@ def main(argv=None) -> int:
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p_train = sub.add_parser("train", help="run a training config")
+    p_train = sub.add_parser(
+        "train", help="run a training config",
+        description="Run a training config, one process a card. mesh.num_devices=0 (the "
+                    "default) trains on every visible card; at the presets' batch sizes more "
+                    "than one card is currently slower per epoch than one (the epoch has the "
+                    "same steps and each takes longer; PERF.md), so pass --set "
+                    "mesh.num_devices=1 to train on one card.",
+    )
     _add_common(p_train)
     p_train.add_argument("--epochs", type=int, help="override epoch count")
     p_train.add_argument(

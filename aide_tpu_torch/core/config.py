@@ -4,10 +4,11 @@ An own copy of ``aide_tpu.core.config``: the same dataclasses, the same
 fields and defaults, the same dotted ``.override``, so a config written for
 one package builds in the other. The TPU layout knobs ``model.packed*`` are
 accepted and ignored: the packed layout computes the same network as the
-plain one. The mesh settings are accepted here, but ``Trainer`` raises for
-any that asks for more than one device (``mesh.num_devices > 1``,
-``mesh.extra_axes``, ``mesh.coordinator_address``): multi-device runs are
-not ported yet (ROADMAP Queue 1 item 7).
+plain one. The mesh settings are read by ``core.mesh.launch`` and
+``Trainer``: the data axis (``mesh.num_devices``, and a job of processes
+through ``mesh.coordinator_address``, ``num_processes``, ``process_id``) is
+one process a card; the ``net`` and ``space`` entries of
+``mesh.extra_axes`` are refused (not ported yet, ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 
 Own copies of ``aide_tpu.core.logging.setup_logging`` and ``record_params``,
 under the logger name ``aide_tpu_torch``: lines go, unprefixed, to the
-console and to ``{history_dir}/{experiment_name}.log``.
+console and to ``{history_dir}/{experiment_name}.log``. Over a data axis
+only the primary rank writes them (``primary=False`` gives a logger that
+writes nowhere), as the JAX package's files come from process 0 alone.
 """
 
 from __future__ import annotations
@@ -12,9 +14,7 @@ import os
 import time
 
 
-def setup_logging(history_dir: str, experiment_name: str) -> logging.Logger:
-    os.makedirs(history_dir, exist_ok=True)
-    log_path = os.path.join(history_dir, f"{experiment_name}.log")
+def setup_logging(history_dir: str, experiment_name: str, primary: bool = True) -> logging.Logger:
     logger = logging.getLogger("aide_tpu_torch")
     logger.setLevel(logging.INFO)
     for h in logger.handlers:
@@ -22,11 +22,16 @@ def setup_logging(history_dir: str, experiment_name: str) -> logging.Logger:
         # must not keep a file handle open per run
         h.close()
     logger.handlers.clear()
+    logger.propagate = False
+    if not primary:
+        logger.addHandler(logging.NullHandler())
+        return logger
+    os.makedirs(history_dir, exist_ok=True)
+    log_path = os.path.join(history_dir, f"{experiment_name}.log")
     fmt = logging.Formatter("%(message)s")
     for h in (logging.StreamHandler(), logging.FileHandler(log_path)):
         h.setFormatter(fmt)
         logger.addHandler(h)
-    logger.propagate = False
     return logger
 
 

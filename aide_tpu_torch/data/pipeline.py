@@ -10,6 +10,14 @@ the targets, takes any refreshed labels already mirrored to disk, and
 mirrors each refresh back to disk; ``sync_labels_to_device`` then copies
 the refreshed rows into the device copy.
 
+Over a data axis of N > 1 ranks (``core.mesh``) every rank decodes the
+whole set and keeps the whole LabelStore, but a batch is only its rows of
+the global batch (``mesh.local_rows``): the host-batch path slices the
+indices, and the device-resident path is a ``ShardedCache``, the
+counterpart of the JAX package's ``MeshCache``, where each rank holds a
+contiguous block of the rows and one collective assembles a batch. Only
+the primary rank mirrors refreshed labels to disk.
+
 With a ``cache_dir``, the decoded arrays are kept in a keyed npz file there
 (``decode_cache_path``), under the JAX package's key and array names, so a
 cache written by either package serves the other.
@@ -27,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from aide_tpu_torch.core import mesh
 from aide_tpu_torch.data.tasks.base import SliceSpec, Task, resize_image, resize_mask
 
 
@@ -87,15 +96,16 @@ class LabelStore:
     def get(self, net: int) -> np.ndarray:
         return self.labels[net - 1]
 
-    def refresh_case(self, net: int, indices: Sequence[int], volume: np.ndarray) -> None:
+    def refresh_case(self, net: int, indices: Sequence[int], volume: np.ndarray,
+                     mirror: bool = True) -> None:
         """Replace one case's working labels (``indices`` into the slice
-        table, ``volume`` (S, H, W) binary at img_size) and mirror them to
-        disk."""
+        table, ``volume`` (S, H, W) binary at img_size) and, with
+        ``mirror``, write them to disk."""
         lab = self.labels[net - 1]
         for i, sl in zip(indices, volume):
             lab[i] = sl.astype(np.uint8)
         self.dirty[net - 1].extend(int(i) for i in indices)
-        if self.task.tempmask_folder:
+        if mirror and self.task.tempmask_folder:
             specs = [self.specs[i] for i in indices]
             self.task.write_case_tempmask(specs, volume.astype(np.uint8), net)
 
@@ -105,6 +115,84 @@ def _widen_targets(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if k in batch:
             batch[k] = batch[k].to(torch.int64)
     return batch
+
+
+class ShardedCache:
+    """The decode-once arrays on the cards of a data axis, sharded by rows.
+
+    The counterpart of the JAX package's ``MeshCache``: the rows are padded
+    to a multiple of N (repeating the last), and rank r keeps rows
+    [r*R, (r+1)*R), R = ceil(n/N), every array of a row packed side by side
+    as bytes in one (R, row bytes) uint8 matrix, the images' columns first
+    and the labels' last. A batch of global indices is gathered in one
+    collective: each rank serves the rows it owns and zeros elsewhere, and
+    the sum over ranks (exact: one contributor is nonzero) is
+    reduce-scattered when N divides the batch (each rank receives its own
+    rows) or all-reduced otherwise (every rank the whole batch, as the
+    ragged final eval batch needs). The dataset itself never moves.
+    Refreshed label rows are written by the rank that owns them."""
+
+    def __init__(self, arrays: Dict[str, np.ndarray], device):
+        n_dev, r = mesh.world_size(), mesh.rank()
+        n = next(iter(arrays.values())).shape[0]
+        self.shard = -(-n // n_dev)
+        self.lo = r * self.shard
+        rows = np.clip(np.arange(self.lo, self.lo + self.shard), 0, n - 1)
+        # images and coefficients first, targets and working labels last:
+        # inference gathers a prefix of the columns
+        keys = sorted(arrays, key=lambda k: k.startswith("target"))
+        self.layout = {}
+        cols, col = [], 0
+        for k in keys:
+            a = np.ascontiguousarray(arrays[k][rows])
+            b = a.reshape(self.shard, -1).view(np.uint8)
+            self.layout[k] = (torch.from_numpy(a).dtype, a.shape[1:], col, col + b.shape[1])
+            col += b.shape[1]
+            cols.append(b)
+        self.image_cols = max(
+            (stop for k, (_, _, _, stop) in self.layout.items() if not k.startswith("target")),
+            default=0)
+        self.data = torch.from_numpy(np.concatenate(cols, axis=1)).to(device)
+
+    def gather(self, idx: np.ndarray, images_only: bool = False) -> Dict[str, torch.Tensor]:
+        """This rank's rows (``mesh.local_rows``) of the batch of global
+        indices ``idx``, unpacked; a collective."""
+        b = len(idx)
+        i = torch.from_numpy(np.asarray(idx, np.int64)).to(self.data.device)
+        rel = i - self.lo
+        own = (rel >= 0) & (rel < self.shard)
+        width = self.image_cols if images_only else self.data.shape[1]
+        part = self.data[:, :width].index_select(0, rel.clamp(0, self.shard - 1))
+        part = part * own.to(torch.uint8)[:, None]
+        if mesh.rows_sharded(b):
+            out = part.new_empty((b // mesh.world_size(), width))
+            mesh.reduce_scatter(out, part)
+        else:
+            out = part
+            mesh.all_reduce(out)
+        batch = {}
+        for k, (dtype, shape, start, stop) in self.layout.items():
+            if stop <= width:
+                flat = out[:, start:stop].contiguous().view(dtype)
+                batch[k] = flat.reshape((out.shape[0],) + tuple(shape))
+        return _widen_targets(batch)
+
+    def scatter(self, key: str, idx: Sequence[int], rows: np.ndarray) -> None:
+        """Write the rows ``rows`` of array ``key`` at global indices
+        ``idx`` where this rank owns them."""
+        _, shape, start, stop = self.layout[key]
+        rel = np.asarray(idx, np.int64) - self.lo
+        own = (rel >= 0) & (rel < self.shard)
+        if not own.any():
+            return
+        vals = np.ascontiguousarray(rows[own]).reshape(int(own.sum()), -1).view(np.uint8)
+        at = torch.from_numpy(rel[own]).to(self.data.device)
+        self.data[at, start:stop] = torch.from_numpy(vals).to(self.data.device)
+
+    def rows(self, key: str) -> torch.Tensor:
+        """This rank's block of rows of ``key`` (the padding included)."""
+        dtype, shape, start, stop = self.layout[key]
+        return self.data[:, start:stop].contiguous().view(dtype).reshape((self.shard,) + tuple(shape))
 
 
 class SlicePipeline:
@@ -193,7 +281,9 @@ class SlicePipeline:
             arrays[f"images{m}"] = self.images[m]
             arrays[f"scales{m}"] = self.scales[m]
             arrays[f"fills{m}"] = self.fills[m]
-        tmp = cache_file + ".tmp.npz"
+        # one temporary name a process: the ranks of a data axis decode
+        # and write the same cache side by side
+        tmp = f"{cache_file}.{os.getpid()}.tmp.npz"
         np.savez(tmp, **arrays)
         os.replace(tmp, cache_file)
         # the pre-signature name decode_<id>.npz is stale too
@@ -218,6 +308,7 @@ class SlicePipeline:
         )
         self._device_data: Optional[Dict[str, torch.Tensor]] = None
         self._device_labels: Optional[Dict[str, torch.Tensor]] = None
+        self._sharded: Optional[ShardedCache] = None
 
     def __len__(self) -> int:
         return len(self.specs)
@@ -241,7 +332,15 @@ class SlicePipeline:
         """Upload the decode-once cache and the working labels to ``device``
         ONCE (uint8 pixels and targets, f32 coefficients); later batches are
         gathered there by index, so an epoch moves only index vectors to the
-        device."""
+        device. Over a data axis of N > 1 ranks each rank uploads its block
+        of the rows (``ShardedCache``)."""
+        if mesh.world_size() > 1:
+            arrays = self._host_arrays()
+            if self.labels is not None:
+                arrays.update({f"target{net}": self.labels.get(net) for net in (1, 2)})
+                self.labels.dirty = [[], []]
+            self._sharded = ShardedCache(arrays, device)
+            return
         self._device_data = {
             k: torch.from_numpy(v).to(device) for k, v in self._host_arrays().items()
         }
@@ -263,10 +362,16 @@ class SlicePipeline:
 
     def sync_labels_to_device(self) -> None:
         """Copy the working-label rows changed on the host (``refresh_case``)
-        into the device copy, one ``index_copy_`` a net. Without a device
-        copy it only clears the record of changed rows."""
+        into the device copy, one ``index_copy_`` a net (the owning rank's
+        rows of a ``ShardedCache``). Without a device copy it only clears
+        the record of changed rows."""
         if self.labels is None:
             return
+        if self._sharded is not None:
+            for net in (1, 2):
+                idx = self.labels.dirty[net - 1]
+                if idx:
+                    self._sharded.scatter(f"target{net}", idx, self.labels.get(net)[idx])
         if self._device_labels is not None:
             for net in (1, 2):
                 idx = self.labels.dirty[net - 1]
@@ -280,6 +385,11 @@ class SlicePipeline:
     # ------------------------- batching -------------------------
 
     def _batch_from(self, idx: np.ndarray, images_only: bool = False) -> Dict[str, torch.Tensor]:
+        """The batch of global slice indices ``idx``: this rank's rows of it
+        over a data axis (``mesh.local_rows``), all of them on one rank."""
+        if self._sharded is not None:
+            return self._sharded.gather(idx, images_only)
+        idx = np.asarray(idx)[mesh.local_rows(len(idx))]
         if self._device_data is not None:
             data = dict(self._device_data)
             if self._device_labels is not None:

@@ -39,6 +39,10 @@ JAX package's ``.msgpack`` net export back into a state_dict;
 ``warm_start_dual`` loads one into both nets of the pair with
 symmetry-breaking noise (``aide_tpu.engine.checkpoint.warm_start_dual``);
 ``export_net`` writes the reference's ``{'net', 'loss', 'epoch'}`` file.
+
+Over a data axis every rank holds the same state; the trainer calls the
+writers on the primary rank only, as in the JAX package, and every rank
+reads a resume file.
 """
 
 from __future__ import annotations

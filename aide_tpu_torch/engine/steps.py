@@ -19,6 +19,18 @@ test can hand the step the JAX package's stream.
 forward in train-mode BN that updates the running stats, the scalar
 criterion (``make_criterion``), one backward and one AMSGrad update.
 
+Over a data axis of N > 1 ranks (``core.mesh``) each step takes its
+rank's rows of the global batch (``sharded=True``) and keeps the JAX step's
+global semantics: BatchNorm statistics over the global batch
+(``models.blocks.global_batch_stats``, around the forwards and the
+backward), and the losses, the small-loss ranking, its
+clean count and the metrics computed on the rows of every rank, gathered
+(the logits through ``mesh.gather_rows``, whose reduce-scatter backward
+gives each rank the gradient of its own rows when every rank backpropagates
+L/N). The gradients are then summed over the ranks in one all-reduce, so
+every rank takes the same update. A replicated batch (``sharded=False``)
+is the whole batch on every rank, computed as one rank would.
+
 ``make_augment_batch`` is the main-view augmentation of ``data.augment_main``
 (``aide_tpu.engine.steps.make_augment_batch``): one rotation and flip per
 image, shared by the images and the targets of the batch.
@@ -38,8 +50,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aide_tpu_torch.core import mesh
 from aide_tpu_torch.core.config import TrainConfig
 from aide_tpu_torch.engine.state import DualTrainState, TrainState
+from aide_tpu_torch.models import blocks
 from aide_tpu_torch.ops import losses, metrics, tta, warp
 
 
@@ -139,34 +153,40 @@ def make_augment_batch(cfg: TrainConfig, two_modal: bool):
 
 
 def make_supervised_train_step(two_modal: bool, cfg: TrainConfig):
-    """step(state, batch) -> metrics {loss, dice_sum, count}; updates
-    ``state`` in place (parameters, BN running stats, optimizer moments)."""
+    """step(state, batch, sharded=False) -> metrics {loss, dice_sum, count}
+    of the global batch; updates ``state`` in place (parameters, BN running
+    stats, optimizer moments)."""
     criterion = make_criterion(cfg)
     thr = cfg.eval.threshold
 
-    def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        images = batch_images(batch, two_modal)
-        target = batch["target"]
-        state.train(True)
-        logits = state.net(*images)
-        loss = criterion(logits, target)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
-        with torch.no_grad():
-            return {
-                "loss": loss.detach(),
-                "dice_sum": metrics.dice_fn(logits, target, threshold=thr),
-                "count": torch.tensor(float(target.shape[0]), device=loss.device),
-            }
+    def step(state: TrainState, batch, sharded: bool = False) -> Dict[str, torch.Tensor]:
+        with blocks.global_batch_stats(sharded):
+            images = batch_images(batch, two_modal)
+            target = batch["target"]
+            state.train(True)
+            logits = state.net(*images)
+            if sharded:
+                logits, target = mesh.gather_rows(logits), mesh.fetch(target)
+            loss = criterion(logits, target)
+            state.optimizer.zero_grad(set_to_none=True)
+            (loss / mesh.world_size()).backward()
+            mesh.all_reduce_grads(state.optimizer.params())
+            state.optimizer.step()
+            with torch.no_grad():
+                return {
+                    "loss": loss.detach(),
+                    "dice_sum": metrics.dice_fn(logits, target, threshold=thr),
+                    "count": torch.tensor(float(target.shape[0]), device=loss.device),
+                }
 
     return step
 
 
 def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
-    """step(state, batch, degrees, hflip, rate) -> metrics; updates
-    ``state`` in place (parameters, BN running stats, optimizer moments).
-    degrees/hflip are (V, B) on the batch's device."""
+    """step(state, batch, degrees, hflip, rate, sharded=False) -> metrics
+    of the global batch; updates ``state`` in place (parameters, BN running
+    stats, optimizer moments). degrees/hflip are the (V, b) view
+    parameters of this rank's b rows, on the batch's device."""
     image_criterion = make_image_criterion(cfg)
     ct = cfg.coteach
     if ct.tta_bn not in ("batch", "running"):
@@ -175,76 +195,90 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
     thr = cfg.eval.threshold
     wm = cfg.data.warp_method
 
-    def step(state: DualTrainState, batch, degrees, hflip, rate) -> Dict[str, torch.Tensor]:
-        images = batch_images(batch, two_modal)
-        fills = batch_fills(batch, two_modal)
-        t1, t2 = batch["target1"], batch["target2"]
-        b = t1.shape[0]
-        k_clean = max(1, min(b - 1, int(round(ct.clean_fraction * b))))
-        if tuple(degrees.shape) != (num_views, b):
-            raise ValueError(f"view params must be ({num_views}, {b}), got {tuple(degrees.shape)}")
-        net1, net2 = state.nets
+    def step(state: DualTrainState, batch, degrees, hflip, rate,
+             sharded: bool = False) -> Dict[str, torch.Tensor]:
+        with blocks.global_batch_stats(sharded):
+            images = batch_images(batch, two_modal)
+            fills = batch_fills(batch, two_modal)
+            t1, t2 = batch["target1"], batch["target2"]
+            b = t1.shape[0]
+            if tuple(degrees.shape) != (num_views, b):
+                raise ValueError(f"view params must be ({num_views}, {b}), got {tuple(degrees.shape)}")
+            net1, net2 = state.nets
 
-        # ---- TTA pseudo-labels: both nets, all views, no gradient ----
-        with torch.no_grad():
-            flat_views = tuple(
-                tta.make_views(img, degrees, hflip, fill, method=wm).reshape(
-                    (num_views * b,) + tuple(img.shape[1:])
+            # ---- TTA pseudo-labels: both nets, all views, no gradient ----
+            with torch.no_grad():
+                flat_views = tuple(
+                    tta.make_views(img, degrees, hflip, fill, method=wm).reshape(
+                        (num_views * b,) + tuple(img.shape[1:])
+                    )
+                    for img, fill in zip(images, fills)
                 )
-                for img, fill in zip(images, fills)
-            )
-            state.train(ct.tta_bn == "batch")
-            view_logits = torch.cat(
-                [net(*flat_views, update_stats=False) for net in state.nets]
-            )  # (2*V*B, H, W, C): net-major, then view, then image
-            flat = view_logits.reshape((2 * num_views, b) + tuple(view_logits.shape[1:]))
-            inv = tta.invert_views(
-                flat, torch.cat([degrees, degrees]), torch.cat([hflip, hflip]), method=wm
-            )
-            probs = torch.softmax(inv.to(torch.float32), dim=-1)
-            avg = probs.reshape((2, num_views, b) + tuple(probs.shape[2:])).mean(dim=1)
-            pseudo = tta.sharpen(avg, ct.temperature, ct.sharpen_mode)
-            wmap = tta.confidence_weightmap(pseudo)
-
-        # ---- coupled main forwards, one backward over both nets ----
-        state.train(True)
-        out1 = net1(*images)
-        out2 = net2(*images)
-        # net k scored against the OTHER net's working labels
-        pre1 = image_criterion(out1, t2)
-        pre2 = image_criterion(out2, t1)
-        order1 = torch.argsort(pre1.detach(), stable=True)
-        order2 = torch.argsort(pre2.detach(), stable=True)
-
-        def side(pre, out, order_other, pseudo_other, wmap_other):
-            clean = order_other[:k_clean]
-            seg = pre[clean].mean()
-            if k_clean < b:
-                # b and k_clean are fixed per batch size: with b == 1 there
-                # is no suspect share (its mean would be NaN)
-                suspect = order_other[k_clean:]
-                seg = seg + (1.0 - rate) * pre[suspect].mean()
-                cons_map = wmap_other * losses.multiclass_mse_loss(
-                    out, pseudo_other, reduction="none"
+                state.train(ct.tta_bn == "batch")
+                view_logits = torch.cat(
+                    [net(*flat_views, update_stats=False) for net in state.nets]
+                )  # (2*V*B, H, W, C): net-major, then view, then image
+                flat = view_logits.reshape((2 * num_views, b) + tuple(view_logits.shape[1:]))
+                inv = tta.invert_views(
+                    flat, torch.cat([degrees, degrees]), torch.cat([hflip, hflip]), method=wm
                 )
-                cons = cons_map.mean(dim=(1, 2, 3))[suspect].mean()
-            else:
-                cons = torch.zeros((), dtype=seg.dtype, device=seg.device)
-            return ct.seg_weight * seg + ct.consistency_weight * rate * cons
+                probs = torch.softmax(inv.to(torch.float32), dim=-1)
+                avg = probs.reshape((2, num_views, b) + tuple(probs.shape[2:])).mean(dim=1)
+                pseudo = tta.sharpen(avg, ct.temperature, ct.sharpen_mode)
+                wmap = tta.confidence_weightmap(pseudo)
 
-        loss1 = side(pre1, out1, order2, pseudo[1], wmap[1])
-        loss2 = side(pre2, out2, order1, pseudo[0], wmap[0])
-        state.optimizer.zero_grad(set_to_none=True)
-        (loss1 + loss2).backward()
-        state.optimizer.step()
-        with torch.no_grad():
-            return {
-                "loss1": loss1.detach(),
-                "loss2": loss2.detach(),
-                "dice1_sum": metrics.dice_fn(out1, t2, threshold=thr),
-                "dice2_sum": metrics.dice_fn(out2, t1, threshold=thr),
-                "count": torch.tensor(float(b), device=loss1.device),
-            }
+            # ---- coupled main forwards, one backward over both nets ----
+            state.train(True)
+            out1 = net1(*images)
+            out2 = net2(*images)
+            if sharded:
+                # the global batch's rows, in global row order: the ranking
+                # and its ties, the clean count and every mean are the global ones
+                out = mesh.gather_rows(torch.stack([out1, out2], dim=1))
+                out1, out2 = out[:, 0], out[:, 1]
+                c = pseudo.shape[-1]
+                pw, tt = mesh.fetch(torch.cat([pseudo, wmap], dim=-1).transpose(0, 1),
+                                    torch.stack([t1, t2], dim=1))
+                pseudo, wmap = pw[..., :c].transpose(0, 1), pw[..., c:].transpose(0, 1)
+                t1, t2 = tt[:, 0], tt[:, 1]
+                b = t1.shape[0]
+            k_clean = max(1, min(b - 1, int(round(ct.clean_fraction * b))))
+            # net k scored against the OTHER net's working labels
+            pre1 = image_criterion(out1, t2)
+            pre2 = image_criterion(out2, t1)
+            order1 = torch.argsort(pre1.detach(), stable=True)
+            order2 = torch.argsort(pre2.detach(), stable=True)
+
+            def side(pre, out, order_other, pseudo_other, wmap_other):
+                clean = order_other[:k_clean]
+                seg = pre[clean].mean()
+                if k_clean < b:
+                    # b and k_clean are fixed per batch size: with b == 1 there
+                    # is no suspect share (its mean would be NaN)
+                    suspect = order_other[k_clean:]
+                    seg = seg + (1.0 - rate) * pre[suspect].mean()
+                    cons_map = wmap_other * losses.multiclass_mse_loss(
+                        out, pseudo_other, reduction="none"
+                    )
+                    cons = cons_map.mean(dim=(1, 2, 3))[suspect].mean()
+                else:
+                    cons = torch.zeros((), dtype=seg.dtype, device=seg.device)
+                return ct.seg_weight * seg + ct.consistency_weight * rate * cons
+
+            loss1 = side(pre1, out1, order2, pseudo[1], wmap[1])
+            loss2 = side(pre2, out2, order1, pseudo[0], wmap[0])
+            state.optimizer.zero_grad(set_to_none=True)
+            ((loss1 + loss2) / mesh.world_size()).backward()
+            mesh.all_reduce_grads(state.optimizer.params())
+            state.optimizer.step()
+            with torch.no_grad():
+                return {
+                    "loss1": loss1.detach(),
+                    "loss2": loss2.detach(),
+                    "dice1_sum": metrics.dice_fn(out1, t2, threshold=thr),
+                    "dice2_sum": metrics.dice_fn(out2, t1, threshold=thr),
+                    "count": torch.tensor(float(b), device=loss1.device),
+                }
 
     return step
 
@@ -252,17 +286,20 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
 def make_eval_step(two_modal: bool, cfg: TrainConfig, dual: bool = True):
     """Test-batch loss/dice without gradients, eval-mode BN. Dual: net k
     against the other's working labels, per-image criterion. Single net:
-    the scalar criterion against the batch's ``target``."""
+    the scalar criterion against the batch's ``target``. With
+    ``sharded``, of the global batch whose rows this rank holds."""
     thr = cfg.eval.threshold
     if not dual:
         criterion = make_criterion(cfg)
 
         @torch.no_grad()
-        def single(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        def single(state: TrainState, batch, sharded: bool = False) -> Dict[str, torch.Tensor]:
             images = batch_images(batch, two_modal)
             target = batch["target"]
             state.train(False)
             logits = state.net(*images)
+            if sharded:
+                logits, target = mesh.fetch(logits, target)
             return {
                 "loss": criterion(logits, target),
                 "dice_sum": metrics.dice_fn(logits, target, threshold=thr),
@@ -273,11 +310,13 @@ def make_eval_step(two_modal: bool, cfg: TrainConfig, dual: bool = True):
     image_criterion = make_image_criterion(cfg)
 
     @torch.no_grad()
-    def step(state: DualTrainState, batch) -> Dict[str, torch.Tensor]:
+    def step(state: DualTrainState, batch, sharded: bool = False) -> Dict[str, torch.Tensor]:
         images = batch_images(batch, two_modal)
         t1, t2 = batch["target1"], batch["target2"]
         state.train(False)
         out1, out2 = (net(*images) for net in state.nets)
+        if sharded:
+            out1, out2, t1, t2 = mesh.fetch(out1, out2, t1, t2)
         return {
             "loss1": image_criterion(out1, t2).mean(),
             "loss2": image_criterion(out2, t1).mean(),

@@ -43,7 +43,20 @@ cache when set; a task object passed in is used as it is.
 files even when an epoch fails, and ``{experiment_name}_last_full.msgpack``
 when the run ends; a warm-started dual run first probes the bootstrap skill
 on the labeled cases. The CLI (``aide_tpu_torch.cli``) drives this class.
-Not ported yet, and refused: multi-device meshes (ROADMAP Queue 1 item 7).
+
+Over a data axis of N ranks (one process a card, started by
+``core.mesh.launch``) every rank builds the same trainer from the same
+seeds and computes what the JAX trainer computes on an N-device mesh: each
+step takes the rank's rows of the global batch with the global view
+parameters' columns (``engine/steps.py`` keeps the global semantics), the
+test pass and case evaluation take their rows and ``mesh.fetch`` the rest,
+so that every rank takes the same host decisions (gate, refresh,
+guardrail) from the same bytes; the primary rank alone writes files. N
+must divide gcd(batch_size, eval_batch_size); ``predict_all`` and the
+fused test pass are off at N > 1, as in the JAX package. A trainer built
+in a process that ``launch`` did not start runs as one rank; it raises
+when the config asks for more. Not ported yet, and refused: the ``net``
+and ``space`` mesh axes (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -59,7 +72,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from aide_tpu_torch.core import prng
+from aide_tpu_torch.core import mesh, prng
 from aide_tpu_torch.core.config import TrainConfig
 from aide_tpu_torch.core.logging import record_params, setup_logging
 from aide_tpu_torch.data.pipeline import SlicePipeline
@@ -122,26 +135,32 @@ def init_net(model_cfg, seed: int) -> nn.Module:
     return init_weights(build_model(model_cfg), seed)
 
 
-def refuse_mesh(mesh) -> None:
-    """The port runs on one card: raise for mesh settings that ask for
-    more, rather than train on one card without a word."""
-    asked = []
-    if mesh.num_devices > 1:
-        asked.append(f"mesh.num_devices={mesh.num_devices}")
-    if mesh.extra_axes:
-        asked.append(f"mesh.extra_axes={mesh.extra_axes}")
-    if mesh.coordinator_address:
-        asked.append(f"mesh.coordinator_address={mesh.coordinator_address!r}")
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: multi-device and multi-host runs are not ported "
-            "yet (ROADMAP Queue 1 item 7); the port trains on one device"
+def check_mesh(cfg: TrainConfig) -> int:
+    """The data axis this process trains on: the ranks of its process
+    group (1 without one). Raises where the config asks for more than the
+    process was started with, for the axes the port does not have, and for
+    a group whose size does not divide gcd(batch_size, eval_batch_size)."""
+    mesh.refuse_axes(cfg.mesh)
+    world = mesh.world_size()
+    launched = mesh.fit_data_devices(mesh.data_batch(cfg), cfg.mesh.num_devices)
+    if not mesh.in_group() and (launched > 1 or cfg.mesh.coordinator_address):
+        raise ValueError(
+            f"mesh.num_devices={cfg.mesh.num_devices}, mesh.coordinator_address="
+            f"{cfg.mesh.coordinator_address!r}: a data axis of more than one rank runs one "
+            "process a card, which aide_tpu_torch.core.mesh.launch starts (the CLI's train "
+            "does); this process was not started by launch"
         )
+    if world > 1 and mesh.fit_data_devices(mesh.data_batch(cfg), world) != world:
+        raise ValueError(
+            f"{world} ranks do not divide gcd(batch_size={cfg.data.batch_size}, "
+            f"eval_batch_size={cfg.data.eval_batch_size})"
+        )
+    return world
 
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, task=None, device=None, logger=None):
-        refuse_mesh(cfg.mesh)
+        self.world = check_mesh(cfg)
         self.device = resolve_device(device)
         if cfg.checkpoint_flush not in ("best", "end"):
             raise NotImplementedError(
@@ -149,8 +168,10 @@ class Trainer:
             )
         self.cfg = cfg
         self.dual = cfg.data.variant == "proposed" and cfg.coteach.enabled
-        self.logger = logger or setup_logging(cfg.history_dir, cfg.experiment_name)
+        self.logger = logger or setup_logging(
+            cfg.history_dir, cfg.experiment_name, primary=mesh.is_primary())
         record_params(self.logger, cfg)
+        self._warn_mesh()
 
         self.task = task = task if task is not None else build_task(cfg)
         self.two_modal = task.two_modal
@@ -230,15 +251,14 @@ class Trainer:
         self.eval_step = steps_mod.make_eval_step(self.two_modal, cfg, dual=self.dual)
         self.predict_step = steps_mod.make_predict_step(self.two_modal, dual=self.dual)
         # whole-set inference and the fused test tail gather on the device,
-        # so they need the device-resident data; the fused tail is the dual
-        # trainer's, whose per-image criterion masks the ragged last batch
-        self.predict_all = (
-            steps_mod.make_predict_all(self.two_modal, self.dual) if self.device_resident else None
-        )
+        # so they need the device-resident data of one rank (a data axis
+        # takes the per-batch paths, as in the JAX package); the fused tail
+        # is the dual trainer's, whose per-image criterion masks the ragged
+        # last batch
+        single = self.device_resident and self.world == 1
+        self.predict_all = steps_mod.make_predict_all(self.two_modal, self.dual) if single else None
         self.eval_predict_all = (
-            steps_mod.make_eval_predict_all(self.two_modal, cfg)
-            if self.device_resident and self.dual
-            else None
+            steps_mod.make_eval_predict_all(self.two_modal, cfg) if single and self.dual else None
         )
 
         self.best_dice = 0.0
@@ -262,12 +282,34 @@ class Trainer:
             self.changepoint_dice = float(meta.get("changepoint_dice", 0.0))
             self.history = list(meta.get("history", []))
 
+    def _warn_mesh(self) -> None:
+        """Say when the data axis is smaller than the cards the config asks
+        for (0: every visible card): launch shrank it to divide the batches
+        ("MESH SHRUNK", as the JAX trainer logs it), or this process runs
+        one rank beside other visible cards."""
+        if self.cfg.mesh.coordinator_address:
+            return
+        visible = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        asked = self.cfg.mesh.num_devices or visible
+        if asked <= self.world:
+            return
+        if mesh.fit_data_devices(mesh.data_batch(self.cfg), asked) > self.world:
+            self.logger.warning(
+                "%d cards visible but this trainer runs as one rank on %s: a process that "
+                "aide_tpu_torch.core.mesh.launch did not start trains on one card (the CLI's "
+                "train runs one rank a card; mesh.num_devices=1 pins one)",
+                asked, self.device,
+            )
+        else:
+            self.logger.warning(mesh.shrunk_message(asked, self.cfg, self.world))
+
     # ------------------------------------------------------------------
 
     def view_params(self, epoch: int, step: int, batch: int):
-        """(V, B) TTA rotation angles and flip flags of one train step, from
-        a generator seeded by (seed, epoch, step). Tests replace this method
-        to inject another stream."""
+        """(V, B) TTA rotation angles and flip flags of one train step of a
+        global batch of B, from a generator seeded by (seed, epoch, step):
+        the same on every rank, which takes its columns. Tests replace this
+        method to inject another stream."""
         gen = prng.generator(self.device, self.cfg.seed, epoch, step)
         d = self.cfg.data
         return tta.sample_view_params(gen, d.num_tta_views, batch, d.rotation_degree, d.hflip_prob)
@@ -290,8 +332,15 @@ class Trainer:
 
     def _predict_batch(self, state, batch) -> torch.Tensor:
         """predict_step on a case-evaluation batch, moved to the device
-        first when the pipe serves host batches."""
-        return self.predict_step(state, self._on_device(batch))
+        first when the pipe serves host batches. Over a data axis the batch
+        is this rank's rows of a full eval batch (N divides it), and the
+        labels of all ranks' rows are fetched."""
+        labels = self.predict_step(state, self._on_device(batch))
+        if self.world == 1:
+            return labels
+        if not self.dual:
+            return mesh.fetch(labels)
+        return mesh.fetch(labels.transpose(0, 1)).transpose(0, 1)
 
     @staticmethod
     def _accumulate(totals, m):
@@ -318,16 +367,23 @@ class Trainer:
             cfg.seed * 100003 + cfg.data.shuffle_seed * 1009 + epoch
         )
         totals: Optional[dict] = None
-        for i, batch in enumerate(self.train_pipe.batches(cfg.data.batch_size, rng=shuffle_rng)):
+        # every train batch is a full global batch (drop_last); a rank holds
+        # its rows of it and takes its columns of the global view draws
+        b = cfg.data.batch_size
+        rows, sharded = mesh.local_rows(b), mesh.rows_sharded(b)
+        for i, batch in enumerate(self.train_pipe.batches(b, rng=shuffle_rng)):
             batch = self._on_device(batch)
             if self.augment_batch is not None:
-                b = next(iter(batch.values())).shape[0]
-                batch = self.augment_batch(batch, *self.augment_params(epoch, i, b))
+                degrees, hflip = self.augment_params(epoch, i, b)
+                batch = self.augment_batch(batch, degrees[rows], hflip[rows])
             if self.dual:
-                degrees, hflip = self.view_params(epoch, i, batch["target1"].shape[0])
-                m = self.train_step(self.state, batch, degrees, hflip, rate)
+                degrees, hflip = self.view_params(epoch, i, b)
+                args = (batch, degrees[:, rows], hflip[:, rows], rate)
             else:
-                m = self.train_step(self.state, batch)
+                args = (batch,)
+            # ``sharded`` only over a data axis: a step wrapped with
+            # positional arguments sees the single-card call
+            m = self.train_step(self.state, *args, *((sharded,) if self.world > 1 else ()))
             totals = self._accumulate(totals, m)
             if cfg.log_every_steps and (i + 1) % cfg.log_every_steps == 0:
                 # opt-in mid-epoch visibility; each line costs a host sync
@@ -339,13 +395,16 @@ class Trainer:
 
     def _test_epoch(self) -> Dict[str, float]:
         totals: Optional[dict] = None
-        for batch in self.test_pipe.batches(
-            self.cfg.data.eval_batch_size, shuffle=False, drop_last=False
-        ):
+        eb, n = self.cfg.data.eval_batch_size, len(self.test_pipe)
+        batches = self.test_pipe.batches(eb, shuffle=False, drop_last=False)
+        for start, batch in zip(range(0, n, eb), batches):
             batch = self._on_device(batch)
             if self.dual:
                 batch = dict(batch, target1=batch["target"], target2=batch["target"])
-            totals = self._accumulate(totals, self.eval_step(self.state, batch))
+            # the ragged last batch of a data axis runs replicated: the
+            # metrics are the whole batch's on every rank, counted once
+            sharded = (mesh.rows_sharded(min(eb, n - start)),) if self.world > 1 else ()
+            totals = self._accumulate(totals, self.eval_step(self.state, batch, *sharded))
         return self._finalize(totals)
 
     def _dispatch_fused_test(self, case_timing):
@@ -430,7 +489,9 @@ class Trainer:
                 if cfg.coteach.refresh_skip_empty and vol.sum() == 0:
                     continue  # the kidney convention
                 idxs = self.train_pipe.case_indices(r.case_id)
-                self.train_pipe.labels.refresh_case(net_idx + 1, idxs, vol)
+                # every rank updates its labels, the primary writes the files
+                self.train_pipe.labels.refresh_case(net_idx + 1, idxs, vol,
+                                                    mirror=mesh.is_primary())
                 refreshed.append(r.case_id)
             # the FULL worst-k selection, labeled and skipped cases included,
             # as the reference prints it; the rewritten subset where it differs
@@ -662,6 +723,9 @@ class Trainer:
         # refresh and history row come after this save); _last_full is the
         # exact continuation
         full_meta = dict(meta, **self._bookkeeping_meta(epoch))
+        if not mesh.is_primary():
+            # the primary rank writes the files; the others keep no snapshot
+            return True
         if cfg.checkpoint_flush == "best":
             ckpt.save_best(
                 cfg.checkpoint_dir, cfg.experiment_name,
@@ -839,14 +903,18 @@ class Trainer:
                 self.logger.exception("failure-path checkpoint/history flush failed")
         # the exact continuation: the state at the end of epoch n, with the
         # epoch clock, the gates and the history in the sidecar
-        ckpt.save_train_state(
-            ckpt.full_path(self.cfg.checkpoint_dir, self.cfg.experiment_name, last=True),
-            self.state, self._bookkeeping_meta(n),
-        )
+        if mesh.is_primary():
+            ckpt.save_train_state(
+                ckpt.full_path(self.cfg.checkpoint_dir, self.cfg.experiment_name, last=True),
+                self.state, self._bookkeeping_meta(n),
+            )
         return self.history
 
     def _save_history(self) -> None:
-        """The epoch rows, as JSON, to {history_dir}/{experiment_name}_history.json."""
+        """The epoch rows, as JSON, to {history_dir}/{experiment_name}_history.json
+        (the primary rank's)."""
+        if not mesh.is_primary():
+            return
         os.makedirs(self.cfg.history_dir, exist_ok=True)
         path = os.path.join(self.cfg.history_dir, f"{self.cfg.experiment_name}_history.json")
         with open(path, "w") as fh:

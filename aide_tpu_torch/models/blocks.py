@@ -19,11 +19,14 @@ statistics are folded once per forward, as flax's functional remat does.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from aide_tpu_torch.core import mesh
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -46,6 +49,144 @@ def _stats_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
+# whether train-mode BatchNorms take the data axis's global statistics
+# (``global_batch_stats``); a module global, not a thread-local: the
+# backward's remat recompute runs on autograd's own threads
+_global_stats = False
+
+
+@contextlib.contextmanager
+def global_batch_stats(enabled: bool = True):
+    """Inside, a train-mode ``BatchNorm`` on a data axis of N > 1 ranks
+    (``core.mesh``) normalises with the statistics of the global batch,
+    each rank holding an equal block of its rows. That is a collective in
+    every forward and backward of every norm, so every rank must run the
+    same ones in the same order: the train steps set it over sharded rows,
+    around the forwards and the backward (where remat recomputes them).
+    Outside it, every BatchNorm uses its own rows."""
+    global _global_stats
+    before = _global_stats
+    _global_stats = enabled
+    try:
+        yield
+    finally:
+        _global_stats = before
+
+
+def _channels(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
+
+
+def _memory_format(x: torch.Tensor) -> torch.memory_format:
+    if not x.is_contiguous() and x.is_contiguous(memory_format=torch.channels_last):
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+# torch's fused per-channel batch-norm kernels (``nn.SyncBatchNorm``'s) on
+# a card, and their plain versions on the CPU, which has none: statistics
+# and sums in float32, outputs in the input's dtype
+
+
+def _stats(x, eps):
+    """This rank's per-channel mean and 1 / sqrt(biased var + eps)."""
+    if x.device.type == "cuda":
+        return torch.batch_norm_stats(x, eps)
+    xf = x.to(_stats_dtype(x))
+    mean = xf.mean(dim=(0, 2, 3))
+    var = ((xf - _channels(mean)) ** 2).mean(dim=(0, 2, 3))
+    return mean, torch.rsqrt(var + eps)
+
+
+def _combine_stats(x, mean_all, invstd_all, counts, eps):
+    """The global mean and inverse std from every rank's (rows: ranks)."""
+    if x.device.type == "cuda":
+        # without running tensors the kernel computes in x's dtype (bf16
+        # counts under autocast); given float32 ones, in float32. It folds
+        # the unbiased variance into them, so they are scratch
+        scratch = mean_all.new_empty((2, mean_all.shape[1]))
+        return torch.batch_norm_gather_stats_with_counts(
+            x, mean_all, invstd_all, scratch[0], scratch[1], 0.0, eps, counts)
+    w = (counts / counts.sum()).view(-1, 1)
+    mean = (w * mean_all).sum(dim=0)
+    var = (w * (invstd_all.pow(-2) - eps + (mean_all - mean) ** 2)).sum(dim=0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def _normalize(x, weight, bias, mean, invstd, eps):
+    if x.device.type == "cuda":
+        return torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+    y = (x.to(mean.dtype) - _channels(mean)) * _channels(invstd * weight) + _channels(bias)
+    return y.to(x.dtype)
+
+
+def _backward_sums(gy, x, mean, invstd, weight):
+    """This rank's sum(dy) and sum(dy * (x - mean)) per channel, and its
+    share of the weight's and bias's gradients."""
+    if x.device.type == "cuda":
+        return torch.batch_norm_backward_reduce(gy, x, mean, invstd, weight, True, True, True)
+    gf = gy.to(mean.dtype)
+    sum_dy = gf.sum(dim=(0, 2, 3))
+    sum_dy_xmu = (gf * (x.to(mean.dtype) - _channels(mean))).sum(dim=(0, 2, 3))
+    return sum_dy, sum_dy_xmu, sum_dy_xmu * invstd, sum_dy
+
+
+def _backward_input(gy, x, mean, invstd, weight, sum_dy, sum_dy_xmu, counts):
+    """dL/dx from the global sums of ``_backward_sums``."""
+    if x.device.type == "cuda":
+        return torch.batch_norm_backward_elemt(
+            gy, x, mean, invstd, weight, sum_dy, sum_dy_xmu, counts)
+    n = counts.sum().to(mean.dtype)
+    gx = (gy.to(mean.dtype) - _channels(sum_dy / n)
+          - (x.to(mean.dtype) - _channels(mean)) * _channels(invstd * invstd * sum_dy_xmu / n))
+    return (gx * _channels(invstd * weight)).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_counts(world: int, count: int, device: torch.device):
+    """Every rank's element count per channel (equal blocks of rows), as
+    the fused kernels take it: float32 for the statistics, int32 for the
+    backward."""
+    counts = torch.full((world,), float(count), device=device)
+    return counts, counts.to(torch.int32)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of the data axis. The
+    forward all-gathers each rank's per-channel mean and inverse std (one
+    collective) and combines them; the backward all-reduces the
+    per-channel sum(dy) and sum(dy * (x - mean)) (one collective). The
+    weight's and bias's gradients stay this rank's share, which the step's
+    gradient all-reduce sums. Returns y and the global mean and inverse
+    std (no gradient), which the module folds into its running ones."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        x = x.contiguous(memory_format=_memory_format(x))
+        c, world = x.shape[1], mesh.world_size()
+        mean, invstd = _stats(x, eps)
+        local = torch.cat([mean, invstd])
+        gathered = local.new_empty(world * 2 * c)
+        mesh.all_gather(gathered, local)
+        gathered = gathered.view(world, 2, c)
+        counts, ctx.counts = _row_counts(world, x.numel() // c, x.device)
+        mean, invstd = _combine_stats(x, gathered[:, 0], gathered[:, 1], counts, eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mark_non_differentiable(mean, invstd)
+        return _normalize(x, weight, bias, mean, invstd, eps), mean, invstd
+
+    @staticmethod
+    def backward(ctx, gy, _mean, _invstd):
+        x, weight, mean, invstd = ctx.saved_tensors
+        gy = gy.contiguous(memory_format=_memory_format(x))
+        sum_dy, sum_dy_xmu, gw, gb = _backward_sums(gy, x, mean, invstd, weight)
+        sums = torch.cat([sum_dy, sum_dy_xmu])
+        mesh.all_reduce(sums)
+        c = x.shape[1]
+        gx = _backward_input(gy, x, mean, invstd, weight, sums[:c], sums[c:], ctx.counts)
+        return gx, gw, gb, None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with flax semantics.
 
@@ -54,7 +195,14 @@ class BatchNorm(nn.Module):
     ``running = 0.9*running + 0.1*batch`` with the BIASED batch variance
     (mean(x^2) - mean(x)^2). ``nn.BatchNorm2d`` folds in the unbiased one,
     which is why this is its own module. Eval mode uses the running stats.
-    ``fold`` is cleared while a remat block recomputes its forward."""
+    ``fold`` is cleared while a remat block recomputes its forward.
+
+    Inside ``global_batch_stats`` on a data axis of N > 1 ranks the
+    train-mode statistics are those of the global batch
+    (``_GlobalBatchNorm``: one collective a forward, one a backward), and
+    every rank folds the same running statistics, with the biased global
+    variance. Under remat the recompute runs its collective again, in the
+    same order on every rank."""
 
     def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -72,7 +220,15 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             )
-        if update_stats and self.fold:
+        fold = update_stats and self.fold
+        if _global_stats and mesh.world_size() > 1:
+            y, mean, invstd = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+            if fold:
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean, self.momentum)
+                    self.running_var.lerp_(invstd.pow(-2).sub_(self.eps), self.momentum)
+            return y
+        if fold:
             with torch.no_grad():
                 xf = x.detach().to(_stats_dtype(x))
                 mean = xf.mean(dim=(0, 2, 3))

@@ -137,15 +137,31 @@ Phases:
      to 1, agrees with the eager net and the host's program with the
      card's on >= 99.9% of argmax pixels; bf16 weights under 0.75x the
      f32 artifact; an artifact traced for the host alone refuses the card.
-     No warp launches.
-Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's and
-phase 10's launch shapes.
+     No warp launches;
+ 12. the data axis: phase 5's CHAOS point through aide_tpu_torch.core.mesh.
+     launch on N = fit_data_devices(8, min(cards, 4)) NCCL ranks, one
+     process a card (on a machine with one card: one rank in this process
+     over a real NCCL group of one, and it says that more than one rank
+     was not exercised), Trainer.run(2) on each rank with its rows of each
+     batch: rank 0's history held to phase 5's (dice within 0.03, losses
+     within rtol 2e-2 and atol 2e-3, the epochs equal), its refresh
+     decisions to phase 5's each with a margin, every rank ending with the
+     same parameters, BN statistics, working labels (host and device) and
+     history, the files (logs, history, exports, _last_full, tempmasks)
+     written by rank 0 alone, 3 warp launches a step on every rank and the
+     warp at the per-rank shapes held to its plain version on each card;
+     it prints the world size, the cards, each rank's step median, peak
+     and launches, the collectives a step and the gradient all-reduce's
+     bytes and ms beside phase 5's step median.
+Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's,
+phase 10's and phase 12's launch shapes.
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
 Run from the repository root:
-  python3 chip_smoke.py [--profile] [--baseline FILE.cu]
-(--profile adds, after phases 5 and 7 and in phase 9 (a) and (b), a
+  python3 chip_smoke.py [--profile] [--baseline FILE.cu] [--data-axis]
+(--data-axis runs phases 1-5 and 12 alone, for a machine with several
+cards; --profile adds, after phases 5, 7 and 12 and in phase 9 (a) and (b), a
 torch.profiler breakdown of a few more co-teaching steps of each; --baseline times another version of csrc/warp_rotate_flip.cu, for
 instance an earlier commit's, beside this one in phase 4; it may be given
 more than once).
@@ -206,7 +222,13 @@ KERNEL_LAUNCHES = (
     ("chaos_preset_augment", (12, 256, 256, 2), False, 1),
     ("kidney_augment", (4, 512, 512, 3), False, 1),
     ("kidney_augment", (4, 512, 512, 2), False, 1),
+    # phase 12 on 4 ranks: each rank's 2 of the CHAOS point's 8 images (on
+    # 2 ranks a rank launches at the CHAOS preset's shapes, on 1 at phase 5's)
+    ("data_axis_4", (8, 256, 256, 3), False, 2),
+    ("data_axis_4", (16, 256, 256, 2), True, 1),
 )
+# phase 12's per-rank launch shapes by world size: their rows above
+DATA_AXIS_SHAPES = {1: "chaos_coteach", 2: "chaos_preset", 4: "data_axis_4"}
 # the paths whose launches have earlier paths' shapes (and their rows in
 # phase 4): the CHAOS preset with fuseunetsa and the fuseunetsaseparate
 # steps at batch 4 launch as the CHAOS preset does, the unetsa steps as the
@@ -426,6 +448,9 @@ def chaos_config():
     cfg.data.rotation_degree = 60.0
     cfg.coteach.warmup_epochs = 20
     cfg.num_epochs = 100
+    # phases 5-11 train on one card whatever the machine holds, so that
+    # their numbers compare across machines; phase 12 sets the data axis
+    cfg.mesh.num_devices = 1
     return cfg
 
 
@@ -541,14 +566,16 @@ def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
     """Trainer.run(epochs) with the step times (host clock around a
     synchronised step), the warp launches of each train epoch and of the
     whole run (the count set to 0 just before and read just after), the
-    epochs the best-checkpoint gate logged, and the peak of
+    epochs the best-checkpoint gate logged, each refresh's case dice
+    {(epoch, net index): {case: dice}}, and the peak of
     max_memory_allocated. ``runner(epochs)`` runs the epochs instead of
     ``trainer.run`` when given (a subclass's own run)."""
     import torch
 
-    step_ms, train_launches, best_epochs = [], [], []
-    inner_step, inner_epoch, inner_gate = (
-        trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint)
+    step_ms, train_launches, best_epochs, case_dice = [], [], [], {}
+    inner_step, inner_epoch, inner_gate, inner_refresh = (
+        trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint,
+        trainer._refresh_labels)
 
     def timed_step(*args):
         torch.cuda.synchronize()
@@ -570,8 +597,13 @@ def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
             best_epochs.append(epoch + 1)
         return saved
 
-    trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint = (
-        timed_step, counted_epoch, gate)
+    def refresh(epoch, traincase):
+        for n in traincase:
+            case_dice[epoch, n] = {r.case_id: r.dice for r in traincase[n]}
+        return inner_refresh(epoch, traincase)
+
+    trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint, trainer._refresh_labels = (
+        timed_step, counted_epoch, gate, refresh)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     cuda_warp.reset_launches()
@@ -579,8 +611,8 @@ def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
     torch.cuda.synchronize()
     launches = cuda_warp.launches
     peak = torch.cuda.max_memory_allocated()
-    trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint = (
-        inner_step, inner_epoch, inner_gate)
+    trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint, trainer._refresh_labels = (
+        inner_step, inner_epoch, inner_gate, inner_refresh)
     spe = trainer.train_pipe.steps_per_epoch(trainer.cfg.data.batch_size)
     values = [v for row in rows for v in row.values()]
     ran = epochs - trainer.start_epoch  # a resumed run goes on from start_epoch
@@ -591,7 +623,7 @@ def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
     # the median after the first epoch; of a single epoch, after its first step
     return dict(rows=rows, step_ms=step_ms, spe=spe, train_launches=train_launches,
                 launches=launches, outside=launches - sum(train_launches),
-                best_epochs=best_epochs, peak=peak,
+                best_epochs=best_epochs, peak=peak, case_dice=case_dice,
                 steady=statistics.median(step_ms[spe:] or step_ms[1:]))
 
 
@@ -657,6 +689,7 @@ def kidney_config(preset: str, scratch: str, name: str):
     from aide_tpu_torch.cli.presets import get_preset
 
     cfg = get_preset(preset)
+    cfg.mesh.num_devices = 1  # one card (chaos_config)
     d = cfg.data
     d.root = d.train_csv = d.test_csv = d.traincase_csv = d.testcase_csv = d.labelcase_csv = ""
     d.task = "synthetic"
@@ -852,6 +885,7 @@ def run_presets(cuda_warp, scratch):
     for path, preset, native, per_step in PRESET_RUNS:
         work = fresh_dir(os.path.join(scratch, path))
         cfg = get_preset(preset, os.path.join(work, "data"))
+        cfg.mesh.num_devices = 1  # one card (chaos_config)
         cfg.checkpoint_dir = os.path.join(work, "ckpt")
         cfg.history_dir = os.path.join(work, "hist")
         t0 = time.perf_counter()
@@ -921,7 +955,9 @@ def run_presets(cuda_warp, scratch):
 def cli_train(cuda_warp, argv):
     """``main(["train", *argv])`` of the port's CLI, in process, with the
     trainer it builds driven as ``drive`` drives one (the launch count set
-    to 0 just before its run and read just after). Returns (trainer, run)."""
+    to 0 just before its run and read just after), on one card
+    (``mesh.num_devices=1``: the CLI's default trains on every visible
+    card, one process each). Returns (trainer, run)."""
     from aide_tpu_torch.cli.main import main as cli
     from aide_tpu_torch.engine import trainer as trainer_mod
 
@@ -936,7 +972,7 @@ def cli_train(cuda_warp, argv):
     release_device_memory()
     trainer_mod.Trainer = Driven
     try:
-        rc = cli(["train", *argv])
+        rc = cli(["train", *argv, "--set", "mesh.num_devices=1"])
     finally:
         trainer_mod.Trainer = base
     if rc != 0 or len(driven) != 1:
@@ -1787,6 +1823,7 @@ def run_serving(cuda_warp, scratch, chaos_export, kidney_export):
 # kernel-name fragments that group the profile (first match wins)
 KERNEL_KINDS = (
     ("warp_kernel", ("warp_rotate_flip",)),
+    ("nccl", ("nccl",)),
     ("conv", ("xmma", "implicit_gemm", "conv", "cudnn", "wgrad", "dgrad", "gemm", "cutlass")),
     ("batch_norm", ("batch_norm",)),
     ("upsample", ("upsample",)),
@@ -1801,21 +1838,27 @@ KERNEL_KINDS = (
 def profile_steps(name, trainer, steps: int = 3) -> None:
     """With --profile: device time by kernel over a few more co-teaching
     steps of ``trainer``, and the device's busy share of the host wall time
-    around them (torch.profiler, CUPTI)."""
+    around them (torch.profiler, CUPTI). On a data axis every rank steps
+    (the collectives need them all) on its rows; rank 0 prints."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from aide_tpu_torch.core import mesh
+
     b = trainer.cfg.data.batch_size
-    batch = next(trainer.train_pipe.batches(b, rng=np.random.default_rng(0)))
+    batch = trainer._on_device(next(trainer.train_pipe.batches(b, rng=np.random.default_rng(0))))
     degrees, hflip = trainer.view_params(0, 0, b)
-    trainer.train_step(trainer.state, batch, degrees, hflip, 0.5)
+    rows = mesh.local_rows(b)
+    args = (trainer.state, batch, degrees[:, rows], hflip[:, rows], 0.5,
+            *((mesh.rows_sharded(b),) if trainer.world > 1 else ()))
+    trainer.train_step(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            trainer.train_step(trainer.state, batch, degrees, hflip, 0.5)
+            trainer.train_step(*args)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -1832,6 +1875,8 @@ def profile_steps(name, trainer, steps: int = 3) -> None:
         kind = next((k for k, keys in KERNEL_KINDS if any(w in e.name for w in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    if not mesh.is_primary():
+        return
     print(f"profile ({name}): " + json.dumps({
         "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy / steps / 1e3,
@@ -1861,6 +1906,7 @@ def small_config(model: str = "fuseunet", supervised: bool = False, options=None
     cfg.data.eval_batch_size = 3
     cfg.data.num_tta_views = 2
     cfg.coteach.warmup_epochs = 3  # both epochs refresh
+    cfg.mesh.num_devices = 1  # one card (chaos_config)
     if supervised:
         cfg.data.variant = "comparison"
         cfg.coteach.enabled = False
@@ -2055,55 +2101,261 @@ def small_supervised_vs_cpu(scratch, model="unet", two_modal=False) -> str:
         fail(f"{model}: the supervised CPU run logged no best epoch to warm-start from")
     return cpu["export"]
 
+# ------------------------------- phase 12 -------------------------------
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--profile", action="store_true",
-                        help="a torch.profiler breakdown of a few more co-teaching steps "
-                             "after phases 5, 7 and 9 (a), (b)")
-    parser.add_argument("--baseline", metavar="FILE.cu", action="append", default=[],
-                        help="another version of csrc/warp_rotate_flip.cu to time in phase 4 "
-                             "(repeatable)")
-    args = parser.parse_args()
+
+def digest(arrays) -> str:
+    """sha1 over the bytes of a sequence of tensors or arrays."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for a in arrays:
+        a = a.detach().cpu().numpy() if hasattr(a, "detach") else a
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def global_batchnorm_error(rank, world, batch, device):
+    """The global BatchNorm's fused path (torch's per-channel kernels, an
+    all-gather forward and an all-reduce backward) on this rank's rows of
+    a seeded global batch at the first norm's shape, FuseUNet-32 at 256
+    px, held to F.batch_norm of the whole batch on this card: the largest
+    absolute error of y, dx and the summed dweight and dbias, each over its
+    reference's largest magnitude. Run directly, so a world of one (a
+    NCCL group of one) runs it too."""
+    import torch
+    import torch.nn.functional as F
+
+    from aide_tpu_torch.core import mesh
+    from aide_tpu_torch.models import blocks
+
+    gen = torch.Generator().manual_seed(12)
+    x_all, g_all = (torch.randn(batch, 32, 256, 256, generator=gen) * 2 + 0.5 for _ in range(2))
+    w0, b0 = torch.randn(32, generator=gen), torch.randn(32, generator=gen)
+    rows = slice(rank * batch // world, (rank + 1) * batch // world)
+
+    def on_card(t):
+        t = t.to(device, copy=True)
+        return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
+
+    x, w, b = (on_card(t).requires_grad_() for t in (x_all[rows], w0, b0))
+    y, _, _ = blocks._GlobalBatchNorm.apply(x, w, b, 1e-5)
+    (y * on_card(g_all[rows])).sum().backward()
+    grads = torch.cat([w.grad, b.grad])
+    mesh.all_reduce(grads)
+    xr, wr, br = (on_card(t).requires_grad_() for t in (x_all, w0, b0))
+    yr = F.batch_norm(xr, None, None, wr, br, True, 0.0, 1e-5)
+    (yr * on_card(g_all)).sum().backward()
+    torch.cuda.synchronize()
+    pairs = ((y, yr[rows]), (x.grad, xr.grad[rows]), (grads[:32], wr.grad), (grads[32:], br.grad))
+    return max(float((got - ref).abs().max() / ref.abs().max()) for got, ref in
+               ((got.detach(), ref.detach()) for got, ref in pairs))
+
+
+def data_axis_rank(rank, device, scratch, world, profile=False):
+    """Phase 12 on one rank (a process of ``mesh.launch``, on its card):
+    phase 5's CHAOS point, Trainer.run(2) with this rank's rows, driven as
+    phase 5's; its own files under ``scratch/rank{rank}``. Returns what the
+    phase compares across ranks and with phase 5. A failed check exits this
+    rank non-zero, which ends the launch."""
+    import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("no CUDA device: chip_smoke.py needs one card", file=sys.stderr)
-        return 2
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
+    from aide_tpu_torch.core import mesh
+    from aide_tpu_torch.engine.trainer import Trainer
     from aide_tpu_torch.ops import cuda_warp
 
-    scratch = os.path.join(root, "build", "chip_smoke")
-    os.makedirs(scratch, exist_ok=True)
-    device = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    smi = smi_line()
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
-          f"device {name}, count {torch.cuda.device_count()}", flush=True)
-    print(smi, flush=True)  # name, power limit: as nvidia-smi gives them
+    work = fresh_dir(os.path.join(scratch, f"rank{rank}"))
+    cfg = chaos_config()
+    cfg.mesh.num_devices = world
+    cfg.checkpoint_dir = os.path.join(work, "ckpt")
+    cfg.history_dir = os.path.join(work, "hist")
+    cfg.data.tempmask_folder = "tempmasks"
+    task = chaos_task(os.path.join(work, "chaos"))
+    release_device_memory()
+    trainer = Trainer(cfg, task, device=device)
+    trainer.label_cases = set(task.clean_case_ids())
+    if trainer.world != world or trainer.device != device:
+        fail(f"rank {rank}: trainer on {trainer.device} at world {trainer.world}")
+    per_step, inner = [], trainer.train_step
 
+    def counted(*args):
+        before = mesh.collectives
+        out = inner(*args)
+        per_step.append(mesh.collectives - before)
+        return out
+
+    trainer.train_step = counted
+    mesh.reset_collectives()
+    run = drive(trainer, cuda_warp)
+    trainer.train_step = inner
+    if profile:
+        profile_steps(f"data axis, world {world}", trainer)
+    pipe = trainer.train_pipe
+    labels = [pipe.labels.get(n) for n in (1, 2)]
+    # each rank's device block of the working labels equals the host's rows
+    blocks_ok = True
+    if pipe._sharded is not None:
+        c = pipe._sharded
+        rows = np.clip(np.arange(c.lo, c.lo + c.shard), 0, len(pipe) - 1)
+        blocks_ok = all(np.array_equal(c.rows(f"target{n}").cpu().numpy(), labels[n - 1][rows])
+                        for n in (1, 2))
+    elif pipe._device_labels is not None:
+        blocks_ok = all(np.array_equal(pipe._device_labels[f"target{n}"].cpu().numpy(),
+                                       labels[n - 1]) for n in (1, 2))
+    # the primary's tempmasks read back as the labels it holds
+    tempmasks_ok = True
+    if rank == 0:
+        for _, net, _, rewritten in trainer.refresh_log:
+            for case in rewritten:
+                for i in pipe.case_indices(case):
+                    disk = task.read_tempmask(pipe.specs[i], net)
+                    tempmasks_ok &= disk is not None and np.array_equal(disk, labels[net - 1][i])
+    # the warp at this rank's launch shapes, against its plain version on
+    # this rank's card
+    v, b = cfg.data.num_tta_views, cfg.data.batch_size // world
+    warp_err = 0.0
+    for n_img, c, inverse in ((v * b, 3, False), (2 * v * b, 2, True)):
+        degrees = [60.0 * (2.0 * i / (n_img - 1) - 1.0) for i in range(n_img)]
+        images, degrees_t, hflip_t, fill = warp_inputs(degrees, [i % 2 for i in range(n_img)], 256,
+                                                       c, seed=rank + c, device=device)
+        table = cuda_warp.coef_table(degrees_t, hflip_t, inverse)
+        got = cuda_warp.warp_rotate_flip(images, degrees_t, hflip_t, fill, inverse=inverse)
+        ref = cuda_warp.warp_plain(images, table, cuda_warp.fill_table(fill, n_img, c, device),
+                                   inverse)
+        torch.cuda.synchronize()
+        warp_err = max(warp_err, float((got - ref).abs().max()))
+    bn_err = global_batchnorm_error(rank, world, cfg.data.batch_size, device)
+    # the gradient all-reduce: the flat buffer of the pair's gradients (the
+    # step's last ones), summed over the ranks
+    params = trainer.state.optimizer.params()
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    allreduce_ms = time_cuda(lambda: mesh.all_reduce(flat), runs=20, warmup=3)
+    sync_ms = time_cuda(lambda: mesh.all_reduce_grads(params), runs=20, warmup=3)
+    state = [t for net in trainer.state.nets for _, t in sorted(net.state_dict().items())]
+    return dict(
+        rank=rank, device=str(device), world=mesh.world_size(), name=torch.cuda.get_device_name(device),
+        rows=run["rows"], case_dice=run["case_dice"], refresh_log=list(trainer.refresh_log),
+        steady=run["steady"], step_ms=run["step_ms"], spe=run["spe"], peak=run["peak"],
+        launches=run["launches"], outside=run["outside"], best_epochs=run["best_epochs"],
+        collectives_per_step=per_step, state=digest(state), labels=digest(labels),
+        blocks_ok=blocks_ok, tempmasks_ok=tempmasks_ok, warp_err=warp_err, bn_err=bn_err,
+        allreduce_ms=allreduce_ms, allreduce_bytes=flat.numel() * 4, sync_ms=sync_ms,
+        files=sorted(os.path.relpath(os.path.join(d, f), work)
+                     for d, _, fs in os.walk(work) for f in fs if "tempmasks" in d or
+                     d.endswith(("ckpt", "hist"))),
+    )
+
+
+def run_data_axis(scratch, chaos, chaos_log, profile=False):
+    """Phase 12: phase 5's CHAOS point through ``mesh.launch`` on a data
+    axis of N = fit_data_devices(8, min(cards, 4)) NCCL ranks, one process
+    a card (on one card: one rank in this process over a real NCCL group
+    of one, said so). Holds rank 0's history to phase 5's (dice 0.03
+    absolute, losses rtol 2e-2 and atol 2e-3, the epochs equal: the JAX
+    package's cross-mesh bars), each refresh decision to phase 5's with a
+    margin, every rank to the same parameters, BN statistics and working
+    labels, the files to rank 0 alone, and the warp at the per-rank shapes
+    to its plain version."""
+    import torch
+
+    from aide_tpu_torch.core import mesh
+
+    cards = torch.cuda.device_count()
+    world = mesh.fit_data_devices(8, min(cards, 4))
+    cfg = chaos_config()
+    cfg.mesh.num_devices = world
+    if world == 1:
+        # launch runs the one rank here; the job of one joins NCCL all the same
+        cfg.mesh.coordinator_address = f"127.0.0.1:{mesh.free_port()}"
+        cfg.mesh.num_processes, cfg.mesh.process_id = 1, 0
+    work = fresh_dir(os.path.join(scratch, "data_axis"))
+    release_device_memory()
     t0 = time.perf_counter()
-    cuda_warp.build(verbose=True)
-    baselines = [(path, cuda_warp.load(cuda_warp.build(verbose=True, source=os.path.abspath(path))))
-                 for path in args.baseline]
-    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    try:
+        ranks = mesh.launch(data_axis_rank, cfg, "cuda", (work, world, profile))
+    except Exception as err:  # a rank that failed ends the launch
+        fail(f"phase 12: the data axis of {world} rank(s) failed: {err}")
+    seconds = time.perf_counter() - t0
+    if sorted(ranks) != list(range(world)) or any(r["world"] != world for r in ranks.values()):
+        fail(f"phase 12: ranks {sorted(ranks)} of worlds {[r['world'] for r in ranks.values()]}")
+    r0 = ranks[0]
+    print(f"data axis: world {world} over NCCL, {cards} card(s) visible, "
+          + ("more than one rank ran" if world > 1 else
+             "one rank over a real NCCL group: more than one rank was not exercised on this "
+             "machine (the CPU tests over gloo cover two)")
+          + f"; devices {[ranks[r]['device'] for r in sorted(ranks)]}; {seconds:.1f} s", flush=True)
+    for r in sorted(ranks):
+        print(f"data axis rank {r} ({ranks[r]['device']}, {ranks[r]['name']}): median step "
+              f"{ranks[r]['steady']:.3f} ms, max_memory_allocated {ranks[r]['peak']} bytes, warp "
+              f"launches {ranks[r]['launches']} ({ranks[r]['outside']} outside the train steps), "
+              f"collectives a step {sorted(set(ranks[r]['collectives_per_step']))}, warp vs plain "
+              f"at the rank's shapes max abs {ranks[r]['warp_err']:.3e}; global BatchNorm "
+              f"(fused kernels, rows of a seeded batch of 8 at (32, 256, 256) f32) vs "
+              f"F.batch_norm of the whole batch: y, dx, dweight, dbias max abs over the "
+              f"reference's largest {ranks[r]['bn_err']:.3e} (bound 1e-4)", flush=True)
+    print_run("data_axis", r0)
+    print(f"data axis: median step at world {world} {r0['steady']:.3f} ms, at world 1 (phase 5) "
+          f"{chaos['steady']:.3f} ms; gradient all-reduce {r0['allreduce_bytes']} bytes: "
+          f"{r0['allreduce_ms']:.4f} ms the collective, {r0['sync_ms']:.4f} ms the step's "
+          f"all_reduce_grads with its flatten and copy back (CUDA events, median of 20)"
+          + ("; at world 1 the step calls no collective (all_reduce_grads returns at once) and "
+             "the all-reduce is NCCL's over a group of one" if world == 1 else ""), flush=True)
+    def metrics(res):
+        return [{k: v for k, v in row.items() if not k.startswith("time")} for row in res["rows"]]
+
+    for r in sorted(ranks)[1:]:
+        other = ranks[r]
+        if (other["state"], other["labels"], other["refresh_log"], metrics(other)) != (
+                r0["state"], r0["labels"], r0["refresh_log"], metrics(r0)):
+            fail(f"phase 12: rank {r} ends with other parameters, labels or history than rank 0")
+        if other["files"]:
+            fail(f"phase 12: rank {r} wrote files: {other['files'][:5]}")
+    per_step = len(r0["step_ms"])
+    for r, res in ranks.items():
+        if res["launches"] != 3 * per_step or res["outside"] != 0:
+            fail(f"phase 12: rank {r} launched the warp {res['launches']} times over {per_step} "
+                 f"steps ({res['outside']} outside the train steps)")
+        if (not (res["blocks_ok"] and res["tempmasks_ok"]) or res["warp_err"] > 1e-5
+                or not res["bn_err"] <= 1e-4):
+            fail(f"phase 12: rank {r}: device labels {res['blocks_ok']}, tempmasks "
+                 f"{res['tempmasks_ok']}, warp max abs {res['warp_err']}, global BatchNorm "
+                 f"relative error {res['bn_err']}")
+    wanted = ("_history.json", ".log", "_last_full.msgpack", "_besttraincasedice.pkl", ".png")
+    if not all(any(f.endswith(w) for f in r0["files"]) for w in wanted):
+        fail(f"phase 12: rank 0 did not write every file: {r0['files']}")
+    for want, got in zip(chaos["rows"], r0["rows"]):
+        for key, v in want.items():
+            if key.startswith("time"):
+                continue
+            ok = (abs(got[key] - v) < 0.03 if "dice" in key else
+                  math.isclose(got[key], v, rel_tol=2e-2, abs_tol=2e-3) if "loss" in key else
+                  got[key] == v)
+            if not ok:
+                fail(f"phase 12: epoch {want['epoch']} {key}: world {world} {got[key]}, "
+                     f"world 1 {v}")
+    log5 = [tuple(entry[:3]) for entry in chaos_log]
+    log12 = [tuple(entry[:3]) for entry in r0["refresh_log"]]
+    gaps = boundary_gaps(chaos["case_dice"], 1)
+    margins = [(gaps[key], max(abs(r0["case_dice"][key][c] - d)
+                               for c, d in chaos["case_dice"][key].items()))
+               for key in sorted(chaos["case_dice"])]
+    print(f"data axis: refresh decisions {log12} (phase 5: {log5}); margins (phase 5's gap at "
+          f"the worst-1 boundary, largest world-{world} vs world-1 case-dice difference): "
+          + json.dumps(margins) + f"; worst metric difference "
+          f"{worst_difference(r0['rows'], chaos['rows']):.3e} (relative above 1, absolute "
+          f"below)", flush=True)
+    if log12 != log5 or not all(gap > diff for gap, diff in margins):
+        fail(f"phase 12: refresh decisions {log12} against phase 5's {log5}, margins {margins}")
+    return dict(r0, ranks=ranks, seconds=seconds, cards=cards)
+
+
+def run_phases_6_to_11(cuda_warp, scratch, args, chaos, chaos_log):
+    """Phases 6-11; returns their runs by path and the kernels line's extra
+    entries."""
+    import torch
 
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    worst = check_kernel(cuda_warp, device)
-    rows = time_kernel(cuda_warp, device, baselines)
-    torch.backends.cudnn.allow_tf32 = True
-
-    stamp("phases 1-4")
-    trainer, chaos = run_slice(cuda_warp, scratch)
-    chaos_log = list(trainer.refresh_log)
-    if args.profile:
-        profile_steps("chaos co-teaching", trainer)
-    del trainer
-
-    torch.backends.cudnn.allow_tf32 = False
-    stamp("phase 5")
     small_dual_vs_cpu(scratch, "fuseunet", two_modal=True)
     export = small_supervised_vs_cpu(scratch, "unet", two_modal=False)
     small_dual_vs_cpu(scratch, "unet", two_modal=False, resume=export)
@@ -2148,8 +2400,84 @@ def main() -> int:
             "cli_chaos": cli_chaos, **zoo, "chaos_resume": chaos_resume,
             "kidney_augment": kidney_augment, "cli_resume_first": cli_first,
             "cli_resume": cli_resume, "cli_sgd": cli_sgd}
+    extra = {
+        "remat_kidney_supervised": remat,
+        "resume_chaos": {"epoch2_bit_for_bit": chaos_resume["bitwise"],
+                         "epoch2_worst_difference": chaos_resume["worst"],
+                         "epoch2_vs_phase5": chaos_resume["phase5"],
+                         "epoch1_run_to_run": chaos_resume["spread"],
+                         "snapshot_optimizer_bytes": chaos_resume["snapshot_opt_bytes"],
+                         "snapshot_state_dict_bytes": chaos_resume["snapshot_net_bytes"]},
+        # phase 11 launches no warp: the serving programs' times and sizes
+        "serving": serving,
+    }
+    return runs, extra
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="a torch.profiler breakdown of a few more co-teaching steps "
+                             "after phases 5, 7, 9 (a), (b) and 12")
+    parser.add_argument("--baseline", metavar="FILE.cu", action="append", default=[],
+                        help="another version of csrc/warp_rotate_flip.cu to time in phase 4 "
+                             "(repeatable)")
+    parser.add_argument("--data-axis", action="store_true",
+                        help="phases 1-5 and 12 only: the data axis and what it is held to "
+                             "(for a machine with several cards)")
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs one card", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from aide_tpu_torch.ops import cuda_warp
+
+    scratch = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(scratch, exist_ok=True)
+    device = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
+          f"device {name}, count {torch.cuda.device_count()}", flush=True)
+    print(smi, flush=True)  # name, power limit: as nvidia-smi gives them
+
+    t0 = time.perf_counter()
+    cuda_warp.build(verbose=True)
+    baselines = [(path, cuda_warp.load(cuda_warp.build(verbose=True, source=os.path.abspath(path))))
+                 for path in args.baseline]
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = check_kernel(cuda_warp, device)
+    rows = time_kernel(cuda_warp, device, baselines)
+    torch.backends.cudnn.allow_tf32 = True
+
+    stamp("phases 1-4")
+    trainer, chaos = run_slice(cuda_warp, scratch)
+    chaos_log = list(trainer.refresh_log)
+    if args.profile:
+        profile_steps("chaos co-teaching", trainer)
+    del trainer
+
+    stamp("phase 5")
+    runs = {"chaos_coteach": chaos}
+    extra = {}
+    if not args.data_axis:
+        runs, extra = run_phases_6_to_11(cuda_warp, scratch, args, chaos, chaos_log)
+
+    t12 = time.perf_counter()
+    data_axis = run_data_axis(scratch, chaos, chaos_log, args.profile)
+    print(f"phase 12: {time.perf_counter() - t12:.2f} s", flush=True)
+    stamp("phase 12")
+    world = data_axis["world"]
+    SAME_SHAPES["data_axis"] = (DATA_AXIS_SHAPES[world],)
+
     by_path = {}
-    for path, run in runs.items():
+    for path, run in {**runs, "data_axis": data_axis}.items():
         launched = [r for r in rows if r["path"] in SAME_SHAPES.get(path, (path,))]
         by_path[path] = {
             "launches": run["launches"],
@@ -2163,15 +2491,30 @@ def main() -> int:
             "max_memory_allocated": run["peak"],
             **({"decode_s": run["decode_s"]} if "decode_s" in run else {}),
         }
+    ranks = data_axis["ranks"]
+    by_path["data_axis"].update({
+        "world": world, "cards": data_axis["cards"],
+        "launches_by_rank": [ranks[r]["launches"] for r in sorted(ranks)],
+        "step_ms_by_rank": [ranks[r]["steady"] for r in sorted(ranks)],
+        "max_memory_allocated_by_rank": [ranks[r]["peak"] for r in sorted(ranks)],
+        "collectives_per_step": sorted(set(data_axis["collectives_per_step"])),
+        "grad_allreduce_bytes": data_axis["allreduce_bytes"],
+        "grad_allreduce_ms": data_axis["allreduce_ms"],
+        "grad_sync_ms": data_axis["sync_ms"],
+        "step_ms_world1": chaos["steady"],
+    })
     chaos_step = by_path["chaos_coteach"]
+    launches = {path: run["launches"] for path, run in runs.items()}
+    launches.update({f"data_axis_rank{r}": ranks[r]["launches"] for r in sorted(ranks)})
     kernels = [{
         "name": "warp_rotate_flip",
         "route": "cuda",
         "source": "aide_tpu_torch/csrc/warp_rotate_flip.cu",
         "replaces": "aide_tpu/ops/pallas_warp.py:77",
-        "launches": sum(run["launches"] for run in runs.values()),
-        "launches_by_path": {path: run["launches"] for path, run in runs.items()},
-        "max_abs_err": max([worst] + [r["max_abs_err"] for r in rows]),
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max([worst] + [r["max_abs_err"] for r in rows]
+                           + [ranks[r]["warp_err"] for r in ranks]),
         # one CHAOS co-teaching step: two forward launches and one inverse
         # launch, each timed with a cold L2 (by_path has the kidney step,
         # per_launch the warm times)
@@ -2185,15 +2528,7 @@ def main() -> int:
         "by_path": by_path,
         "step_ms": chaos["steady"],
         "max_memory_allocated": chaos["peak"],
-        "remat_kidney_supervised": remat,
-        "resume_chaos": {"epoch2_bit_for_bit": chaos_resume["bitwise"],
-                         "epoch2_worst_difference": chaos_resume["worst"],
-                         "epoch2_vs_phase5": chaos_resume["phase5"],
-                         "epoch1_run_to_run": chaos_resume["spread"],
-                         "snapshot_optimizer_bytes": chaos_resume["snapshot_opt_bytes"],
-                         "snapshot_state_dict_bytes": chaos_resume["snapshot_net_bytes"]},
-        # phase 11 launches no warp: the serving programs' times and sizes
-        "serving": serving,
+        **extra,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

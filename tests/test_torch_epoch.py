@@ -20,8 +20,8 @@ net, and epoch 3 ends the ramp, so the engagement verdict runs. The bars:
 
 Also: the run's ``_last_full`` file resumes a new trainer at its end (a
 missing ``_full`` file raises rather than warm-starting), the trainer
-refuses an unknown checkpoint flush and mesh settings for more than one
-device, and
+refuses an unknown checkpoint flush, the net and space mesh axes and a
+data axis asked of a process that ``launch`` did not start, and
 a refresh runs and reads back its tempmasks where Pillow cannot be imported.
 """
 
@@ -305,15 +305,25 @@ def test_trainer_refuses_an_unknown_checkpoint_flush(tmp_path):
 
 
 @pytest.mark.parametrize("setting", [
-    ("num_devices", 2), ("extra_axes", (("net", 2),)), ("coordinator_address", "localhost:1234"),
+    ("extra_axes", (("net", 2),)), ("extra_axes", (("space", 2),)), ("num_devices", 2),
 ])
 def test_trainer_refuses_mesh_settings(tmp_path, setting):
-    """The port trains on one device: settings that ask for more raise
-    instead of being ignored."""
+    """Mesh settings the trainer cannot honour raise instead of being
+    ignored: the net and space axes (not ported), and a data axis of two
+    ranks asked of a process that ``launch`` did not start (a batch of 4
+    and an eval batch of 4 shard over 2)."""
     _, cfg = _cfgs(tmp_path)
     setattr(cfg.mesh, *setting)
-    with pytest.raises(NotImplementedError, match=f"mesh.{setting[0]}.*ROADMAP Queue 1 item 7"):
-        ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
+    cfg.data.eval_batch_size = 4
+    task = SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS)
+    if setting[0] == "extra_axes":
+        axis = setting[1][0][0]
+        with pytest.raises(NotImplementedError,
+                           match=f"mesh.extra_axes.*the {axis} axis.*ROADMAP Queue 1 item 7"):
+            ttrainer.Trainer(cfg, task, device="cpu")
+    else:
+        with pytest.raises(ValueError, match="mesh.num_devices=2.*mesh.launch"):
+            ttrainer.Trainer(cfg, task, device="cpu")
 
 
 def test_refresh_without_pillow(tmp_path):
