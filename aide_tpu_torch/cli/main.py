@@ -19,7 +19,9 @@ presets' batch currently slower per epoch than one card), N on N
 of them (shrunk to divide gcd(batch_size, eval_batch_size)), and with
 ``--device cpu`` 0 means one CPU rank and N that many CPU ranks over
 gloo; ``mesh.coordinator_address`` with ``mesh.num_processes`` and
-``mesh.process_id`` makes this process one rank of a job. ``eval``,
+``mesh.process_id`` makes this process one rank of a job. ``--set
+'mesh.extra_axes=[["net",2]]'`` adds the net axis: the ranks come in
+pairs, one net of the co-teaching pair each (on one card it raises). ``eval``,
 ``predict`` and ``export`` run on one device, as the JAX CLI's do.
 """
 
@@ -268,7 +270,9 @@ def main(argv=None) -> int:
                     "default) trains on every visible card; at the presets' batch sizes more "
                     "than one card is currently slower per epoch than one (the epoch has the "
                     "same steps and each takes longer; PERF.md), so pass --set "
-                    "mesh.num_devices=1 to train on one card.",
+                    "mesh.num_devices=1 to train on one card. --set "
+                    "'mesh.extra_axes=[[\"net\",2]]' puts one net of the co-teaching pair "
+                    "on each card of a pair.",
     )
     _add_common(p_train)
     p_train.add_argument("--epochs", type=int, help="override epoch count")

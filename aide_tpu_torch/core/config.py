@@ -7,8 +7,9 @@ accepted and ignored: the packed layout computes the same network as the
 plain one. The mesh settings are read by ``core.mesh.launch`` and
 ``Trainer``: the data axis (``mesh.num_devices``, and a job of processes
 through ``mesh.coordinator_address``, ``num_processes``, ``process_id``) is
-one process a card; the ``net`` and ``space`` entries of
-``mesh.extra_axes`` are refused (not ported yet, ROADMAP Queue 1 item 7).
+one process a card, and a ``("net", 2)`` entry of ``mesh.extra_axes`` puts
+one net of the co-teaching pair on each card of a pair; a ``space`` entry
+is refused (not ported yet, ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -133,7 +134,12 @@ class EvalConfig:
 @dataclass
 class MeshConfig:
     data_axis: str = "data"
+    # ranks of the job, one a card: 0 = every visible card (one CPU rank)
     num_devices: int = 0
+    # (axis, size) pairs after the data axis, the net index minor in the
+    # ranks (core/mesh.py): ("net", 2) puts net k of the dual pair on
+    # rank k of each pair of ranks (a single-net run replicates over it);
+    # ("space", k) is not ported yet
     extra_axes: Tuple[Tuple[str, int], ...] = ()
     coordinator_address: str = ""
     num_processes: int = 0

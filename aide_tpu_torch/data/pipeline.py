@@ -10,13 +10,15 @@ the targets, takes any refreshed labels already mirrored to disk, and
 mirrors each refresh back to disk; ``sync_labels_to_device`` then copies
 the refreshed rows into the device copy.
 
-Over a data axis of N > 1 ranks (``core.mesh``) every rank decodes the
-whole set and keeps the whole LabelStore, but a batch is only its rows of
-the global batch (``mesh.local_rows``): the host-batch path slices the
-indices, and the device-resident path is a ``ShardedCache``, the
-counterpart of the JAX package's ``MeshCache``, where each rank holds a
-contiguous block of the rows and one collective assembles a batch. Only
-the primary rank mirrors refreshed labels to disk.
+Over a data axis of N > 1 shards (``core.mesh``) every rank decodes the
+whole set and keeps the whole LabelStore, but a batch is only its shard's
+rows of the global batch (``mesh.local_rows``): the host-batch path slices
+the indices, and the device-resident path is a ``ShardedCache``, the
+counterpart of the JAX package's ``MeshCache``, where each shard holds a
+contiguous block of the rows and one collective of its data group
+assembles a batch. On a net axis both ranks of a pair hold the same rows
+and the working labels of both nets. Only the primary rank mirrors
+refreshed labels to disk.
 
 With a ``cache_dir``, the decoded arrays are kept in a keyed npz file there
 (``decode_cache_path``), under the JAX package's key and array names, so a
@@ -121,19 +123,21 @@ class ShardedCache:
     """The decode-once arrays on the cards of a data axis, sharded by rows.
 
     The counterpart of the JAX package's ``MeshCache``: the rows are padded
-    to a multiple of N (repeating the last), and rank r keeps rows
-    [r*R, (r+1)*R), R = ceil(n/N), every array of a row packed side by side
+    to a multiple of N data shards (repeating the last), and the ranks of
+    shard d keep rows [d*R, (d+1)*R), R = ceil(n/N), every array of a row
+    packed side by side
     as bytes in one (R, row bytes) uint8 matrix, the images' columns first
     and the labels' last. A batch of global indices is gathered in one
     collective: each rank serves the rows it owns and zeros elsewhere, and
     the sum over ranks (exact: one contributor is nonzero) is
     reduce-scattered when N divides the batch (each rank receives its own
     rows) or all-reduced otherwise (every rank the whole batch, as the
-    ragged final eval batch needs). The dataset itself never moves.
-    Refreshed label rows are written by the rank that owns them."""
+    ragged final eval batch needs), all over the rank's data group. The
+    dataset itself never moves. Refreshed label rows are written by the
+    ranks that own them."""
 
     def __init__(self, arrays: Dict[str, np.ndarray], device):
-        n_dev, r = mesh.world_size(), mesh.rank()
+        n_dev, r = mesh.data_size(), mesh.data_rank()
         n = next(iter(arrays.values())).shape[0]
         self.shard = -(-n // n_dev)
         self.lo = r * self.shard
@@ -165,7 +169,7 @@ class ShardedCache:
         part = self.data[:, :width].index_select(0, rel.clamp(0, self.shard - 1))
         part = part * own.to(torch.uint8)[:, None]
         if mesh.rows_sharded(b):
-            out = part.new_empty((b // mesh.world_size(), width))
+            out = part.new_empty((b // mesh.data_size(), width))
             mesh.reduce_scatter(out, part)
         else:
             out = part
@@ -332,9 +336,9 @@ class SlicePipeline:
         """Upload the decode-once cache and the working labels to ``device``
         ONCE (uint8 pixels and targets, f32 coefficients); later batches are
         gathered there by index, so an epoch moves only index vectors to the
-        device. Over a data axis of N > 1 ranks each rank uploads its block
-        of the rows (``ShardedCache``)."""
-        if mesh.world_size() > 1:
+        device. Over a data axis of N > 1 shards each rank uploads its
+        shard's block of the rows (``ShardedCache``)."""
+        if mesh.data_size() > 1:
             arrays = self._host_arrays()
             if self.labels is not None:
                 arrays.update({f"target{net}": self.labels.get(net) for net in (1, 2)})

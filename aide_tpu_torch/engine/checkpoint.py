@@ -42,7 +42,12 @@ symmetry-breaking noise (``aide_tpu.engine.checkpoint.warm_start_dual``);
 
 Over a data axis every rank holds the same state; the trainer calls the
 writers on the primary rank only, as in the JAX package, and every rank
-reads a resume file.
+reads a resume file. On a net axis a rank holds one net of the pair
+(``NetRankState``): ``snapshot`` of such a state is a collective of its pair
+group that gathers both nets (the primary's partner sends its net, moments
+and BN statistics), so the files stay the pair's, byte for byte the JAX
+package's format; a resume file gives each rank its net's half, and the
+warm start draws both nets' noise and keeps its own.
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from aide_tpu_torch.engine.state import DualTrainState, TrainState
+from aide_tpu_torch.core import mesh
+from aide_tpu_torch.engine.state import DualTrainState, NetRankState, TrainState
 from aide_tpu_torch.interop import weights
 
 
@@ -75,15 +81,10 @@ def full_path(dir_path: str, prefix: str, last: bool = False) -> str:
     return os.path.join(dir_path, f"{prefix}_{'last_full' if last else 'full'}.msgpack")
 
 
-def snapshot(state: TrainState, clone: bool = True) -> Dict[str, Any]:
-    """The train state's tensors where they live: each net's state dict,
-    each net's optimizer moments ``{parameter name: {moment: tensor}}``,
-    the step count, the nets' architecture and the optimizer's chain.
-    ``clone`` copies the tensors on their device (the best epoch's state
-    for ``checkpoint_flush='end'``: no copy to the host until the files are
-    written); without it they are the live tensors."""
+def _local_snapshot(state: TrainState, take) -> Dict[str, Any]:
+    """``snapshot`` of the nets this process holds, each tensor through
+    ``take``."""
     opt = state.optimizer
-    take = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
     return {
         "nets": [{k: take(v) for k, v in net.state_dict().items()} for net in state.nets],
         "moments": [
@@ -95,6 +96,39 @@ def snapshot(state: TrainState, clone: bool = True) -> Dict[str, Any]:
         "arch": dict(state.nets[0].arch),
         "chain": chain_of(opt),
     }
+
+
+def _gather_pair(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """A net axis rank's snapshot of its one net -> the pair's, both nets
+    in net order: one ``mesh.pair_exchange`` of every tensor."""
+    sd, named = snap["nets"][0], snap["moments"][0]
+    keys = [(k, None) for k in sd] + [(name, m) for name in named for m in named[name]]
+    tensors = [sd[k] if m is None else named[k][m] for k, m in keys]
+    got = mesh.pair_exchange(*tensors)
+    nets = [{} for _ in range(2)]
+    moments = [{name: {} for name in named} for _ in range(2)]
+    for (k, m), both in zip(keys, got):
+        for n in range(2):
+            if m is None:
+                nets[n][k] = both[n]
+            else:
+                moments[n][k][m] = both[n]
+    return dict(snap, nets=nets, moments=moments)
+
+
+def snapshot(state: TrainState, clone: bool = True) -> Dict[str, Any]:
+    """The train state's tensors where they live: each net's state dict,
+    each net's optimizer moments ``{parameter name: {moment: tensor}}``,
+    the step count, the nets' architecture and the optimizer's chain.
+    ``clone`` copies the tensors on their device (the best epoch's state
+    for ``checkpoint_flush='end'``: no copy to the host until the files are
+    written); without it they are the live tensors. A ``NetRankState``'s
+    snapshot is the pair's, gathered over its pair group (a collective of
+    both ranks; the gathered tensors are copies)."""
+    if isinstance(state, NetRankState):
+        return _gather_pair(_local_snapshot(state, lambda t: t.detach()))
+    take = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
+    return _local_snapshot(state, take)
 
 
 def chain_of(opt) -> Tuple[str, Tuple[str, ...], int]:
@@ -188,7 +222,11 @@ def _spec_tree(state: TrainState) -> Dict[str, Any]:
     def stack(arrays: List[np.ndarray]) -> np.ndarray:
         return np.broadcast_to(arrays[0], (len(arrays),) + arrays[0].shape)
 
-    return _tree(snapshot(state, clone=False), host, stack)
+    snap = _local_snapshot(state, lambda t: t)
+    if isinstance(state, NetRankState):
+        # the pair's layout: both nets have this one's shapes
+        snap.update(nets=snap["nets"] * 2, moments=snap["moments"] * 2)
+    return _tree(snap, host, stack)
 
 
 def _leaf_specs(tree, prefix: str = "") -> Dict[str, Tuple]:
@@ -206,9 +244,10 @@ def _leaf_specs(tree, prefix: str = "") -> Dict[str, Tuple]:
 @torch.no_grad()
 def restore_state_tree(state: TrainState, tree: Dict[str, Any], what: str = "the tree") -> None:
     """The inverse of ``state_tree``, in place: the nets' parameters and BN
-    statistics, the optimizer's moments and its count. The tree must have
-    the state's layout leaf for leaf (names, shapes, dtypes, the optimizer
-    chain); a mismatch raises naming the differing leaves."""
+    statistics, the optimizer's moments and its count (a ``NetRankState``
+    its net's half of the pair's tree). The tree must have the state's
+    layout leaf for leaf (names, shapes, dtypes, the optimizer chain); a
+    mismatch raises naming the differing leaves."""
     opt = state.optimizer
     chain = chain_of(opt)
     _mismatch(f"{what} does not fit this train state (model {state.nets[0].arch['model_name']!r}, "
@@ -219,9 +258,11 @@ def restore_state_tree(state: TrainState, tree: Dict[str, Any], what: str = "the
     counts = [int(d["count"]) for d in core.values() if "count" in d]
     if any(c != count for c in counts):
         raise ValueError(f"{what}: the optimizer counts {counts} differ from the step {count}")
-    dual = len(state.nets) == 2
-    for n, net in enumerate(state.nets):
-        pick = n if dual else None
+    if isinstance(state, NetRankState):
+        picks = [state.index]
+    else:
+        picks = [0, 1] if len(state.nets) == 2 else [None]
+    for pick, net in zip(picks, state.nets):
         variables = {"params": _unstack(tree["params"], pick),
                      "batch_stats": _unstack(tree["batch_stats"], pick)}
         sd = weights.variables_to_state_dict(variables, **net.arch)
@@ -621,7 +662,8 @@ def load_net(path: str, net: Optional[nn.Module] = None) -> Dict[str, torch.Tens
 def warm_start_dual(state: DualTrainState, path: str, noise: float = 1e-3, seed: int = 0) -> None:
     """Load one net's export (``load_net``: a ``.pkl`` or a JAX ``.msgpack``
     net export) into BOTH nets of the pair, in place, as the kidney
-    trainers' --resumefile warm start does.
+    trainers' --resumefile warm start does (a ``NetRankState`` into its
+    net, with that net's noise: each rank draws both and keeps its own).
 
     With ``noise``, each parameter of each net gets independent Gaussian
     noise of std ``noise * (std(leaf) + 1e-8)``, the leaf's population std,
@@ -634,11 +676,12 @@ def warm_start_dual(state: DualTrainState, path: str, noise: float = 1e-3, seed:
         net.load_state_dict(sd, strict=True)
     if not noise:
         return
+    rows = [state.index] if isinstance(state, NetRankState) else [0, 1]
     gen = torch.Generator().manual_seed(seed)
     for name, _ in state.nets[0].named_parameters():
         leaf = sd[name].to(torch.float32)
         scale = noise * (float(leaf.std(correction=0)) + 1e-8)
-        draws = torch.randn((len(state.nets),) + tuple(leaf.shape), generator=gen) * scale
-        for net, draw in zip(state.nets, draws):
+        draws = torch.randn((2,) + tuple(leaf.shape), generator=gen) * scale
+        for net, row in zip(state.nets, rows):
             p = net.get_parameter(name)
-            p.add_(draw.to(device=p.device, dtype=p.dtype))
+            p.add_(draws[row].to(device=p.device, dtype=p.dtype))

@@ -4,8 +4,10 @@ The counterparts of ``aide_tpu.engine.state.DualTrainState`` and
 ``TrainState``. Where the JAX package stacks both nets on a leading axis and
 vmaps them, the port holds two ``nn.Module``s and ONE optimizer over both
 nets' parameters (the optimizers are elementwise, so one optimizer over the union
-equals one per net). Both states offer ``.nets`` and ``.train(mode)``, so
-the predict programs and ``checkpoint.snapshot`` take either.
+equals one per net). On a rank of a net axis (``core.mesh``) a
+``NetRankState`` holds one net of the pair and its optimizer. Every state
+offers ``.nets`` and ``.train(mode)``, so the predict programs and
+``checkpoint.snapshot`` take any.
 """
 
 from __future__ import annotations
@@ -44,3 +46,15 @@ class DualTrainState(TrainState):
     def __init__(self, net1: nn.Module, net2: nn.Module, optimizer: OptaxOptimizer):
         super().__init__(net1, optimizer)
         self.nets = (net1, net2)
+
+
+class NetRankState(TrainState):
+    """Net ``index`` (0 or 1) of the co-teaching pair on one rank of a net
+    axis: the net and an optimizer over its parameters and moments alone
+    (``pair=True``: its clipping norm spans the pair). The partner rank of
+    its pair group holds the other net; ``index`` keeps the step, the
+    checkpoints and the history in the pair's terms."""
+
+    def __init__(self, net: nn.Module, index: int, optimizer: OptaxOptimizer):
+        super().__init__(net, optimizer)
+        self.index = index

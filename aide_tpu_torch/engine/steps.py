@@ -19,7 +19,7 @@ test can hand the step the JAX package's stream.
 forward in train-mode BN that updates the running stats, the scalar
 criterion (``make_criterion``), one backward and one AMSGrad update.
 
-Over a data axis of N > 1 ranks (``core.mesh``) each step takes its
+Over a data axis of N > 1 shards (``core.mesh``) each step takes its
 rank's rows of the global batch (``sharded=True``) and keeps the JAX step's
 global semantics: BatchNorm statistics over the global batch
 (``models.blocks.global_batch_stats``, around the forwards and the
@@ -30,6 +30,15 @@ gives each rank the gradient of its own rows when every rank backpropagates
 L/N). The gradients are then summed over the ranks in one all-reduce, so
 every rank takes the same update. A replicated batch (``sharded=False``)
 is the whole batch on every rank, computed as one rank would.
+
+On a net axis (``engine.state.NetRankState``) a rank runs net k of the
+pair alone, in the same order: its view forwards, its inverse warp (V*b
+views, not 2*V*b), its main forward, its loss and backward; the collectives
+of the data axis run over its net's data group, and what the other net's
+loss needs (pseudo-labels, weight map, the per-image losses that rank the
+rows) crosses the pair without gradient in ``mesh.pair_exchange``. The
+clipping norm spans the pair (``ops.schedules``). Every rank returns the
+pair's metrics, as one process does.
 
 ``make_augment_batch`` is the main-view augmentation of ``data.augment_main``
 (``aide_tpu.engine.steps.make_augment_batch``): one rotation and flip per
@@ -52,7 +61,7 @@ import torch.nn.functional as F
 
 from aide_tpu_torch.core import mesh
 from aide_tpu_torch.core.config import TrainConfig
-from aide_tpu_torch.engine.state import DualTrainState, TrainState
+from aide_tpu_torch.engine.state import DualTrainState, NetRankState, TrainState
 from aide_tpu_torch.models import blocks
 from aide_tpu_torch.ops import losses, metrics, tta, warp
 
@@ -169,7 +178,7 @@ def make_supervised_train_step(two_modal: bool, cfg: TrainConfig):
                 logits, target = mesh.gather_rows(logits), mesh.fetch(target)
             loss = criterion(logits, target)
             state.optimizer.zero_grad(set_to_none=True)
-            (loss / mesh.world_size()).backward()
+            (loss / mesh.data_size()).backward()
             mesh.all_reduce_grads(state.optimizer.params())
             state.optimizer.step()
             with torch.no_grad():
@@ -186,7 +195,8 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
     """step(state, batch, degrees, hflip, rate, sharded=False) -> metrics
     of the global batch; updates ``state`` in place (parameters, BN running
     stats, optimizer moments). degrees/hflip are the (V, b) view
-    parameters of this rank's b rows, on the batch's device."""
+    parameters of this rank's b rows, on the batch's device. A
+    ``NetRankState`` takes the net axis's step (``net_rank_step``)."""
     image_criterion = make_image_criterion(cfg)
     ct = cfg.coteach
     if ct.tta_bn not in ("batch", "running"):
@@ -195,37 +205,66 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
     thr = cfg.eval.threshold
     wm = cfg.data.warp_method
 
-    def step(state: DualTrainState, batch, degrees, hflip, rate,
-             sharded: bool = False) -> Dict[str, torch.Tensor]:
+    @torch.no_grad()
+    def pseudo_labels(state, images, fills, degrees, hflip, b):
+        """(n, b, H, W, C) sharpened view averages and their weight maps of
+        the state's n nets: the TTA views of both modalities (one warp each),
+        the nets' view forwards (views folded into the batch; train-mode BN
+        that leaves the running stats alone), one inverse warp over all
+        their views, then the f32 softmax average."""
+        nets = state.nets
+        n = len(nets)
+        flat_views = tuple(
+            tta.make_views(img, degrees, hflip, fill, method=wm).reshape(
+                (num_views * b,) + tuple(img.shape[1:])
+            )
+            for img, fill in zip(images, fills)
+        )
+        state.train(ct.tta_bn == "batch")
+        view_logits = torch.cat(
+            [net(*flat_views, update_stats=False) for net in nets]
+        )  # (n*V*B, H, W, C): net-major, then view, then image
+        flat = view_logits.reshape((n * num_views, b) + tuple(view_logits.shape[1:]))
+        inv = tta.invert_views(flat, torch.cat([degrees] * n), torch.cat([hflip] * n), method=wm)
+        probs = torch.softmax(inv.to(torch.float32), dim=-1)
+        avg = probs.reshape((n, num_views, b) + tuple(probs.shape[2:])).mean(dim=1)
+        pseudo = tta.sharpen(avg, ct.temperature, ct.sharpen_mode)
+        return pseudo, tta.confidence_weightmap(pseudo)
+
+    def side(pre, out, order_other, pseudo_other, wmap_other, rate):
+        """One net's loss: its seg loss on the partner's clean rows (and the
+        suspect ones down-weighted) plus the consistency with the partner's
+        pseudo-labels on the suspect rows."""
+        b = pre.shape[0]
+        k_clean = max(1, min(b - 1, int(round(ct.clean_fraction * b))))
+        clean = order_other[:k_clean]
+        seg = pre[clean].mean()
+        if k_clean < b:
+            # b and k_clean are fixed per batch size: with b == 1 there
+            # is no suspect share (its mean would be NaN)
+            suspect = order_other[k_clean:]
+            seg = seg + (1.0 - rate) * pre[suspect].mean()
+            cons_map = wmap_other * losses.multiclass_mse_loss(
+                out, pseudo_other, reduction="none"
+            )
+            cons = cons_map.mean(dim=(1, 2, 3))[suspect].mean()
+        else:
+            cons = torch.zeros((), dtype=seg.dtype, device=seg.device)
+        return ct.seg_weight * seg + ct.consistency_weight * rate * cons
+
+    def check_views(degrees, b):
+        if tuple(degrees.shape) != (num_views, b):
+            raise ValueError(f"view params must be ({num_views}, {b}), got {tuple(degrees.shape)}")
+
+    def pair_step(state: DualTrainState, batch, degrees, hflip, rate, sharded):
         with blocks.global_batch_stats(sharded):
             images = batch_images(batch, two_modal)
-            fills = batch_fills(batch, two_modal)
             t1, t2 = batch["target1"], batch["target2"]
             b = t1.shape[0]
-            if tuple(degrees.shape) != (num_views, b):
-                raise ValueError(f"view params must be ({num_views}, {b}), got {tuple(degrees.shape)}")
+            check_views(degrees, b)
             net1, net2 = state.nets
-
-            # ---- TTA pseudo-labels: both nets, all views, no gradient ----
-            with torch.no_grad():
-                flat_views = tuple(
-                    tta.make_views(img, degrees, hflip, fill, method=wm).reshape(
-                        (num_views * b,) + tuple(img.shape[1:])
-                    )
-                    for img, fill in zip(images, fills)
-                )
-                state.train(ct.tta_bn == "batch")
-                view_logits = torch.cat(
-                    [net(*flat_views, update_stats=False) for net in state.nets]
-                )  # (2*V*B, H, W, C): net-major, then view, then image
-                flat = view_logits.reshape((2 * num_views, b) + tuple(view_logits.shape[1:]))
-                inv = tta.invert_views(
-                    flat, torch.cat([degrees, degrees]), torch.cat([hflip, hflip]), method=wm
-                )
-                probs = torch.softmax(inv.to(torch.float32), dim=-1)
-                avg = probs.reshape((2, num_views, b) + tuple(probs.shape[2:])).mean(dim=1)
-                pseudo = tta.sharpen(avg, ct.temperature, ct.sharpen_mode)
-                wmap = tta.confidence_weightmap(pseudo)
+            pseudo, wmap = pseudo_labels(state, images, batch_fills(batch, two_modal),
+                                         degrees, hflip, b)
 
             # ---- coupled main forwards, one backward over both nets ----
             state.train(True)
@@ -242,33 +281,15 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
                 pseudo, wmap = pw[..., :c].transpose(0, 1), pw[..., c:].transpose(0, 1)
                 t1, t2 = tt[:, 0], tt[:, 1]
                 b = t1.shape[0]
-            k_clean = max(1, min(b - 1, int(round(ct.clean_fraction * b))))
             # net k scored against the OTHER net's working labels
             pre1 = image_criterion(out1, t2)
             pre2 = image_criterion(out2, t1)
             order1 = torch.argsort(pre1.detach(), stable=True)
             order2 = torch.argsort(pre2.detach(), stable=True)
-
-            def side(pre, out, order_other, pseudo_other, wmap_other):
-                clean = order_other[:k_clean]
-                seg = pre[clean].mean()
-                if k_clean < b:
-                    # b and k_clean are fixed per batch size: with b == 1 there
-                    # is no suspect share (its mean would be NaN)
-                    suspect = order_other[k_clean:]
-                    seg = seg + (1.0 - rate) * pre[suspect].mean()
-                    cons_map = wmap_other * losses.multiclass_mse_loss(
-                        out, pseudo_other, reduction="none"
-                    )
-                    cons = cons_map.mean(dim=(1, 2, 3))[suspect].mean()
-                else:
-                    cons = torch.zeros((), dtype=seg.dtype, device=seg.device)
-                return ct.seg_weight * seg + ct.consistency_weight * rate * cons
-
-            loss1 = side(pre1, out1, order2, pseudo[1], wmap[1])
-            loss2 = side(pre2, out2, order1, pseudo[0], wmap[0])
+            loss1 = side(pre1, out1, order2, pseudo[1], wmap[1], rate)
+            loss2 = side(pre2, out2, order1, pseudo[0], wmap[0], rate)
             state.optimizer.zero_grad(set_to_none=True)
-            ((loss1 + loss2) / mesh.world_size()).backward()
+            ((loss1 + loss2) / mesh.data_size()).backward()
             mesh.all_reduce_grads(state.optimizer.params())
             state.optimizer.step()
             with torch.no_grad():
@@ -279,6 +300,54 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
                     "dice2_sum": metrics.dice_fn(out2, t1, threshold=thr),
                     "count": torch.tensor(float(b), device=loss1.device),
                 }
+
+    def net_rank_step(state: NetRankState, batch, degrees, hflip, rate, sharded):
+        """Net k = ``state.index`` of the pair on its rank: its own views'
+        forwards and inverse warp, its main forward and its loss alone, its
+        gradients summed over its data group. What crosses the pair needs no
+        gradient: one ``pair_exchange`` of the per-image losses (the
+        partner's ranking), the pseudo-labels, the weight maps and the dice
+        before the losses, and one of the loss values after them."""
+        with blocks.global_batch_stats(sharded):
+            images = batch_images(batch, two_modal)
+            k = state.index
+            targets = (batch["target1"], batch["target2"])
+            b = targets[0].shape[0]
+            check_views(degrees, b)
+            pseudo, wmap = pseudo_labels(state, images, batch_fills(batch, two_modal),
+                                         degrees, hflip, b)
+            pw = torch.cat([pseudo[0], wmap[0]], dim=-1)
+            state.train(True)
+            out = state.net(*images)
+            if sharded:
+                out = mesh.gather_rows(out)
+                pw, tt = mesh.fetch(pw, torch.stack(targets, dim=1))
+                targets = (tt[:, 0], tt[:, 1])
+                b = tt.shape[0]
+            # net k scored against the OTHER net's working labels
+            pre = image_criterion(out, targets[1 - k])
+            with torch.no_grad():
+                dice = metrics.dice_fn(out, targets[1 - k], threshold=thr)
+            pres, pws, dices = mesh.pair_exchange(pre, pw, dice)
+            order_other = torch.argsort(pres[1 - k], stable=True)
+            c = pseudo.shape[-1]
+            loss = side(pre, out, order_other, pws[1 - k][..., :c], pws[1 - k][..., c:], rate)
+            state.optimizer.zero_grad(set_to_none=True)
+            (loss / mesh.data_size()).backward()
+            mesh.all_reduce_grads(state.optimizer.params())
+            state.optimizer.step()
+            (both,) = mesh.pair_exchange(loss)
+            return {
+                "loss1": both[0],
+                "loss2": both[1],
+                "dice1_sum": dices[0],
+                "dice2_sum": dices[1],
+                "count": torch.tensor(float(b), device=both.device),
+            }
+
+    def step(state, batch, degrees, hflip, rate, sharded: bool = False) -> Dict[str, torch.Tensor]:
+        run = net_rank_step if isinstance(state, NetRankState) else pair_step
+        return run(state, batch, degrees, hflip, rate, sharded)
 
     return step
 
@@ -314,6 +383,17 @@ def make_eval_step(two_modal: bool, cfg: TrainConfig, dual: bool = True):
         images = batch_images(batch, two_modal)
         t1, t2 = batch["target1"], batch["target2"]
         state.train(False)
+        if isinstance(state, NetRankState):
+            # net k's metrics against the other's labels, then the pair's
+            out = state.net(*images)
+            if sharded:
+                out, t1, t2 = mesh.fetch(out, t1, t2)
+            other = (t1, t2)[1 - state.index]
+            loss, dice = mesh.pair_exchange(image_criterion(out, other).mean(),
+                                            metrics.dice_fn(out, other, threshold=thr))
+            return {"loss1": loss[0], "loss2": loss[1], "dice1_sum": dice[0],
+                    "dice2_sum": dice[1],
+                    "count": torch.tensor(float(t1.shape[0]), device=out.device)}
         out1, out2 = (net(*images) for net in state.nets)
         if sharded:
             out1, out2, t1, t2 = mesh.fetch(out1, out2, t1, t2)
@@ -344,7 +424,8 @@ def _index_matrix(data: Dict[str, torch.Tensor], mat, dtype=torch.int64) -> torc
 
 def make_predict_step(two_modal: bool, dual: bool = True):
     """predict(state, batch) -> uint8 labels, (2, B, H, W) of the pair or
-    (B, H, W) of the single net."""
+    (B, H, W) of the single net. On a net axis each rank predicts with its
+    net and the pair exchanges the labels."""
 
     @torch.no_grad()
     def predict(state: TrainState, batch) -> torch.Tensor:
@@ -352,6 +433,8 @@ def make_predict_step(two_modal: bool, dual: bool = True):
         state.train(False)
         if not dual:
             return _labels(state.net(*images))
+        if isinstance(state, NetRankState):
+            return mesh.pair_exchange(_labels(state.net(*images)))[0]
         return torch.stack([_labels(net(*images)) for net in state.nets])
 
     return predict

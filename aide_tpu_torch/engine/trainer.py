@@ -55,8 +55,18 @@ guardrail) from the same bytes; the primary rank alone writes files. N
 must divide gcd(batch_size, eval_batch_size); ``predict_all`` and the
 fused test pass are off at N > 1, as in the JAX package. A trainer built
 in a process that ``launch`` did not start runs as one rank; it raises
-when the config asks for more. Not ported yet, and refused: the ``net``
-and ``space`` mesh axes (ROADMAP Queue 1 item 7).
+when the config asks for more.
+
+With a net axis (``mesh.extra_axes = (("net", 2),)``, 2*N ranks) the rank
+of data shard d and net k holds net k of the pair alone
+(``engine.state.NetRankState``), initialised from ``seed + k`` as one
+process initialises it, and trains it on shard d's rows; the step, the
+test pass, case evaluation, the probe and refresh exchange what the other
+net needs or both nets' results over the pair (``mesh.pair_exchange``), so
+every rank takes the same decisions, and the primary rank gathers its
+partner's net for the files, which stay the pair's. A single-net run
+replicates its net over the axis and says so, as the JAX trainer does. Not
+ported yet, and refused: the ``space`` mesh axis (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -79,7 +89,7 @@ from aide_tpu_torch.data.pipeline import SlicePipeline
 from aide_tpu_torch.data.tasks import build_task
 from aide_tpu_torch.engine import checkpoint as ckpt
 from aide_tpu_torch.engine import steps as steps_mod
-from aide_tpu_torch.engine.state import DualTrainState, TrainState
+from aide_tpu_torch.engine.state import DualTrainState, NetRankState, TrainState
 from aide_tpu_torch.evaluation.case_eval import (
     _postprocess_case,
     dice3d_np,
@@ -136,23 +146,35 @@ def init_net(model_cfg, seed: int) -> nn.Module:
 
 
 def check_mesh(cfg: TrainConfig) -> int:
-    """The data axis this process trains on: the ranks of its process
-    group (1 without one). Raises where the config asks for more than the
-    process was started with, for the axes the port does not have, and for
-    a group whose size does not divide gcd(batch_size, eval_batch_size)."""
+    """The ranks this process trains with: its process group's (1 without
+    one). Raises where the config asks for more than the process was
+    started with, for the axes the port does not have, for a net axis of a
+    dual run whose size is not 2 (as ``place_state`` does), for a group
+    whose net axis is not the config's, and for a data axis whose size does
+    not divide gcd(batch_size, eval_batch_size)."""
     mesh.refuse_axes(cfg.mesh)
+    net = mesh.axis_size(cfg.mesh, "net")
+    if net > 1 and net != 2 and cfg.data.variant == "proposed" and cfg.coteach.enabled:
+        raise ValueError(
+            f"mesh axis 'net' must have size 2 (the dual co-teaching pair), got {net}")
     world = mesh.world_size()
     launched = mesh.fit_data_devices(mesh.data_batch(cfg), cfg.mesh.num_devices)
-    if not mesh.in_group() and (launched > 1 or cfg.mesh.coordinator_address):
+    if not mesh.in_group() and (launched > 1 or net > 1 or cfg.mesh.coordinator_address):
         raise ValueError(
-            f"mesh.num_devices={cfg.mesh.num_devices}, mesh.coordinator_address="
-            f"{cfg.mesh.coordinator_address!r}: a data axis of more than one rank runs one "
-            "process a card, which aide_tpu_torch.core.mesh.launch starts (the CLI's train "
-            "does); this process was not started by launch"
+            f"mesh.num_devices={cfg.mesh.num_devices}, mesh.extra_axes="
+            f"{tuple(cfg.mesh.extra_axes)}, mesh.coordinator_address="
+            f"{cfg.mesh.coordinator_address!r}: more than one rank runs one process a card, "
+            "which aide_tpu_torch.core.mesh.launch starts (the CLI's train does); this process "
+            "was not started by launch"
         )
-    if world > 1 and mesh.fit_data_devices(mesh.data_batch(cfg), world) != world:
+    if mesh.in_group() and mesh.net_size() != net:
         raise ValueError(
-            f"{world} ranks do not divide gcd(batch_size={cfg.data.batch_size}, "
+            f"the process group has a net axis of {mesh.net_size()}, mesh.extra_axes="
+            f"{tuple(cfg.mesh.extra_axes)} asks for {net}")
+    data = mesh.data_size()
+    if data > 1 and mesh.fit_data_devices(mesh.data_batch(cfg), data) != data:
+        raise ValueError(
+            f"{data} data shards do not divide gcd(batch_size={cfg.data.batch_size}, "
             f"eval_batch_size={cfg.data.eval_batch_size})"
         )
     return world
@@ -219,6 +241,10 @@ class Trainer:
         # what both packages read as an exact resume
         self.exact_resume = cfg.resume_file.endswith("_full.msgpack")
         seeds = (cfg.seed, cfg.seed + 1) if self.dual else (cfg.seed,)
+        # on a net axis this rank holds net k of the pair, from its seed
+        pair_rank = self.dual and mesh.net_size() > 1
+        if pair_rank:
+            seeds = (seeds[mesh.net_rank()],)
         nets = [
             # an exact resume overwrites every weight: no initialisation draw
             (build_model(cfg.model) if self.exact_resume else init_net(cfg.model, seed)).to(
@@ -227,10 +253,11 @@ class Trainer:
         ]
         spe = self.train_pipe.steps_per_epoch(cfg.data.batch_size)
         params = [p for net in nets for p in net.parameters()]
-        optimizer = make_optimizer(params, cfg.optim, spe, cfg.num_epochs)
+        optimizer = make_optimizer(params, cfg.optim, spe, cfg.num_epochs, pair=pair_rank)
         warm_start = cfg.resume_file and not self.exact_resume
         if self.dual:
-            self.state = DualTrainState(nets[0], nets[1], optimizer)
+            self.state = (NetRankState(nets[0], mesh.net_rank(), optimizer) if pair_rank
+                          else DualTrainState(nets[0], nets[1], optimizer))
             if warm_start:
                 # the kidney warm start from one net's export
                 ckpt.warm_start_dual(
@@ -283,17 +310,26 @@ class Trainer:
             self.history = list(meta.get("history", []))
 
     def _warn_mesh(self) -> None:
-        """Say when the data axis is smaller than the cards the config asks
-        for (0: every visible card): launch shrank it to divide the batches
-        ("MESH SHRUNK", as the JAX trainer logs it), or this process runs
-        one rank beside other visible cards."""
+        """Say when a net axis replicates a single net (as the JAX trainer
+        does), and when the ranks are fewer than the cards the config asks
+        for (0: every visible card): launch shrank the data axis to divide
+        the batches ("MESH SHRUNK", as the JAX trainer logs it), or this
+        process runs one rank beside other visible cards."""
+        net = mesh.net_size()
+        if net > 1 and not self.dual:
+            # a net axis only parallelizes the dual co-teaching pair
+            self.logger.warning(
+                "mesh 'net' axis (%d) configured but this is a single-net (%s) run — the state "
+                "replicates over it; drop the axis or grow data/space instead",
+                net, self.cfg.data.variant,
+            )
         if self.cfg.mesh.coordinator_address:
             return
         visible = torch.cuda.device_count() if self.device.type == "cuda" else 1
         asked = self.cfg.mesh.num_devices or visible
         if asked <= self.world:
             return
-        if mesh.fit_data_devices(mesh.data_batch(self.cfg), asked) > self.world:
+        if self.world == 1 and mesh.fit_data_devices(mesh.data_batch(self.cfg), asked) > 1:
             self.logger.warning(
                 "%d cards visible but this trainer runs as one rank on %s: a process that "
                 "aide_tpu_torch.core.mesh.launch did not start trains on one card (the CLI's "
@@ -301,7 +337,7 @@ class Trainer:
                 asked, self.device,
             )
         else:
-            self.logger.warning(mesh.shrunk_message(asked, self.cfg, self.world))
+            self.logger.warning(mesh.shrunk_message(asked, self.cfg, mesh.data_size()))
 
     # ------------------------------------------------------------------
 
@@ -336,7 +372,7 @@ class Trainer:
         is this rank's rows of a full eval batch (N divides it), and the
         labels of all ranks' rows are fetched."""
         labels = self.predict_step(state, self._on_device(batch))
-        if self.world == 1:
+        if mesh.data_size() == 1:
             return labels
         if not self.dual:
             return mesh.fetch(labels)
@@ -383,7 +419,7 @@ class Trainer:
                 args = (batch,)
             # ``sharded`` only over a data axis: a step wrapped with
             # positional arguments sees the single-card call
-            m = self.train_step(self.state, *args, *((sharded,) if self.world > 1 else ()))
+            m = self.train_step(self.state, *args, *((sharded,) if mesh.data_size() > 1 else ()))
             totals = self._accumulate(totals, m)
             if cfg.log_every_steps and (i + 1) % cfg.log_every_steps == 0:
                 # opt-in mid-epoch visibility; each line costs a host sync
@@ -403,7 +439,7 @@ class Trainer:
                 batch = dict(batch, target1=batch["target"], target2=batch["target"])
             # the ragged last batch of a data axis runs replicated: the
             # metrics are the whole batch's on every rank, counted once
-            sharded = (mesh.rows_sharded(min(eb, n - start)),) if self.world > 1 else ()
+            sharded = (mesh.rows_sharded(min(eb, n - start)),) if mesh.data_size() > 1 else ()
             totals = self._accumulate(totals, self.eval_step(self.state, batch, *sharded))
         return self._finalize(totals)
 
@@ -723,16 +759,14 @@ class Trainer:
         # refresh and history row come after this save); _last_full is the
         # exact continuation
         full_meta = dict(meta, **self._bookkeeping_meta(epoch))
-        if not mesh.is_primary():
+        snap = self._file_snapshot(clone=cfg.checkpoint_flush == "end")
+        if snap is None:
             # the primary rank writes the files; the others keep no snapshot
             return True
         if cfg.checkpoint_flush == "best":
-            ckpt.save_best(
-                cfg.checkpoint_dir, cfg.experiment_name,
-                ckpt.snapshot(self.state, clone=False), meta, full_meta,
-            )
+            ckpt.save_best(cfg.checkpoint_dir, cfg.experiment_name, snap, meta, full_meta)
         else:
-            self._best_snapshot = ckpt.snapshot(self.state)
+            self._best_snapshot = snap
             self._best_meta = (meta, full_meta)
         # back up the best epoch's tempmask folder, as the prostate trainers
         # do; gate and path read the same field, so an empty folder name
@@ -742,6 +776,16 @@ class Trainer:
             if os.path.isdir(src):
                 shutil.copytree(src, src.rstrip("/") + "_best", dirs_exist_ok=True)
         return True
+
+    def _file_snapshot(self, clone: bool) -> Optional[Dict]:
+        """The state's snapshot for the files on the primary rank, None on
+        the others. On a net axis the primary's partner sends its net (a
+        collective of their pair)."""
+        partner = isinstance(self.state, NetRankState) and mesh.data_rank() == 0
+        if not (mesh.is_primary() or partner):
+            return None
+        snap = ckpt.snapshot(self.state, clone=clone)
+        return snap if mesh.is_primary() else None
 
     def flush_checkpoints(self) -> None:
         """Write the best epoch's snapshot (checkpoint_flush == 'end'); a
@@ -903,10 +947,11 @@ class Trainer:
                 self.logger.exception("failure-path checkpoint/history flush failed")
         # the exact continuation: the state at the end of epoch n, with the
         # epoch clock, the gates and the history in the sidecar
-        if mesh.is_primary():
+        snap = self._file_snapshot(clone=False)
+        if snap is not None:
             ckpt.save_train_state(
                 ckpt.full_path(self.cfg.checkpoint_dir, self.cfg.experiment_name, last=True),
-                self.state, self._bookkeeping_meta(n),
+                snap, self._bookkeeping_meta(n),
             )
         return self.history
 

@@ -153,8 +153,9 @@ def _row_counts(world: int, count: int, device: torch.device):
 
 class _GlobalBatchNorm(torch.autograd.Function):
     """Train-mode batch norm over the global batch of the data axis. The
-    forward all-gathers each rank's per-channel mean and inverse std (one
-    collective) and combines them; the backward all-reduces the
+    forward all-gathers each rank's per-channel mean and inverse std over
+    its net's data group (one collective; on a net axis the pair's other
+    net normalises its own activations in its own group) and combines them; the backward all-reduces the
     per-channel sum(dy) and sum(dy * (x - mean)) (one collective). The
     weight's and bias's gradients stay this rank's share, which the step's
     gradient all-reduce sums. Returns y and the global mean and inverse
@@ -163,7 +164,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         x = x.contiguous(memory_format=_memory_format(x))
-        c, world = x.shape[1], mesh.world_size()
+        c, world = x.shape[1], mesh.data_size()
         mean, invstd = _stats(x, eps)
         local = torch.cat([mean, invstd])
         gathered = local.new_empty(world * 2 * c)
@@ -221,7 +222,7 @@ class BatchNorm(nn.Module):
                 False, 0.0, self.eps,
             )
         fold = update_stats and self.fold
-        if _global_stats and mesh.world_size() > 1:
+        if _global_stats and mesh.data_size() > 1:
             y, mean, invstd = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
             if fold:
                 with torch.no_grad():

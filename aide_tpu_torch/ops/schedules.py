@@ -26,6 +26,7 @@ from typing import Callable, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from aide_tpu_torch.core import mesh
 from aide_tpu_torch.core.config import OptimConfig
 
 
@@ -64,7 +65,11 @@ class OptaxOptimizer(torch.optim.Optimizer):
     One optimizer over the union of both nets' parameters is the JAX
     package's one transform over the stacked pair: its moments are
     elementwise, and its clipping norm is one norm over both nets'
-    gradients, as JAX's over the stacked pytree."""
+    gradients, as JAX's over the stacked pytree. On a net axis each rank's
+    optimizer holds its own net (``pair``): the moments need nothing else,
+    and the clipping norm takes the partner's per-tensor norms through
+    ``mesh.pair_exchange``, so it is the pair's norm, bit for bit the one
+    process's."""
 
     NAME = ""
     MOMENTS: Tuple[str, ...] = ()
@@ -75,11 +80,13 @@ class OptaxOptimizer(torch.optim.Optimizer):
         schedule: Callable[[int], float],
         grad_clip_norm: Optional[float] = None,
         weight_decay: float = 0.0,
+        pair: bool = False,
     ):
         super().__init__(params, {})
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
         self.weight_decay = weight_decay
+        self.pair = pair
         self.count = 0
         for p in self.params():
             for m in self.MOMENTS:
@@ -93,8 +100,12 @@ class OptaxOptimizer(torch.optim.Optimizer):
 
     def _clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """optax.clip_by_global_norm: unchanged below the norm, else
-        g / norm * max_norm (no epsilon), decided on the device."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        g / norm * max_norm (no epsilon), decided on the device. With
+        ``pair`` the norm spans both nets' tensors, in net order."""
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.pair:
+            norms = mesh.pair_exchange(norms)[0].reshape(-1)
+        norm = torch.linalg.vector_norm(norms)
         keep = norm < self.grad_clip_norm
         div = torch.where(keep, torch.ones_like(norm), norm)
         mul = torch.where(keep, torch.ones_like(norm), torch.full_like(norm, self.grad_clip_norm))
@@ -196,12 +207,14 @@ class SGD(OptaxOptimizer):
 OPTIMIZERS = {cls.NAME: cls for cls in (AMSGrad, Adam, SGD)}
 
 
-def make_optimizer(params, cfg: OptimConfig, steps_per_epoch: int, num_epochs: int) -> OptaxOptimizer:
+def make_optimizer(params, cfg: OptimConfig, steps_per_epoch: int, num_epochs: int,
+                   pair: bool = False) -> OptaxOptimizer:
     """The optimizer of ``cfg`` over ``params``: ``cfg.optimizer`` behind
-    the optional clipping and weight decay."""
+    the optional clipping and weight decay; ``pair`` for one net of the
+    co-teaching pair on a rank of a net axis (``OptaxOptimizer``)."""
     if cfg.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     return OPTIMIZERS[cfg.optimizer](
         params, make_lr_schedule(cfg, steps_per_epoch, num_epochs),
-        grad_clip_norm=cfg.grad_clip_norm, weight_decay=cfg.weight_decay,
+        grad_clip_norm=cfg.grad_clip_norm, weight_decay=cfg.weight_decay, pair=pair,
     )

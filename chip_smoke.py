@@ -152,16 +152,33 @@ Phases:
      warp at the per-rank shapes held to its plain version on each card;
      it prints the world size, the cards, each rank's step median, peak
      and launches, the collectives a step and the gradient all-reduce's
-     bytes and ms beside phase 5's step median.
+     bytes and ms beside phase 5's step median;
+ 13. the net axis: phase 5's CHAOS point through aide_tpu_torch.core.mesh.
+     launch with mesh.extra_axes=(("net", 2),), one process a card, rank r
+     holding net r % 2 of the pair on data shard r // 2's rows: net 2 at
+     data 1 on 2 cards and, with 4 cards, data 2 x net 2. Each run is held
+     as phase 12's: rank 0's history to phase 5's with the cross-mesh bars,
+     each refresh decision to phase 5's with a margin, the ranks of each
+     net ending with equal parameters and BN statistics, every rank with
+     the same history and working labels (host and device), the files
+     written by rank 0 alone, 3 warp launches a step on every rank, the
+     warp at the per-rank shapes held to its plain version on each card,
+     and rank 0's _last_full resumed by a one-process Trainer holding the
+     ranks' nets bit for bit. It prints the world, the cards and the net
+     axis, each rank's step median, peak, launches and collectives a step,
+     the pair exchange's bytes and ms, at data 2 the gradient all-reduce's,
+     beside phase 5's and phase 12's step medians. On a machine with one
+     card it checks that the net axis raises naming the cards, and says
+     that the axis was not exercised there.
 Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's,
-phase 10's and phase 12's launch shapes.
+phase 10's, phase 12's and phase 13's launch shapes.
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
 Run from the repository root:
   python3 chip_smoke.py [--profile] [--baseline FILE.cu] [--data-axis]
-(--data-axis runs phases 1-5 and 12 alone, for a machine with several
-cards; --profile adds, after phases 5, 7 and 12 and in phase 9 (a) and (b), a
+(--data-axis runs phases 1-5, 12 and 13 alone, for a machine with several
+cards; --profile adds, after phases 5, 7, 12 and 13 and in phase 9 (a) and (b), a
 torch.profiler breakdown of a few more co-teaching steps of each; --baseline times another version of csrc/warp_rotate_flip.cu, for
 instance an earlier commit's, beside this one in phase 4; it may be given
 more than once).
@@ -226,6 +243,13 @@ KERNEL_LAUNCHES = (
     # 2 ranks a rank launches at the CHAOS preset's shapes, on 1 at phase 5's)
     ("data_axis_4", (8, 256, 256, 3), False, 2),
     ("data_axis_4", (16, 256, 256, 2), True, 1),
+    # phase 13: each rank of a net axis warps both modalities' views of its
+    # data shard's rows and inverse-warps its own net's views alone: at
+    # data 1 (2 cards) all 8 images, at data 2 (4 cards) 4
+    ("net_axis_2", (32, 256, 256, 3), False, 2),
+    ("net_axis_2", (32, 256, 256, 2), True, 1),
+    ("net_axis_4", (16, 256, 256, 3), False, 2),
+    ("net_axis_4", (16, 256, 256, 2), True, 1),
 )
 # phase 12's per-rank launch shapes by world size: their rows above
 DATA_AXIS_SHAPES = {1: "chaos_coteach", 2: "chaos_preset", 4: "data_axis_4"}
@@ -1852,7 +1876,7 @@ def profile_steps(name, trainer, steps: int = 3) -> None:
     degrees, hflip = trainer.view_params(0, 0, b)
     rows = mesh.local_rows(b)
     args = (trainer.state, batch, degrees[:, rows], hflip[:, rows], 0.5,
-            *((mesh.rows_sharded(b),) if trainer.world > 1 else ()))
+            *((mesh.rows_sharded(b),) if mesh.data_size() > 1 else ()))
     trainer.train_step(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2152,13 +2176,62 @@ def global_batchnorm_error(rank, world, batch, device):
                ((got.detach(), ref.detach()) for got, ref in pairs))
 
 
+def rank_label_checks(trainer, task, rank):
+    """(the working labels, whether this rank's device copy of them equals
+    the host's rows, whether rank 0's tempmasks read back as them)."""
+    import numpy as np
+
+    pipe = trainer.train_pipe
+    labels = [pipe.labels.get(n) for n in (1, 2)]
+    # each rank's device block of the working labels equals the host's rows
+    blocks_ok = True
+    if pipe._sharded is not None:
+        c = pipe._sharded
+        rows = np.clip(np.arange(c.lo, c.lo + c.shard), 0, len(pipe) - 1)
+        blocks_ok = all(np.array_equal(c.rows(f"target{n}").cpu().numpy(), labels[n - 1][rows])
+                        for n in (1, 2))
+    elif pipe._device_labels is not None:
+        blocks_ok = all(np.array_equal(pipe._device_labels[f"target{n}"].cpu().numpy(),
+                                       labels[n - 1]) for n in (1, 2))
+    # the primary's tempmasks read back as the labels it holds
+    tempmasks_ok = True
+    if rank == 0:
+        for _, net, _, rewritten in trainer.refresh_log:
+            for case in rewritten:
+                for i in pipe.case_indices(case):
+                    disk = task.read_tempmask(pipe.specs[i], net)
+                    tempmasks_ok &= disk is not None and np.array_equal(disk, labels[net - 1][i])
+    return labels, blocks_ok, tempmasks_ok
+
+
+def warp_vs_plain(launches, rank, device) -> float:
+    """The warp at a rank's launch shapes ((images, C, inverse) at 256 px,
+    ±60 degrees), against its plain version on the rank's card: the
+    largest absolute difference."""
+    import torch
+
+    from aide_tpu_torch.ops import cuda_warp
+
+    worst = 0.0
+    for n_img, c, inverse in launches:
+        degrees = [60.0 * (2.0 * i / (n_img - 1) - 1.0) for i in range(n_img)]
+        images, degrees_t, hflip_t, fill = warp_inputs(degrees, [i % 2 for i in range(n_img)], 256,
+                                                       c, seed=rank + c, device=device)
+        table = cuda_warp.coef_table(degrees_t, hflip_t, inverse)
+        got = cuda_warp.warp_rotate_flip(images, degrees_t, hflip_t, fill, inverse=inverse)
+        ref = cuda_warp.warp_plain(images, table, cuda_warp.fill_table(fill, n_img, c, device),
+                                   inverse)
+        torch.cuda.synchronize()
+        worst = max(worst, float((got - ref).abs().max()))
+    return worst
+
+
 def data_axis_rank(rank, device, scratch, world, profile=False):
     """Phase 12 on one rank (a process of ``mesh.launch``, on its card):
     phase 5's CHAOS point, Trainer.run(2) with this rank's rows, driven as
     phase 5's; its own files under ``scratch/rank{rank}``. Returns what the
     phase compares across ranks and with phase 5. A failed check exits this
     rank non-zero, which ends the launch."""
-    import numpy as np
     import torch
 
     from aide_tpu_torch.core import mesh
@@ -2191,40 +2264,9 @@ def data_axis_rank(rank, device, scratch, world, profile=False):
     trainer.train_step = inner
     if profile:
         profile_steps(f"data axis, world {world}", trainer)
-    pipe = trainer.train_pipe
-    labels = [pipe.labels.get(n) for n in (1, 2)]
-    # each rank's device block of the working labels equals the host's rows
-    blocks_ok = True
-    if pipe._sharded is not None:
-        c = pipe._sharded
-        rows = np.clip(np.arange(c.lo, c.lo + c.shard), 0, len(pipe) - 1)
-        blocks_ok = all(np.array_equal(c.rows(f"target{n}").cpu().numpy(), labels[n - 1][rows])
-                        for n in (1, 2))
-    elif pipe._device_labels is not None:
-        blocks_ok = all(np.array_equal(pipe._device_labels[f"target{n}"].cpu().numpy(),
-                                       labels[n - 1]) for n in (1, 2))
-    # the primary's tempmasks read back as the labels it holds
-    tempmasks_ok = True
-    if rank == 0:
-        for _, net, _, rewritten in trainer.refresh_log:
-            for case in rewritten:
-                for i in pipe.case_indices(case):
-                    disk = task.read_tempmask(pipe.specs[i], net)
-                    tempmasks_ok &= disk is not None and np.array_equal(disk, labels[net - 1][i])
-    # the warp at this rank's launch shapes, against its plain version on
-    # this rank's card
+    labels, blocks_ok, tempmasks_ok = rank_label_checks(trainer, task, rank)
     v, b = cfg.data.num_tta_views, cfg.data.batch_size // world
-    warp_err = 0.0
-    for n_img, c, inverse in ((v * b, 3, False), (2 * v * b, 2, True)):
-        degrees = [60.0 * (2.0 * i / (n_img - 1) - 1.0) for i in range(n_img)]
-        images, degrees_t, hflip_t, fill = warp_inputs(degrees, [i % 2 for i in range(n_img)], 256,
-                                                       c, seed=rank + c, device=device)
-        table = cuda_warp.coef_table(degrees_t, hflip_t, inverse)
-        got = cuda_warp.warp_rotate_flip(images, degrees_t, hflip_t, fill, inverse=inverse)
-        ref = cuda_warp.warp_plain(images, table, cuda_warp.fill_table(fill, n_img, c, device),
-                                   inverse)
-        torch.cuda.synchronize()
-        warp_err = max(warp_err, float((got - ref).abs().max()))
+    warp_err = warp_vs_plain(((v * b, 3, False), (2 * v * b, 2, True)), rank, device)
     bn_err = global_batchnorm_error(rank, world, cfg.data.batch_size, device)
     # the gradient all-reduce: the flat buffer of the pair's gradients (the
     # step's last ones), summed over the ranks
@@ -2324,6 +2366,16 @@ def run_data_axis(scratch, chaos, chaos_log, profile=False):
     wanted = ("_history.json", ".log", "_last_full.msgpack", "_besttraincasedice.pkl", ".png")
     if not all(any(f.endswith(w) for f in r0["files"]) for w in wanted):
         fail(f"phase 12: rank 0 did not write every file: {r0['files']}")
+    hold_to_phase5("phase 12", "data axis", f"world {world}", r0, chaos, chaos_log)
+    return dict(r0, ranks=ranks, seconds=seconds, cards=cards)
+
+
+def hold_to_phase5(phase, name, layout, r0, chaos, chaos_log) -> None:
+    """Rank 0's history of a multi-rank run held to phase 5's with the JAX
+    package's cross-mesh bars (dice within 0.03, losses within rtol 2e-2
+    and atol 2e-3, the other keys equal), and its refresh decisions to
+    phase 5's, each with a margin: phase 5's case-dice gap at the worst-1
+    boundary above the largest difference of a case's dice."""
     for want, got in zip(chaos["rows"], r0["rows"]):
         for key, v in want.items():
             if key.startswith("time"):
@@ -2332,22 +2384,238 @@ def run_data_axis(scratch, chaos, chaos_log, profile=False):
                   math.isclose(got[key], v, rel_tol=2e-2, abs_tol=2e-3) if "loss" in key else
                   got[key] == v)
             if not ok:
-                fail(f"phase 12: epoch {want['epoch']} {key}: world {world} {got[key]}, "
-                     f"world 1 {v}")
+                fail(f"{phase}: epoch {want['epoch']} {key}: {layout} {got[key]}, world 1 {v}")
     log5 = [tuple(entry[:3]) for entry in chaos_log]
-    log12 = [tuple(entry[:3]) for entry in r0["refresh_log"]]
+    log = [tuple(entry[:3]) for entry in r0["refresh_log"]]
     gaps = boundary_gaps(chaos["case_dice"], 1)
     margins = [(gaps[key], max(abs(r0["case_dice"][key][c] - d)
                                for c, d in chaos["case_dice"][key].items()))
                for key in sorted(chaos["case_dice"])]
-    print(f"data axis: refresh decisions {log12} (phase 5: {log5}); margins (phase 5's gap at "
-          f"the worst-1 boundary, largest world-{world} vs world-1 case-dice difference): "
+    print(f"{name}: refresh decisions {log} (phase 5: {log5}); margins (phase 5's gap at "
+          f"the worst-1 boundary, largest {layout} vs world-1 case-dice difference): "
           + json.dumps(margins) + f"; worst metric difference "
           f"{worst_difference(r0['rows'], chaos['rows']):.3e} (relative above 1, absolute "
           f"below)", flush=True)
-    if log12 != log5 or not all(gap > diff for gap, diff in margins):
-        fail(f"phase 12: refresh decisions {log12} against phase 5's {log5}, margins {margins}")
-    return dict(r0, ranks=ranks, seconds=seconds, cards=cards)
+    if log != log5 or not all(gap > diff for gap, diff in margins):
+        fail(f"{phase}: refresh decisions {log} against phase 5's {log5}, margins {margins}")
+
+
+# ------------------------------- phase 13 -------------------------------
+
+
+def net_axis_config(world: int):
+    """Phase 5's CHAOS point with a net axis of 2 over ``world`` cards (0:
+    every visible card): data world/2 x net 2."""
+    cfg = chaos_config()
+    cfg.mesh.num_devices = world
+    cfg.mesh.extra_axes = (("net", 2),)
+    return cfg
+
+
+def net_axis_rank(rank, device, scratch, world, profile=False):
+    """Phase 13 on one rank (a process of ``mesh.launch``, on its card):
+    phase 5's CHAOS point, Trainer.run(2) with net rank % 2 of the pair on
+    data shard rank // 2's rows, driven as phase 5's; its own files under
+    ``scratch/rank{rank}``. Returns what the phase compares across ranks
+    and with phase 5. A failed check exits this rank non-zero, which ends
+    the launch."""
+    import torch
+
+    from aide_tpu_torch.core import mesh
+    from aide_tpu_torch.engine.state import NetRankState
+    from aide_tpu_torch.engine.trainer import Trainer
+    from aide_tpu_torch.ops import cuda_warp
+
+    work = fresh_dir(os.path.join(scratch, f"rank{rank}"))
+    cfg = net_axis_config(world)
+    cfg.checkpoint_dir = os.path.join(work, "ckpt")
+    cfg.history_dir = os.path.join(work, "hist")
+    cfg.data.tempmask_folder = "tempmasks"
+    task = chaos_task(os.path.join(work, "chaos"))
+    release_device_memory()
+    trainer = Trainer(cfg, task, device=device)
+    trainer.label_cases = set(task.clean_case_ids())
+    state = trainer.state
+    if (trainer.world != world or trainer.device != device or not isinstance(state, NetRankState)
+            or state.index != rank % 2):
+        fail(f"rank {rank}: trainer on {trainer.device} at world {trainer.world} holds "
+             f"{type(state).__name__} {getattr(state, 'index', None)}")
+    per_step, bytes_per_step, inner = [], [], trainer.train_step
+
+    def counted(*args):
+        before, before_bytes = mesh.collectives, mesh.collective_bytes
+        out = inner(*args)
+        per_step.append(mesh.collectives - before)
+        bytes_per_step.append(mesh.collective_bytes - before_bytes)
+        return out
+
+    trainer.train_step = counted
+    mesh.reset_collectives()
+    run = drive(trainer, cuda_warp)
+    trainer.train_step = inner
+    # the net as the run ended (and _last_full holds it), before any profiled step
+    net_state = digest([t for _, t in sorted(state.net.state_dict().items())])
+    if profile:
+        profile_steps(f"net axis, world {world}", trainer)
+    labels, blocks_ok, tempmasks_ok = rank_label_checks(trainer, task, rank)
+    data = world // 2
+    v, b = cfg.data.num_tta_views, cfg.data.batch_size // data
+    warp_err = warp_vs_plain(((v * b, 3, False), (v * b, 2, True)), rank, device)
+    # the step's pair exchange at its shapes: the per-image losses, the
+    # pseudo-labels and weight map of the data group's rows, the dice sum
+    rows = cfg.data.batch_size
+    gen = torch.Generator(device=device).manual_seed(rank)
+    sent = (torch.rand(rows, device=device, generator=gen),
+            torch.rand((rows, 256, 256, 3), device=device, generator=gen),
+            torch.rand((), device=device, generator=gen))
+    exchange_bytes = sum(t.numel() * t.element_size() for t in sent)
+    exchange_ms = time_cuda(lambda: mesh.pair_exchange(*sent), runs=20, warmup=3)
+    allreduce = {}
+    if data > 1:
+        # the gradient all-reduce of this rank's net over its data group
+        params = state.optimizer.params()
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        allreduce = dict(allreduce_bytes=flat.numel() * 4,
+                         allreduce_ms=time_cuda(lambda: mesh.all_reduce(flat), runs=20, warmup=3),
+                         sync_ms=time_cuda(lambda: mesh.all_reduce_grads(params), runs=20,
+                                           warmup=3))
+    return dict(
+        rank=rank, device=str(device), world=mesh.world_size(), net_size=mesh.net_size(),
+        index=state.index, name=torch.cuda.get_device_name(device),
+        rows=run["rows"], case_dice=run["case_dice"], refresh_log=list(trainer.refresh_log),
+        steady=run["steady"], step_ms=run["step_ms"], spe=run["spe"], peak=run["peak"],
+        launches=run["launches"], outside=run["outside"], best_epochs=run["best_epochs"],
+        collectives_per_step=per_step, collective_bytes_per_step=bytes_per_step,
+        state=net_state, labels=digest(labels), blocks_ok=blocks_ok,
+        tempmasks_ok=tempmasks_ok, warp_err=warp_err, exchange_bytes=exchange_bytes,
+        exchange_ms=exchange_ms, **allreduce,
+        files=sorted(os.path.relpath(os.path.join(d, f), work)
+                     for d, _, fs in os.walk(work) for f in fs if "tempmasks" in d or
+                     d.endswith(("ckpt", "hist"))),
+    )
+
+
+def run_net_layout(scratch, world, chaos, chaos_log, data_axis, profile=False):
+    """Phase 13 at one layout: phase 5's CHAOS point through ``mesh.launch``
+    on ``world`` cards, data world/2 x net 2. Holds rank 0's history and
+    refresh decisions to phase 5's (``hold_to_phase5``), the ranks of each
+    net to equal parameters and BN statistics, every rank to the same
+    history and working labels (host and device), the files to rank 0
+    alone, 3 warp launches a step on every rank, the warp at the per-rank
+    shapes to its plain version, and rank 0's ``_last_full`` to the ranks'
+    nets through a one-process Trainer resumed from it."""
+    import torch
+
+    from aide_tpu_torch.core import mesh
+    from aide_tpu_torch.engine import checkpoint as ckpt
+    from aide_tpu_torch.engine.trainer import Trainer
+
+    name = f"net axis {world // 2}x2"
+    work = fresh_dir(os.path.join(scratch, f"net_axis_{world}"))
+    release_device_memory()
+    t0 = time.perf_counter()
+    try:
+        ranks = mesh.launch(net_axis_rank, net_axis_config(world), "cuda", (work, world, profile))
+    except Exception as err:  # a rank that failed ends the launch
+        fail(f"phase 13: the net axis on {world} cards failed: {err}")
+    seconds = time.perf_counter() - t0
+    if sorted(ranks) != list(range(world)) or any(
+            (r["world"], r["net_size"], r["index"]) != (world, 2, i % 2) for i, r in ranks.items()):
+        fail(f"phase 13: ranks {sorted(ranks)}: "
+             f"{[(r['world'], r['net_size'], r['index']) for r in ranks.values()]}")
+    r0 = ranks[0]
+    print(f"{name}: world {world} over NCCL, net_size 2, data {world // 2}, "
+          f"{torch.cuda.device_count()} cards visible; devices "
+          f"{[ranks[r]['device'] for r in sorted(ranks)]}; {seconds:.1f} s", flush=True)
+    for r in sorted(ranks):
+        res = ranks[r]
+        print(f"{name} rank {r} ({res['device']}, {res['name']}, net {res['index'] + 1}): median "
+              f"step {res['steady']:.3f} ms, max_memory_allocated {res['peak']} bytes, warp "
+              f"launches {res['launches']} ({res['outside']} outside the train steps), "
+              f"collectives a step {sorted(set(res['collectives_per_step']))} of "
+              f"{sorted(set(res['collective_bytes_per_step']))} bytes, warp vs plain at the "
+              f"rank's shapes max abs {res['warp_err']:.3e}; pair exchange "
+              f"{res['exchange_bytes']} bytes a rank {res['exchange_ms']:.4f} ms"
+              + (f"; gradient all-reduce {res['allreduce_bytes']} bytes {res['allreduce_ms']:.4f} "
+                 f"ms, all_reduce_grads {res['sync_ms']:.4f} ms" if "allreduce_ms" in res else "")
+              + " (CUDA events, median of 20)", flush=True)
+    print_run(name.replace(" ", "_"), r0)
+    print(f"{name}: median step {r0['steady']:.3f} ms (ranks "
+          f"{[round(ranks[r]['steady'], 3) for r in sorted(ranks)]}), phase 5 (one card) "
+          f"{chaos['steady']:.3f} ms, phase 12 (data axis of {data_axis['world']}) "
+          f"{data_axis['steady']:.3f} ms", flush=True)
+
+    def metrics(res):
+        return [{k: v for k, v in row.items() if not k.startswith("time")} for row in res["rows"]]
+
+    for r in sorted(ranks)[1:]:
+        other = ranks[r]
+        if (other["labels"], other["refresh_log"], metrics(other)) != (
+                r0["labels"], r0["refresh_log"], metrics(r0)):
+            fail(f"phase 13: rank {r} ends with other labels or history than rank 0")
+        if other["state"] != ranks[r % 2]["state"]:
+            fail(f"phase 13: rank {r} ends with other parameters than rank {r % 2} (net "
+                 f"{r % 2 + 1})")
+        if other["files"]:
+            fail(f"phase 13: rank {r} wrote files: {other['files'][:5]}")
+    per_step = len(r0["step_ms"])
+    for r, res in ranks.items():
+        if res["launches"] != 3 * per_step or res["outside"] != 0:
+            fail(f"phase 13: rank {r} launched the warp {res['launches']} times over {per_step} "
+                 f"steps ({res['outside']} outside the train steps)")
+        if not (res["blocks_ok"] and res["tempmasks_ok"]) or res["warp_err"] > 1e-5:
+            fail(f"phase 13: rank {r}: device labels {res['blocks_ok']}, tempmasks "
+                 f"{res['tempmasks_ok']}, warp max abs {res['warp_err']}")
+    wanted = ("_history.json", ".log", "_last_full.msgpack", "_net1_besttraincasedice.pkl",
+              "_net2_besttraincasedice.pkl", ".png")
+    if not all(any(f.endswith(w) for f in r0["files"]) for w in wanted):
+        fail(f"phase 13: rank 0 did not write every file: {r0['files']}")
+    hold_to_phase5("phase 13", name, name, r0, chaos, chaos_log)
+    # rank 0's _last_full holds the pair: a one-process trainer resumes it
+    cfg = chaos_config()
+    cfg.resume_file = ckpt.full_path(os.path.join(work, "rank0", "ckpt"), cfg.experiment_name,
+                                     last=True)
+    cfg.checkpoint_dir = fresh_dir(os.path.join(work, "resume", "ckpt"))
+    cfg.history_dir = fresh_dir(os.path.join(work, "resume", "hist"))
+    resumed = Trainer(cfg, chaos_task(os.path.join(work, "rank0", "chaos")))
+    got = [digest([t for _, t in sorted(net.state_dict().items())]) for net in resumed.state.nets]
+    if got != [ranks[0]["state"], ranks[1]["state"]] or resumed.start_epoch != 2:
+        fail(f"phase 13: rank 0's _last_full does not hold the ranks' nets ({got} against "
+             f"{[ranks[0]['state'], ranks[1]['state']]}, next epoch {resumed.start_epoch})")
+    print(f"{name}: rank 0's _last_full ({os.path.getsize(cfg.resume_file)} bytes) resumes in "
+          f"one process at epoch {resumed.start_epoch + 1} with the pair equal to ranks 0 and "
+          f"1's nets bit for bit", flush=True)
+    del resumed
+    release_device_memory()
+    return dict(r0, ranks=ranks, seconds=seconds)
+
+
+def run_net_axis(scratch, chaos, chaos_log, data_axis, profile=False):
+    """Phase 13: the net axis on the cards of this machine: net 2 at data 1
+    on 2 cards and, with 4, data 2 x net 2 (``run_net_layout``). With one
+    card, a net axis must raise naming the cards; that is what the phase
+    checks there, and it says that the axis was not exercised. Returns
+    {world: run}."""
+    import torch
+
+    from aide_tpu_torch.core import mesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        try:
+            mesh.launch(net_axis_rank, net_axis_config(0), "cuda", (scratch, 2, profile))
+        except ValueError as err:
+            if "card" not in str(err):
+                fail(f"phase 13: a net axis on {cards} card raised without naming the cards: {err}")
+            print(f"net axis: not exercised on this machine ({cards} card visible): "
+                  f"mesh.extra_axes=(('net', 2),) raised as it must ({err}); nothing falls back "
+                  f"to CPU ranks or to two ranks on one card. tests/test_torch_net_axis.py runs "
+                  f"the axis over gloo CPU ranks; a machine with 2 or 4 cards runs it here",
+                  flush=True)
+            return {}
+        fail("phase 13: a net axis on one card did not raise")
+    return {world: run_net_layout(scratch, world, chaos, chaos_log, data_axis, profile)
+            for world in ((2, 4) if cards >= 4 else (2,))}
 
 
 def run_phases_6_to_11(cuda_warp, scratch, args, chaos, chaos_log):
@@ -2423,8 +2691,8 @@ def main() -> int:
                         help="another version of csrc/warp_rotate_flip.cu to time in phase 4 "
                              "(repeatable)")
     parser.add_argument("--data-axis", action="store_true",
-                        help="phases 1-5 and 12 only: the data axis and what it is held to "
-                             "(for a machine with several cards)")
+                        help="phases 1-5, 12 and 13 only: the data and net axes and what they "
+                             "are held to (for a machine with several cards)")
     args = parser.parse_args()
     import torch
 
@@ -2475,9 +2743,14 @@ def main() -> int:
     stamp("phase 12")
     world = data_axis["world"]
     SAME_SHAPES["data_axis"] = (DATA_AXIS_SHAPES[world],)
+    t13 = time.perf_counter()
+    net_axis = run_net_axis(scratch, chaos, chaos_log, data_axis, args.profile)
+    print(f"phase 13: {time.perf_counter() - t13:.2f} s", flush=True)
+    stamp("phase 13")
+    net_runs = {f"net_axis_{w}": run for w, run in net_axis.items()}
 
     by_path = {}
-    for path, run in {**runs, "data_axis": data_axis}.items():
+    for path, run in {**runs, "data_axis": data_axis, **net_runs}.items():
         launched = [r for r in rows if r["path"] in SAME_SHAPES.get(path, (path,))]
         by_path[path] = {
             "launches": run["launches"],
@@ -2503,9 +2776,28 @@ def main() -> int:
         "grad_sync_ms": data_axis["sync_ms"],
         "step_ms_world1": chaos["steady"],
     })
+    for path, run in net_runs.items():
+        net_ranks = run["ranks"]
+        by_path[path].update({
+            "world": run["world"], "net_size": 2, "data": run["world"] // 2,
+            "launches_by_rank": [net_ranks[r]["launches"] for r in sorted(net_ranks)],
+            "step_ms_by_rank": [net_ranks[r]["steady"] for r in sorted(net_ranks)],
+            "max_memory_allocated_by_rank": [net_ranks[r]["peak"] for r in sorted(net_ranks)],
+            "collectives_per_step": sorted(set(run["collectives_per_step"])),
+            "collective_bytes_per_step": sorted(set(run["collective_bytes_per_step"])),
+            "pair_exchange_bytes": run["exchange_bytes"],
+            "pair_exchange_ms": run["exchange_ms"],
+            **({"grad_allreduce_bytes": run["allreduce_bytes"],
+                "grad_allreduce_ms": run["allreduce_ms"], "grad_sync_ms": run["sync_ms"]}
+               if "allreduce_ms" in run else {}),
+            "step_ms_world1": chaos["steady"],
+            "step_ms_data_axis": data_axis["steady"],
+        })
     chaos_step = by_path["chaos_coteach"]
     launches = {path: run["launches"] for path, run in runs.items()}
     launches.update({f"data_axis_rank{r}": ranks[r]["launches"] for r in sorted(ranks)})
+    for path, run in net_runs.items():
+        launches.update({f"{path}_rank{r}": n["launches"] for r, n in sorted(run["ranks"].items())})
     kernels = [{
         "name": "warp_rotate_flip",
         "route": "cuda",
@@ -2514,7 +2806,9 @@ def main() -> int:
         "launches": sum(launches.values()),
         "launches_by_path": launches,
         "max_abs_err": max([worst] + [r["max_abs_err"] for r in rows]
-                           + [ranks[r]["warp_err"] for r in ranks]),
+                           + [ranks[r]["warp_err"] for r in ranks]
+                           + [n["warp_err"] for run in net_runs.values()
+                              for n in run["ranks"].values()]),
         # one CHAOS co-teaching step: two forward launches and one inverse
         # launch, each timed with a cold L2 (by_path has the kidney step,
         # per_launch the warm times)
