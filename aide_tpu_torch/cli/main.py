@@ -21,7 +21,10 @@ of them (shrunk to divide gcd(batch_size, eval_batch_size)), and with
 gloo; ``mesh.coordinator_address`` with ``mesh.num_processes`` and
 ``mesh.process_id`` makes this process one rank of a job. ``--set
 'mesh.extra_axes=[["net",2]]'`` adds the net axis: the ranks come in
-pairs, one net of the co-teaching pair each (on one card it raises). ``eval``,
+pairs, one net of the co-teaching pair each (on one card it raises);
+``'mesh.extra_axes=[["space",2]]'`` (or ``[["net",2],["space",2]]``) splits
+each image's rows over 2 ranks (layout only: the numbers are one card's up
+to reduction order). ``eval``,
 ``predict`` and ``export`` run on one device, as the JAX CLI's do.
 """
 
@@ -272,7 +275,8 @@ def main(argv=None) -> int:
                     "same steps and each takes longer; PERF.md), so pass --set "
                     "mesh.num_devices=1 to train on one card. --set "
                     "'mesh.extra_axes=[[\"net\",2]]' puts one net of the co-teaching pair "
-                    "on each card of a pair.",
+                    "on each card of a pair; [[\"space\",2]] splits each image's rows over "
+                    "2 cards.",
     )
     _add_common(p_train)
     p_train.add_argument("--epochs", type=int, help="override epoch count")

@@ -8,8 +8,8 @@ plain one. The mesh settings are read by ``core.mesh.launch`` and
 ``Trainer``: the data axis (``mesh.num_devices``, and a job of processes
 through ``mesh.coordinator_address``, ``num_processes``, ``process_id``) is
 one process a card, and a ``("net", 2)`` entry of ``mesh.extra_axes`` puts
-one net of the co-teaching pair on each card of a pair; a ``space`` entry
-is refused (not ported yet, ROADMAP Queue 1 item 7).
+one net of the co-teaching pair on each card of a pair, and a
+``("space", k)`` entry splits each image's rows over k cards.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The data and net axes: one process a card, global-batch semantics over the ranks.
+"""The data, net and space axes: one process a card, global-batch semantics over the ranks.
 
 The counterpart of ``aide_tpu.core.mesh``. Where the JAX package drives
 every device of a mesh from one controller and lets GSPMD insert the
@@ -7,18 +7,35 @@ block of each global batch, and calls the collectives itself through
 ``torch.distributed``: NCCL between cards, gloo between CPU ranks. A JAX
 host with k local devices is k processes here.
 
-The ranks form the JAX package's ``[data, net]`` mesh (``make_mesh``
-reshapes the devices so, the net index minor): with a net axis of K
-(``mesh.extra_axes = (("net", K),)``) rank r of a job of D*K ranks is data
-shard d = r // K and net k = r % K. The data group of net k, {k, K + k,
-...}, carries every collective of the data axis below (the global
-BatchNorm, ``gather_rows``, ``fetch``, the gradient all-reduce, the sharded
-cache); the pair group of shard d, {d*K, ..., d*K + K - 1}, carries
-``pair_exchange`` alone. At K = 2 a dual run's rank holds net k of the
-co-teaching pair (``engine.state.NetRankState``); a single-net run
-replicates its net over the pair. ``setup_axes`` makes the groups on every
-rank after ``init_process_group``; without a net axis there are none, and
-every collective runs over the whole group as before.
+The ranks form the JAX package's ``[data, net, space]`` mesh (``make_mesh``
+reshapes the devices so, the space index minor): with a net axis of K and a
+space axis of S (``mesh.extra_axes = (("net", K), ("space", S))``, either
+alone) rank r = (d*K + k)*S + s of a job of D*K*S ranks is data shard d,
+net k and space shard s. Four kinds of group carry the collectives:
+
+- the data group of (k, s), the ranks of every shard d: the collectives of
+  the data axis below (``gather_rows``, ``fetch``, the sharded cache) and,
+  without a live space axis, the global BatchNorm and the gradient
+  all-reduce;
+- the pair group of (d, s), the K nets: ``pair_exchange`` alone. At K = 2
+  a dual run's rank holds net k of the co-teaching pair
+  (``engine.state.NetRankState``); a single-net run replicates its net
+  over the pair;
+- the space group of (d, k), the S row shards of one block of images: the
+  halo exchange (``halo_rows``), ``gather_h`` / ``fetch_h`` and
+  ``space_all_reduce``. A spatial batch holds rows [s*H/S, (s+1)*H/S) of
+  each image (``shard_rows``); the models run on them inside
+  ``models.blocks.space_partition``;
+- the replica group of net k, every (d, s): the global BatchNorm and the
+  gradient all-reduce of a spatial step, whose D*S ranks each hold one
+  block of the net's activations (``replicas``).
+
+``setup_axes`` makes the groups on every rank after ``init_process_group``,
+in one fixed order; without extra axes there are none, and every collective
+runs over the whole group as before. A space axis is pure layout, as in the
+JAX package: a trainer whose images it cannot split turns it off
+(``set_space_live``), and the space ranks then run as replicas on whole
+images.
 
 - ``launch(fn, cfg, device)`` starts the ranks: ``mesh.num_devices = N > 1``
   spawns N local processes joined over a free 127.0.0.1 port;
@@ -36,7 +53,8 @@ every collective runs over the whole group as before.
 
 Every data-axis helper is a no-op at data size 1, so a single process runs
 exactly the single-card code. ``collectives`` and ``collective_bytes`` count what
-the helpers ran since ``reset_collectives``.
+the helpers ran since ``reset_collectives``, and ``by_kind`` splits them by
+what they carry (halo, bn, gather, grad, pair, cache, space_sum).
 """
 
 from __future__ import annotations
@@ -49,49 +67,58 @@ from typing import Any, Callable, Dict, Sequence
 import torch
 import torch.distributed as dist
 
-# collectives run (and their payload bytes) since the last reset
+# collectives run (and their payload bytes) since the last reset, in all
+# and by kind: {kind: [collectives, bytes]}
 collectives = 0
 collective_bytes = 0
+by_kind: Dict[str, list] = {}
 
-# what the space axis still needs (ROADMAP Queue 1 item 7)
-_AXIS_TODO = {
-    "space": "the space axis (spatial partitioning of the image rows with halo exchange)",
-}
-
-# the net axis of this process's group (setup_axes): its size, the data
-# group of this rank's net and the pair group of its data shard (None: the
-# whole group, as without a net axis)
+# the extra axes of this process's group (setup_axes): their sizes, the
+# data group of this rank's (net, space shard), the pair group of its (data
+# shard, space shard), the space group of its (data shard, net) and the
+# replica group of its net (None: the whole group, as without extra axes)
 _net = 1
+_space = 1
 _data_group = None
 _pair_group = None
+_space_group = None
+_replica_group = None
+# whether a space axis of more than 1 splits the images (set_space_live)
+_space_live = True
 
 
 def reset_collectives() -> None:
     global collectives, collective_bytes
     collectives = 0
     collective_bytes = 0
+    by_kind.clear()
 
 
-def _count(t: torch.Tensor) -> None:
+def _count(t: torch.Tensor, kind: str) -> None:
     global collectives, collective_bytes
+    n = t.numel() * t.element_size()
     collectives += 1
-    collective_bytes += t.numel() * t.element_size()
+    collective_bytes += n
+    tally = by_kind.setdefault(kind, [0, 0])
+    tally[0] += 1
+    tally[1] += n
 
 
 # The counted collectives (sum over ranks, in place or into ``out``), over
-# ``group``: this rank's data group by default
-def all_gather(out: torch.Tensor, x: torch.Tensor, group=None) -> None:
-    _count(out)
+# ``group``: this rank's data group by default; ``kind`` names what they
+# carry in ``by_kind``
+def all_gather(out: torch.Tensor, x: torch.Tensor, group=None, kind: str = "gather") -> None:
+    _count(out, kind)
     dist.all_gather_into_tensor(out, x, group=_data_group if group is None else group)
 
 
-def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group=None) -> None:
-    _count(x)
+def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group=None, kind: str = "gather") -> None:
+    _count(x, kind)
     dist.reduce_scatter_tensor(out, x, group=_data_group if group is None else group)
 
 
-def all_reduce(x: torch.Tensor, group=None) -> None:
-    _count(x)
+def all_reduce(x: torch.Tensor, group=None, kind: str = "gather") -> None:
+    _count(x, kind)
     dist.all_reduce(x, group=_data_group if group is None else group)
 
 
@@ -119,46 +146,106 @@ def net_size() -> int:
 
 def net_rank() -> int:
     """This rank's index on the net axis: the net of the pair it holds."""
-    return rank() % net_size()
+    return (rank() // space_size()) % net_size()
+
+
+def space_size() -> int:
+    """The space axis's size: 1 without one (or without a group)."""
+    return _space if in_group() else 1
+
+
+def space_rank() -> int:
+    """This rank's row shard on the space axis."""
+    return rank() % space_size()
 
 
 def data_size() -> int:
     """Ranks on the data axis: the data shards of a global batch."""
-    return world_size() // net_size()
+    return world_size() // (net_size() * space_size())
 
 
 def data_rank() -> int:
     """This rank's data shard."""
-    return rank() // net_size()
+    return rank() // (net_size() * space_size())
 
 
-def setup_axes(net: int) -> None:
-    """Split the process group into the [data, net] mesh of a net axis of
-    ``net``: every rank calls it right after ``init_process_group``, with
-    the same ``net``, and makes every group in the same order (each pair
-    group, then each net's data group), as ``torch.distributed.new_group``
-    needs (``launch`` and ``init_distributed`` check that ``net`` divides
-    the ranks). A net axis of 1 makes no group."""
-    global _net, _data_group, _pair_group
+def setup_axes(net: int, space: int = 1) -> None:
+    """Split the process group into the [data, net, space] mesh of a net
+    axis of ``net`` and a space axis of ``space``: every rank calls it right
+    after ``init_process_group``, with the same sizes, and makes every group
+    in the same order (each pair group, each data group, each space group,
+    each net's replica group), as ``torch.distributed.new_group`` needs
+    (``launch`` and ``init_distributed`` check that the axes divide the
+    ranks). Axes of 1 make no group; at space 1 the groups are those of the
+    [data, net] mesh."""
+    global _net, _space, _data_group, _pair_group, _space_group, _replica_group, _space_live
     world, r = dist.get_world_size(), dist.get_rank()
-    _net, _data_group, _pair_group = net, None, None
-    if net == 1:
+    _net, _space, _space_live = net, space, True
+    _data_group = _pair_group = _space_group = _replica_group = None
+    if net == 1 and space == 1:
         return
-    for d in range(world // net):
-        group = dist.new_group(list(range(d * net, (d + 1) * net)))
-        if r // net == d:
-            _pair_group = group
+    data = world // (net * space)
+    d0, k0, s0 = r // (net * space), (r // space) % net, r % space
+
+    def ranks(ds, ks, ss):
+        return [(d * net + k) * space + s for d in ds for k in ks for s in ss]
+
+    if net > 1:
+        for d in range(data):
+            for s in range(space):
+                group = dist.new_group(ranks([d], range(net), [s]))
+                if (d, s) == (d0, s0):
+                    _pair_group = group
     for k in range(net):
-        group = dist.new_group(list(range(k, world, net)))
-        if r % net == k:
-            _data_group = group
+        for s in range(space):
+            group = dist.new_group(ranks(range(data), [k], [s]))
+            if (k, s) == (k0, s0):
+                _data_group = group
+    if space == 1:
+        return
+    for d in range(data):
+        for k in range(net):
+            group = dist.new_group(ranks([d], [k], range(space)))
+            if (d, k) == (d0, k0):
+                _space_group = group
+    if net == 1:
+        _replica_group = dist.group.WORLD
+        return
+    for k in range(net):
+        group = dist.new_group(ranks(range(data), [k], range(space)))
+        if k == k0:
+            _replica_group = group
+
+
+def set_space_live(live: bool) -> None:
+    """Whether the space axis splits the images (True after
+    ``setup_axes``): a trainer whose images the axis cannot split turns it
+    off, and its space ranks run as replicas on whole images."""
+    global _space_live
+    _space_live = live
+
+
+def space_shards() -> int:
+    """The row shards of a spatial batch: the space axis's size while it is
+    live, else 1."""
+    return space_size() if _space_live else 1
+
+
+def replicas(spatial: bool):
+    """(group, size) of the ranks that share a net's gradient and BatchNorm
+    statistics: the replica group (data x space) of a spatial step, the data
+    group otherwise."""
+    if spatial and space_shards() > 1:
+        return _replica_group, data_size() * space_size()
+    return _data_group, data_size()
 
 
 def _leave() -> None:
     """Destroy the process group and forget its axes."""
-    global _net, _data_group, _pair_group
+    global _net, _space, _data_group, _pair_group, _space_group, _replica_group, _space_live
     dist.destroy_process_group()
-    _net, _data_group, _pair_group = 1, None, None
+    _net, _space, _space_live = 1, 1, True
+    _data_group = _pair_group = _space_group = _replica_group = None
 
 
 def is_primary() -> bool:
@@ -194,28 +281,27 @@ def init_distributed(mesh_cfg, device) -> None:
             f"mesh.num_processes >= 1 and 0 <= mesh.process_id < num_processes, got "
             f"{world} and {r}"
         )
-    net = axis_size(mesh_cfg, "net")
-    if world % net:
+    if world % extra_devices(mesh_cfg):
         raise ValueError(
-            f"mesh.num_processes={world} does not divide into the net axis of "
+            f"mesh.num_processes={world} does not divide into the net axis x space axis of "
             f"mesh.extra_axes={tuple(mesh_cfg.extra_axes)}"
         )
     dist.init_process_group(
         backend_for(device), init_method=f"tcp://{mesh_cfg.coordinator_address}",
         world_size=world, rank=r,
     )
-    setup_axes(net)
+    setup_axes(axis_size(mesh_cfg, "net"), axis_size(mesh_cfg, "space"))
 
 
 def refuse_axes(mesh_cfg) -> None:
-    """Raise for the mesh axes beyond data and net that the port does not
-    have yet."""
-    asked = [(name, size) for name, size in mesh_cfg.extra_axes if size > 1 and name != "net"]
+    """Raise for a mesh axis beyond data, net and space, which neither
+    package has."""
+    asked = [name for name, size in mesh_cfg.extra_axes
+             if size > 1 and name not in ("net", "space")]
     if asked:
-        todo = "; ".join(_AXIS_TODO.get(name, f"an axis {name!r}") for name, _ in asked)
         raise NotImplementedError(
-            f"mesh.extra_axes={tuple(mesh_cfg.extra_axes)}: the port shards the data and net "
-            f"axes only; not ported yet: {todo} (ROADMAP Queue 1 item 7)"
+            f"mesh.extra_axes={tuple(mesh_cfg.extra_axes)}: unknown mesh axis "
+            f"{', '.join(map(repr, asked))}; the axes are data, net and space"
         )
 
 
@@ -295,13 +381,38 @@ def local_rows(b: int) -> slice:
     return slice(d * per, (d + 1) * per)
 
 
+def h_sharded(b: int) -> bool:
+    """Whether a global batch of ``b`` rows splits its images' H over a
+    live space axis: it does unless the data axis replicates it (a ragged
+    batch never shards spatially, as in the JAX package)."""
+    return space_shards() > 1 and (data_size() == 1 or b % data_size() == 0)
+
+
+def local_h(h: int) -> slice:
+    """This rank's rows of an image of H = ``h`` on a live space axis."""
+    per = h // space_shards()
+    s = space_rank() if space_shards() > 1 else 0
+    return slice(s * per, (s + 1) * per)
+
+
+def shard_h(batch):
+    """This rank's H rows (``local_h``) of each image-like leaf (ndim >= 3,
+    H divisible by the space axis) of a dict of tensors or arrays; the other
+    leaves as they are."""
+    k = space_shards()
+    return {key: (v[:, local_h(v.shape[1])] if v.ndim >= 3 and v.shape[1] % k == 0 else v)
+            for key, v in batch.items()}
+
+
 def shard_rows(batch):
-    """This rank's rows (``local_rows``) of each leaf of a dict of
-    row-major tensors or arrays of one global batch: the counterpart of
-    ``shard_batch``."""
+    """This rank's block of each leaf of a dict of row-major tensors or
+    arrays of one global batch: its rows (``local_rows``), and its H rows
+    of the image-like leaves when the batch is spatial (``h_sharded``). The
+    counterpart of ``shard_batch``."""
     b = next(iter(batch.values())).shape[0]
     rows = local_rows(b)
-    return {k: v[rows] for k, v in batch.items()}
+    out = {k: v[rows] for k, v in batch.items()}
+    return shard_h(out) if h_sharded(b) else out
 
 
 # --------------------------- collectives ---------------------------
@@ -315,7 +426,7 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(t.shape[0], -1).view(torch.uint8)
 
 
-def fetch(*tensors: torch.Tensor, group=None):
+def fetch(*tensors: torch.Tensor, group=None, kind: str = "gather"):
     """All-gather rank-sharded rows over ``group`` (the data group by
     default): every rank gets, for each (b, ...) tensor, the (N*b, ...)
     tensor of all the group's rows in rank order (the global row order).
@@ -328,7 +439,7 @@ def fetch(*tensors: torch.Tensor, group=None):
     rows = [_as_bytes(t) for t in tensors]
     packed = torch.cat(rows, dim=1)
     out = packed.new_empty((n * packed.shape[0], packed.shape[1]))
-    all_gather(out, packed, group)
+    all_gather(out, packed, group, kind)
     got, col = [], 0
     for t, r in zip(tensors, rows):
         chunk = out[:, col : col + r.shape[1]].contiguous()
@@ -345,7 +456,7 @@ def pair_exchange(*tensors: torch.Tensor):
     gradients (``fetch`` over the pair group); a collective of the pair."""
     if net_size() == 1:
         raise RuntimeError("pair_exchange needs a net axis (mesh.extra_axes net > 1)")
-    got = fetch(*(t.detach()[None] for t in tensors), group=_pair_group)
+    got = fetch(*(t.detach()[None] for t in tensors), group=_pair_group, kind="pair")
     return got if len(tensors) > 1 else (got,)
 
 
@@ -376,16 +487,162 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     return x if data_size() == 1 else _GatherRows.apply(x)
 
 
-def all_reduce_grads(params: Sequence[torch.Tensor]) -> None:
-    """Sum every gradient over the data group through one flat f32 buffer:
-    one collective a step, after which every rank of a net holds the same
-    gradients and so takes the same optimizer update. A no-op at data size
-    1."""
+# ------------------------- the space axis's collectives -------------------------
+#
+# Each is one all-gather (or its reduce-scatter backward) over the space
+# group, on both backends. All-gathers move bytes, so their tensors travel
+# as uint8 views: a bf16 halo under autocast crosses as it is.
+
+
+def _gather_space(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """(k, *x.shape): every space shard's contiguous ``x``, in shard order."""
+    x = x.contiguous()
+    raw = x.view(torch.uint8) if x.dim() else x.reshape(1).view(torch.uint8)
+    out = raw.new_empty((space_size(),) + tuple(raw.shape))
+    all_gather(out.view((-1,) + tuple(raw.shape[1:])), raw, _space_group, kind)
+    return out.view(x.dtype).view((space_size(),) + tuple(x.shape))
+
+
+def _with_halo(top: torch.Tensor, x: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    """x with the rows ``top`` above and ``bottom`` below it (dim 2), in
+    x's memory format (a channels_last map, or a row slice of one, has C
+    innermost): the conv or resize that reads it then takes its NHWC
+    kernels."""
+    fmt = (torch.channels_last if x.stride(1) == 1 or x.is_contiguous(
+        memory_format=torch.channels_last) else torch.contiguous_format)
+    r, h = top.shape[2], x.shape[2]
+    out = torch.empty(x.shape[:2] + (h + 2 * r,) + x.shape[3:], dtype=x.dtype, device=x.device,
+                      memory_format=fmt)
+    out[:, :, :r] = top
+    out[:, :, r:r + h] = x
+    out[:, :, r + h:] = bottom
+    return out
+
+
+class _HaloRows(torch.autograd.Function):
+    """(B, C, h, W) -> (B, C, h + 2r, W): r rows of each space neighbour
+    above and below (dim 2). At the image's top and bottom edge the rows
+    are zeros (``edge=False``: a conv's padding) or copies of the edge row
+    (``edge=True``: a bilinear resize's clamp). Forward and backward are
+    one all-gather each of every shard's 2r edge rows; the backward adds
+    each halo's gradient into the rows it was copied from."""
+
+    @staticmethod
+    def forward(ctx, x, r, edge):
+        h = x.shape[2]
+        if r > h:
+            raise ValueError(f"a halo of {r} rows is wider than the {h} rows a space shard holds")
+        ctx.r, ctx.edge = r, edge
+        k, s = space_size(), space_rank()
+        got = _gather_space(torch.stack([x[:, :, :r], x[:, :, h - r:]]), "halo")
+
+        def outside(row):
+            return row.expand(-1, -1, r, -1) if edge else torch.zeros_like(x[:, :, :r])
+
+        top = got[s - 1, 1] if s > 0 else outside(x[:, :, :1])
+        bottom = got[s + 1, 0] if s < k - 1 else outside(x[:, :, h - 1:])
+        return _with_halo(top, x, bottom)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, edge = ctx.r, ctx.edge
+        k, s = space_size(), space_rank()
+        h = g.shape[2] - 2 * r
+        g_top, g_bottom = g[:, :, :r], g[:, :, r + h:]
+        gx = g[:, :, r:r + h].clone()
+        got = _gather_space(torch.stack([g_top, g_bottom]), "halo")
+        if s > 0:
+            gx[:, :, :r] += got[s - 1, 1]
+        elif edge:
+            gx[:, :, :1] += g_top.sum(dim=2, keepdim=True)
+        if s < k - 1:
+            gx[:, :, h - r:] += got[s + 1, 0]
+        elif edge:
+            gx[:, :, h - 1:] += g_bottom.sum(dim=2, keepdim=True)
+        return gx, None, None
+
+
+def halo_rows(x: torch.Tensor, r: int, edge: bool = False) -> torch.Tensor:
+    """This space shard's (B, C, h, W) rows with r rows of each neighbour
+    above and below, differentiable (``_HaloRows``); zeros (or, with
+    ``edge``, the edge row) beyond the image. A collective of the space
+    group."""
+    return _HaloRows.apply(x, r, edge)
+
+
+class _GatherH(torch.autograd.Function):
+    """All-gather of dim ``dim`` over the space group; its backward
+    reduce-scatters the gradient, so each shard receives the sum over
+    shards of the gradient of its own rows."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((space_size() * xt.shape[0],) + tuple(xt.shape[1:]))
+        all_gather(out, xt, _space_group, "gather")
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        gt = g.movedim(ctx.dim, 0).contiguous()
+        out = gt.new_empty((gt.shape[0] // space_size(),) + tuple(gt.shape[1:]))
+        reduce_scatter(out, gt, _space_group, "gather")
+        return out.movedim(0, ctx.dim), None
+
+
+def gather_h(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The whole images' rows (dim ``dim``) from every space shard,
+    differentiable: with the loss of the whole images divided by the
+    shards (``replicas``) on every rank, each rank's backward gives the
+    gradient of the loss in its own rows. Identity at space size 1."""
+    return x if space_size() == 1 else _GatherH.apply(x, dim)
+
+
+def fetch_h(*tensors: torch.Tensor, dim: int = 1):
+    """The whole images' rows (dim ``dim``) of each tensor from every space
+    shard, without gradients: one byte-packed all-gather for all of them
+    (``fetch`` over the space group)."""
+    got = fetch(*(t.detach().movedim(dim, 0) for t in tensors), group=_space_group)
+    got = got if len(tensors) > 1 else (got,)
+    out = tuple(t.movedim(0, dim) for t in got)
+    return out if len(out) > 1 else out[0]
+
+
+class _SpaceAllReduce(torch.autograd.Function):
+    """Sum over the space group; the backward sums the gradient likewise
+    (every shard's output depends on every shard's input)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.clone()
+        all_reduce(y, _space_group, "space_sum")
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        all_reduce(g, _space_group, "space_sum")
+        return g
+
+
+def space_all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the space group, differentiable."""
+    return x if space_size() == 1 else _SpaceAllReduce.apply(x)
+
+
+def all_reduce_grads(params: Sequence[torch.Tensor], spatial: bool = False) -> None:
+    """Sum every gradient over the ranks that share the net (``replicas``:
+    its data group, or data x space for a ``spatial`` step) through one
+    flat f32 buffer: one collective a step, after which every rank of a net
+    holds the same gradients and so takes the same optimizer update. A
+    no-op over one rank."""
     grads = [p.grad for p in params if p.grad is not None]
-    if data_size() == 1 or not grads:
+    group, n = replicas(spatial)
+    if n == 1 or not grads:
         return
     flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
-    all_reduce(flat)
+    all_reduce(flat, group, "grad")
     offset = 0
     for g in grads:
         n = g.numel()
@@ -430,8 +687,8 @@ def resolve_ranks(cfg, device=None) -> int:
     """How many local ranks ``launch`` starts: ``mesh.num_devices`` (0: every
     visible card, one for the CPU), which the extra axes must divide,
     shrunk to ``fit_ranks`` (the trainer logs "MESH SHRUNK" when that drops
-    any). A net axis never falls back to ranks on the CPU or to two ranks
-    on one card: too few cards raise."""
+    any). A net or space axis never falls back to ranks on the CPU or to
+    two ranks on one card: too few cards raise."""
     kind = _device_kind(device)
     visible = torch.cuda.device_count() if kind == "cuda" else 1
     asked = cfg.mesh.num_devices or visible
@@ -447,7 +704,7 @@ def resolve_ranks(cfg, device=None) -> int:
     return fit_ranks(cfg, asked)
 
 
-def _rank_main(local_rank, fn, args, world, net, port, kind, threads, results):
+def _rank_main(local_rank, fn, args, world, axes, port, kind, threads, results):
     """A spawned rank: one torch thread pool share, its card, the group and
     its axes, then ``fn(rank, device, *args)``; its result goes back
     through ``results``."""
@@ -457,7 +714,7 @@ def _rank_main(local_rank, fn, args, world, net, port, kind, threads, results):
     dist.init_process_group(backend_for(device), init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=local_rank)
     try:
-        setup_axes(net)
+        setup_axes(*axes)
         results.put((local_rank, fn(local_rank, device, *args)))
     finally:
         _leave()
@@ -478,8 +735,8 @@ def launch(fn: Callable, cfg, device=None, args=()) -> Dict[int, Any]:
       (OMP_NUM_THREADS too). A rank that fails ends the others and raises
       here.
 
-    Every rank of a net axis (``mesh.extra_axes``) makes the mesh's groups
-    (``setup_axes``) before ``fn`` runs.
+    Every rank of a net or space axis (``mesh.extra_axes``) makes the
+    mesh's groups (``setup_axes``) before ``fn`` runs.
     """
     import torch.multiprocessing as mp
 
@@ -504,8 +761,9 @@ def launch(fn: Callable, cfg, device=None, args=()) -> Dict[int, Any]:
         os.environ["OMP_NUM_THREADS"] = str(threads)
     try:
         procs = mp.start_processes(
-            _rank_main, args=(fn, tuple(args), n, axis_size(cfg.mesh, "net"), free_port(), kind,
-                              threads, results),
+            _rank_main, args=(fn, tuple(args), n,
+                              (axis_size(cfg.mesh, "net"), axis_size(cfg.mesh, "space")),
+                              free_port(), kind, threads, results),
             nprocs=n, join=False, start_method="spawn",
         )
     finally:

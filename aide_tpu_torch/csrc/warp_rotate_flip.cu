@@ -6,7 +6,9 @@
 // there is the same function in plain PyTorch, with the same index math and
 // operation order, and source_boxes the per-tile box this kernel stages.
 //
-// Layout: in/out (N, S, S, C) float32, NHWC, contiguous. table (N, 4) f32:
+// Layout: in (N, S, S, C) float32, NHWC, contiguous; out (N, rows, S, C), the
+// output rows [row0, row0 + rows) of the warp (the whole image at row0 = 0,
+// rows = S; a space shard's rows on a space axis). table (N, 4) f32:
 // [lam_x = -tan(theta/2), lam_y = sin(theta), n90 in {-1, 0, 1}, flip in
 // {0, 1}] of the residual angle; fill (N, C) f32.
 //
@@ -19,7 +21,10 @@
 //
 // One block per kTile x kTile output tile of one image, kTile x kRows
 // threads; a warp is one output row of the tile, each thread kTile / kRows
-// rows of one column.
+// rows of one column. The tiles cover the output window: tile row t starts
+// at global output row row0 + t * kTile, and everything below (the index
+// math, the source box) reads global rows, so a window is exactly a slice
+// of the whole warp.
 //   A. Every thread runs the 8-tap index math of its pixels and keeps the
 //      min/max source row and column over the taps it will read; warp
 //      shuffles and shared memory reduce them to the tile's exact source box.
@@ -112,12 +117,13 @@ __device__ __forceinline__ void taps(Taps& t, int y, int xo, float lam_x, float 
 __global__ void __launch_bounds__(kTile * kRows)
 warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
                         const float* __restrict__ table, const float* __restrict__ fill,
-                        int s, int c, int inverse) {
+                        int s, int c, int inverse, int row0, int rows) {
   extern __shared__ float box[];
   __shared__ int partial[4][kRows];
 
   const int n = blockIdx.z;
-  const int ty0 = blockIdx.y * kTile;
+  const int ty0 = row0 + blockIdx.y * kTile;
+  const int y_end = row0 + rows;
   const int x = blockIdx.x * kTile + threadIdx.x;
   const float lam_x = table[4 * n + 0];
   const float lam_y = table[4 * n + 1];
@@ -134,7 +140,7 @@ warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
   int lo_y = INT_MAX, hi_y = INT_MIN, lo_x = INT_MAX, hi_x = INT_MIN;
   for (int i = threadIdx.y; i < kTile; i += kRows) {
     const int y = ty0 + i;
-    if (y >= s || x >= s) break;
+    if (y >= y_end || x >= s) break;
     Taps t;
     taps(t, y, xo, lam_x, lam_y, cen, s);
 #pragma unroll
@@ -212,7 +218,7 @@ warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
   // C. gather the taps from the box and lerp, in the plain version's order
   for (int i = threadIdx.y; i < kTile; i += kRows) {
     const int y = ty0 + i;
-    if (y >= s || x >= s) break;
+    if (y >= y_end || x >= s) break;
     Taps t;
     taps(t, y, xo, lam_x, lam_y, cen, s);
     int off[2][2][2];
@@ -225,7 +231,7 @@ warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
         for (int t1 = 0; t1 < 2; ++t1) off[t3][t2][t1] = row + t.x1[t3][t2][t1] * sx;
       }
 
-    float* dst = out + (((int64_t)n * s + y) * s + x) * c;
+    float* dst = out + (((int64_t)n * rows + (y - row0)) * s + x) * c;
     for (int ch = 0; ch < c; ++ch) {
       const float fl = fills[ch];
       float s2v[2];
@@ -261,21 +267,22 @@ extern "C" int warp_rotate_flip_smem_bytes(int c) {
   return (kBoxSide * box_pitch(c) + c) * (int)sizeof(float);
 }
 
-// Plain C entry point (loaded with ctypes). Launches on `stream`, does not
+// Plain C entry point (loaded with ctypes): output rows [row0, row0 + rows)
+// into an (n_img, rows, s, c) out. Launches on `stream`, does not
 // synchronise, allocates nothing; returns cudaGetLastError() of the launch.
 extern "C" int warp_rotate_flip_f32(const void* in, void* out, const void* table,
                                     const void* fill, int n_img, int s, int c,
-                                    int inverse, void* stream) {
+                                    int inverse, int row0, int rows, void* stream) {
   const int smem = warp_rotate_flip_smem_bytes(c);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         warp_rotate_flip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int tiles = (s + kTile - 1) / kTile;
-  const dim3 grid(tiles, tiles, n_img);
+  const dim3 grid((s + kTile - 1) / kTile, (rows + kTile - 1) / kTile, n_img);
   const dim3 block(kTile, kRows);
   warp_rotate_flip_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const float*)in, (float*)out, (const float*)table, (const float*)fill, s, c, inverse);
+      (const float*)in, (float*)out, (const float*)table, (const float*)fill, s, c, inverse,
+      row0, rows);
   return (int)cudaGetLastError();
 }

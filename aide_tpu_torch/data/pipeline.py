@@ -17,8 +17,12 @@ the indices, and the device-resident path is a ``ShardedCache``, the
 counterpart of the JAX package's ``MeshCache``, where each shard holds a
 contiguous block of the rows and one collective of its data group
 assembles a batch. On a net axis both ranks of a pair hold the same rows
-and the working labels of both nets. Only the primary rank mirrors
-refreshed labels to disk.
+and the working labels of both nets. On a live space axis the cache keeps
+whole images (as ``MeshCache.put`` does), and a batch that the data axis
+divides (or any batch at data size 1) comes back with this rank's H rows
+of each image-like leaf (``mesh.shard_h``); a ragged batch, replicated
+over the data axis, keeps whole images, as in the JAX package. Only the
+primary rank mirrors refreshed labels to disk.
 
 With a ``cache_dir``, the decoded arrays are kept in a keyed npz file there
 (``decode_cache_path``), under the JAX package's key and array names, so a
@@ -170,10 +174,10 @@ class ShardedCache:
         part = part * own.to(torch.uint8)[:, None]
         if mesh.rows_sharded(b):
             out = part.new_empty((b // mesh.data_size(), width))
-            mesh.reduce_scatter(out, part)
+            mesh.reduce_scatter(out, part, kind="cache")
         else:
             out = part
-            mesh.all_reduce(out)
+            mesh.all_reduce(out, kind="cache")
         batch = {}
         for k, (dtype, shape, start, stop) in self.layout.items():
             if stop <= width:
@@ -390,7 +394,14 @@ class SlicePipeline:
 
     def _batch_from(self, idx: np.ndarray, images_only: bool = False) -> Dict[str, torch.Tensor]:
         """The batch of global slice indices ``idx``: this rank's rows of it
-        over a data axis (``mesh.local_rows``), all of them on one rank."""
+        over a data axis (``mesh.local_rows``), all of them on one rank; its
+        H rows on a live space axis (``mesh.h_sharded``)."""
+        batch = self._rows_from(idx, images_only)
+        if not mesh.h_sharded(len(idx)):
+            return batch
+        return {k: v.contiguous() for k, v in mesh.shard_h(batch).items()}
+
+    def _rows_from(self, idx: np.ndarray, images_only: bool) -> Dict[str, torch.Tensor]:
         if self._sharded is not None:
             return self._sharded.gather(idx, images_only)
         idx = np.asarray(idx)[mesh.local_rows(len(idx))]

@@ -40,6 +40,21 @@ rows) crosses the pair without gradient in ``mesh.pair_exchange``. The
 clipping norm spans the pair (``ops.schedules``). Every rank returns the
 pair's metrics, as one process does.
 
+On a space axis of S > 1 shards a step of a spatial batch
+(``spatial=True``: every image-like leaf holds this rank's rows
+[s*H/S, (s+1)*H/S), ``mesh.shard_rows``) runs the nets on those rows
+inside ``models.blocks.space_partition``. Each TTA warp first fetches the
+whole source images over the space group (one collective) and writes this
+rank's output rows alone (``rows``: the kernel's row window); the TTA
+epilogue is per pixel and stays local. The main logits are gathered to
+whole images with ``mesh.gather_h`` (and the pseudo-labels, weight maps
+and targets with ``mesh.fetch_h``) before the data axis's gathers, so the
+losses, the ranking and the metrics run on whole images as one process
+does; every rank backpropagates L / (data x space), and the gradients and
+BatchNorm statistics are summed over the replica group (``mesh.replicas``).
+The eval and predict steps take the same flag; their callers gather the
+labels' rows.
+
 ``make_augment_batch`` is the main-view augmentation of ``data.augment_main``
 (``aide_tpu.engine.steps.make_augment_batch``): one rotation and flip per
 image, shared by the images and the targets of the batch.
@@ -125,6 +140,21 @@ def make_image_criterion(cfg: TrainConfig):
 TARGETS = ("target", "target1", "target2")
 
 
+def _window(local: torch.Tensor):
+    """(row0, R): this space shard's output rows of a warp, from its (B, R,
+    W, C) local rows."""
+    h = local.shape[1]
+    return mesh.space_rank() * h, h
+
+
+def _whole(spatial: bool, *tensors, dim: int = 1):
+    """The tensors' whole images (``mesh.fetch_h``) on a spatial batch; as
+    they are otherwise."""
+    if not spatial:
+        return tensors if len(tensors) > 1 else tensors[0]
+    return mesh.fetch_h(*tensors, dim=dim)
+
+
 def make_augment_batch(cfg: TrainConfig, two_modal: bool):
     """augment(batch, degrees, hflip) -> the batch with its main view
     warped: each image rotated by its (B,) ``degrees`` then flipped where
@@ -136,24 +166,31 @@ def make_augment_batch(cfg: TrainConfig, two_modal: bool):
     The warps of a step share one launch per kind: both modalities (the
     same C) in one, all targets in another, so two launches a step on the
     card whatever the batch holds; each image's warp is its own, so this
-    equals a launch per tensor."""
+    equals a launch per tensor. A ``spatial`` batch (this rank's rows of a
+    space axis) fetches the whole images and targets over the space group
+    in one collective and keeps its own output rows."""
     num_classes = cfg.model.num_classes
     wm = cfg.data.warp_method
     names = ("modal1", "modal2") if two_modal else ("image",)
 
     @torch.no_grad()
-    def augment(batch, degrees, hflip) -> Dict[str, torch.Tensor]:
-        images = batch_images(batch, two_modal)
-        b = images[0].shape[0]
-        out = dict(batch)
-        k = len(images)
-        warped = warp.augment(torch.cat(images), degrees.repeat(k), hflip.repeat(k),
-                              torch.cat(batch_fills(batch, two_modal)), method=wm)
-        out.update(zip(names, warped.split(b)))
+    def augment(batch, degrees, hflip, spatial: bool = False) -> Dict[str, torch.Tensor]:
+        images = torch.cat(batch_images(batch, two_modal))
         tnames = [t for t in TARGETS if t in batch]
+        targets = torch.cat([batch[t] for t in tnames])
+        window = _window(images) if spatial else None
+        if spatial:
+            images, targets = mesh.fetch_h(images, targets)
+        b = batch[tnames[0]].shape[0]
+        out = dict(batch)
+        k = len(names)
+        warped = warp.augment(images, degrees.repeat(k), hflip.repeat(k),
+                              torch.cat(batch_fills(batch, two_modal)), method=wm, rows=window)
+        out.update(zip(names, warped.split(b)))
         k = len(tnames)
-        onehot = torch.cat([F.one_hot(batch[t].long(), num_classes).float() for t in tnames])
-        maps = warp.augment(onehot, degrees.repeat(k), hflip.repeat(k), 0.0, method=wm)
+        onehot = F.one_hot(targets.long(), num_classes).float()
+        maps = warp.augment(onehot, degrees.repeat(k), hflip.repeat(k), 0.0, method=wm,
+                            rows=window)
         for t, m in zip(tnames, maps.split(b)):
             out[t] = m.argmax(dim=-1).to(batch[t].dtype)
         return out
@@ -162,24 +199,27 @@ def make_augment_batch(cfg: TrainConfig, two_modal: bool):
 
 
 def make_supervised_train_step(two_modal: bool, cfg: TrainConfig):
-    """step(state, batch, sharded=False) -> metrics {loss, dice_sum, count}
+    """step(state, batch, sharded=False, spatial=False) -> metrics {loss, dice_sum, count}
     of the global batch; updates ``state`` in place (parameters, BN running
     stats, optimizer moments)."""
     criterion = make_criterion(cfg)
     thr = cfg.eval.threshold
 
-    def step(state: TrainState, batch, sharded: bool = False) -> Dict[str, torch.Tensor]:
-        with blocks.global_batch_stats(sharded):
+    def step(state: TrainState, batch, sharded: bool = False,
+             spatial: bool = False) -> Dict[str, torch.Tensor]:
+        with blocks.global_batch_stats(sharded or spatial), blocks.space_partition(spatial):
             images = batch_images(batch, two_modal)
             target = batch["target"]
             state.train(True)
             logits = state.net(*images)
+            if spatial:
+                logits, target = mesh.gather_h(logits), mesh.fetch_h(target)
             if sharded:
                 logits, target = mesh.gather_rows(logits), mesh.fetch(target)
             loss = criterion(logits, target)
             state.optimizer.zero_grad(set_to_none=True)
-            (loss / mesh.data_size()).backward()
-            mesh.all_reduce_grads(state.optimizer.params())
+            (loss / mesh.replicas(spatial)[1]).backward()
+            mesh.all_reduce_grads(state.optimizer.params(), spatial)
             state.optimizer.step()
             with torch.no_grad():
                 return {
@@ -192,7 +232,7 @@ def make_supervised_train_step(two_modal: bool, cfg: TrainConfig):
 
 
 def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
-    """step(state, batch, degrees, hflip, rate, sharded=False) -> metrics
+    """step(state, batch, degrees, hflip, rate, sharded=False, spatial=False) -> metrics
     of the global batch; updates ``state`` in place (parameters, BN running
     stats, optimizer moments). degrees/hflip are the (V, b) view
     parameters of this rank's b rows, on the batch's device. A
@@ -206,18 +246,22 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
     wm = cfg.data.warp_method
 
     @torch.no_grad()
-    def pseudo_labels(state, images, fills, degrees, hflip, b):
+    def pseudo_labels(state, images, fills, degrees, hflip, b, spatial):
         """(n, b, H, W, C) sharpened view averages and their weight maps of
         the state's n nets: the TTA views of both modalities (one warp each),
         the nets' view forwards (views folded into the batch; train-mode BN
         that leaves the running stats alone), one inverse warp over all
-        their views, then the f32 softmax average."""
+        their views, then the f32 softmax average. On a ``spatial`` batch
+        each warp reads the whole images and writes this shard's rows."""
         nets = state.nets
         n = len(nets)
+        window = _window(images[0]) if spatial else None
+        if spatial:
+            # both modalities' whole images in one collective
+            images = mesh.fetch_h(*images)
+            images = images if isinstance(images, tuple) else (images,)
         flat_views = tuple(
-            tta.make_views(img, degrees, hflip, fill, method=wm).reshape(
-                (num_views * b,) + tuple(img.shape[1:])
-            )
+            tta.make_views(img, degrees, hflip, fill, method=wm, rows=window).flatten(0, 1)
             for img, fill in zip(images, fills)
         )
         state.train(ct.tta_bn == "batch")
@@ -225,7 +269,8 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
             [net(*flat_views, update_stats=False) for net in nets]
         )  # (n*V*B, H, W, C): net-major, then view, then image
         flat = view_logits.reshape((n * num_views, b) + tuple(view_logits.shape[1:]))
-        inv = tta.invert_views(flat, torch.cat([degrees] * n), torch.cat([hflip] * n), method=wm)
+        inv = tta.invert_views(_whole(spatial, flat, dim=2), torch.cat([degrees] * n),
+                               torch.cat([hflip] * n), method=wm, rows=window)
         probs = torch.softmax(inv.to(torch.float32), dim=-1)
         avg = probs.reshape((n, num_views, b) + tuple(probs.shape[2:])).mean(dim=1)
         pseudo = tta.sharpen(avg, ct.temperature, ct.sharpen_mode)
@@ -256,28 +301,35 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
         if tuple(degrees.shape) != (num_views, b):
             raise ValueError(f"view params must be ({num_views}, {b}), got {tuple(degrees.shape)}")
 
-    def pair_step(state: DualTrainState, batch, degrees, hflip, rate, sharded):
-        with blocks.global_batch_stats(sharded):
+    def pair_step(state: DualTrainState, batch, degrees, hflip, rate, sharded, spatial):
+        with blocks.global_batch_stats(sharded or spatial), blocks.space_partition(spatial):
             images = batch_images(batch, two_modal)
             t1, t2 = batch["target1"], batch["target2"]
             b = t1.shape[0]
             check_views(degrees, b)
             net1, net2 = state.nets
             pseudo, wmap = pseudo_labels(state, images, batch_fills(batch, two_modal),
-                                         degrees, hflip, b)
+                                         degrees, hflip, b, spatial)
 
             # ---- coupled main forwards, one backward over both nets ----
             state.train(True)
             out1 = net1(*images)
             out2 = net2(*images)
-            if sharded:
-                # the global batch's rows, in global row order: the ranking
-                # and its ties, the clean count and every mean are the global ones
-                out = mesh.gather_rows(torch.stack([out1, out2], dim=1))
-                out1, out2 = out[:, 0], out[:, 1]
+            if sharded or spatial:
+                # the global batch's whole images, in global row order: the
+                # ranking and its ties, the clean count and every mean are
+                # the global ones
+                out = torch.stack([out1, out2], dim=1)
                 c = pseudo.shape[-1]
-                pw, tt = mesh.fetch(torch.cat([pseudo, wmap], dim=-1).transpose(0, 1),
-                                    torch.stack([t1, t2], dim=1))
+                pw = torch.cat([pseudo, wmap], dim=-1).transpose(0, 1)
+                tt = torch.stack([t1, t2], dim=1)
+                if spatial:
+                    out = mesh.gather_h(out, dim=2)
+                    pw, tt = mesh.fetch_h(pw, tt, dim=2)
+                if sharded:
+                    out = mesh.gather_rows(out)
+                    pw, tt = mesh.fetch(pw, tt)
+                out1, out2 = out[:, 0], out[:, 1]
                 pseudo, wmap = pw[..., :c].transpose(0, 1), pw[..., c:].transpose(0, 1)
                 t1, t2 = tt[:, 0], tt[:, 1]
                 b = t1.shape[0]
@@ -289,8 +341,8 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
             loss1 = side(pre1, out1, order2, pseudo[1], wmap[1], rate)
             loss2 = side(pre2, out2, order1, pseudo[0], wmap[0], rate)
             state.optimizer.zero_grad(set_to_none=True)
-            ((loss1 + loss2) / mesh.data_size()).backward()
-            mesh.all_reduce_grads(state.optimizer.params())
+            ((loss1 + loss2) / mesh.replicas(spatial)[1]).backward()
+            mesh.all_reduce_grads(state.optimizer.params(), spatial)
             state.optimizer.step()
             with torch.no_grad():
                 return {
@@ -301,28 +353,33 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
                     "count": torch.tensor(float(b), device=loss1.device),
                 }
 
-    def net_rank_step(state: NetRankState, batch, degrees, hflip, rate, sharded):
+    def net_rank_step(state: NetRankState, batch, degrees, hflip, rate, sharded, spatial):
         """Net k = ``state.index`` of the pair on its rank: its own views'
         forwards and inverse warp, its main forward and its loss alone, its
         gradients summed over its data group. What crosses the pair needs no
         gradient: one ``pair_exchange`` of the per-image losses (the
         partner's ranking), the pseudo-labels, the weight maps and the dice
         before the losses, and one of the loss values after them."""
-        with blocks.global_batch_stats(sharded):
+        with blocks.global_batch_stats(sharded or spatial), blocks.space_partition(spatial):
             images = batch_images(batch, two_modal)
             k = state.index
             targets = (batch["target1"], batch["target2"])
             b = targets[0].shape[0]
             check_views(degrees, b)
             pseudo, wmap = pseudo_labels(state, images, batch_fills(batch, two_modal),
-                                         degrees, hflip, b)
+                                         degrees, hflip, b, spatial)
             pw = torch.cat([pseudo[0], wmap[0]], dim=-1)
             state.train(True)
             out = state.net(*images)
-            if sharded:
-                out = mesh.gather_rows(out)
-                pw, tt = mesh.fetch(pw, torch.stack(targets, dim=1))
-                targets = (tt[:, 0], tt[:, 1])
+            if sharded or spatial:
+                tt = torch.stack(targets, dim=-1)
+                if spatial:
+                    out = mesh.gather_h(out)
+                    pw, tt = mesh.fetch_h(pw, tt)
+                if sharded:
+                    out = mesh.gather_rows(out)
+                    pw, tt = mesh.fetch(pw, tt)
+                targets = (tt[..., 0], tt[..., 1])
                 b = tt.shape[0]
             # net k scored against the OTHER net's working labels
             pre = image_criterion(out, targets[1 - k])
@@ -333,8 +390,8 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
             c = pseudo.shape[-1]
             loss = side(pre, out, order_other, pws[1 - k][..., :c], pws[1 - k][..., c:], rate)
             state.optimizer.zero_grad(set_to_none=True)
-            (loss / mesh.data_size()).backward()
-            mesh.all_reduce_grads(state.optimizer.params())
+            (loss / mesh.replicas(spatial)[1]).backward()
+            mesh.all_reduce_grads(state.optimizer.params(), spatial)
             state.optimizer.step()
             (both,) = mesh.pair_exchange(loss)
             return {
@@ -345,9 +402,10 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
                 "count": torch.tensor(float(b), device=both.device),
             }
 
-    def step(state, batch, degrees, hflip, rate, sharded: bool = False) -> Dict[str, torch.Tensor]:
+    def step(state, batch, degrees, hflip, rate, sharded: bool = False,
+             spatial: bool = False) -> Dict[str, torch.Tensor]:
         run = net_rank_step if isinstance(state, NetRankState) else pair_step
-        return run(state, batch, degrees, hflip, rate, sharded)
+        return run(state, batch, degrees, hflip, rate, sharded, spatial)
 
     return step
 
@@ -356,17 +414,20 @@ def make_eval_step(two_modal: bool, cfg: TrainConfig, dual: bool = True):
     """Test-batch loss/dice without gradients, eval-mode BN. Dual: net k
     against the other's working labels, per-image criterion. Single net:
     the scalar criterion against the batch's ``target``. With
-    ``sharded``, of the global batch whose rows this rank holds."""
+    ``sharded``, of the global batch whose rows this rank holds; with
+    ``spatial``, of the whole images whose rows this space shard holds."""
     thr = cfg.eval.threshold
     if not dual:
         criterion = make_criterion(cfg)
 
         @torch.no_grad()
-        def single(state: TrainState, batch, sharded: bool = False) -> Dict[str, torch.Tensor]:
+        def single(state: TrainState, batch, sharded: bool = False,
+                   spatial: bool = False) -> Dict[str, torch.Tensor]:
             images = batch_images(batch, two_modal)
-            target = batch["target"]
             state.train(False)
-            logits = state.net(*images)
+            with blocks.space_partition(spatial):
+                logits = state.net(*images)
+            logits, target = _whole(spatial, logits, batch["target"])
             if sharded:
                 logits, target = mesh.fetch(logits, target)
             return {
@@ -379,13 +440,16 @@ def make_eval_step(two_modal: bool, cfg: TrainConfig, dual: bool = True):
     image_criterion = make_image_criterion(cfg)
 
     @torch.no_grad()
-    def step(state: DualTrainState, batch, sharded: bool = False) -> Dict[str, torch.Tensor]:
+    def step(state: DualTrainState, batch, sharded: bool = False,
+             spatial: bool = False) -> Dict[str, torch.Tensor]:
         images = batch_images(batch, two_modal)
         t1, t2 = batch["target1"], batch["target2"]
         state.train(False)
         if isinstance(state, NetRankState):
             # net k's metrics against the other's labels, then the pair's
-            out = state.net(*images)
+            with blocks.space_partition(spatial):
+                out = state.net(*images)
+            out, t1, t2 = _whole(spatial, out, t1, t2)
             if sharded:
                 out, t1, t2 = mesh.fetch(out, t1, t2)
             other = (t1, t2)[1 - state.index]
@@ -394,7 +458,9 @@ def make_eval_step(two_modal: bool, cfg: TrainConfig, dual: bool = True):
             return {"loss1": loss[0], "loss2": loss[1], "dice1_sum": dice[0],
                     "dice2_sum": dice[1],
                     "count": torch.tensor(float(t1.shape[0]), device=out.device)}
-        out1, out2 = (net(*images) for net in state.nets)
+        with blocks.space_partition(spatial):
+            out1, out2 = (net(*images) for net in state.nets)
+        out1, out2, t1, t2 = _whole(spatial, out1, out2, t1, t2)
         if sharded:
             out1, out2, t1, t2 = mesh.fetch(out1, out2, t1, t2)
         return {
@@ -423,19 +489,21 @@ def _index_matrix(data: Dict[str, torch.Tensor], mat, dtype=torch.int64) -> torc
 
 
 def make_predict_step(two_modal: bool, dual: bool = True):
-    """predict(state, batch) -> uint8 labels, (2, B, H, W) of the pair or
-    (B, H, W) of the single net. On a net axis each rank predicts with its
-    net and the pair exchanges the labels."""
+    """predict(state, batch, spatial=False) -> uint8 labels, (2, B, H, W)
+    of the pair or (B, H, W) of the single net; of this space shard's rows
+    of a ``spatial`` batch. On a net axis each rank predicts with its net
+    and the pair exchanges the labels."""
 
     @torch.no_grad()
-    def predict(state: TrainState, batch) -> torch.Tensor:
+    def predict(state: TrainState, batch, spatial: bool = False) -> torch.Tensor:
         images = batch_images(batch, two_modal)
         state.train(False)
-        if not dual:
-            return _labels(state.net(*images))
-        if isinstance(state, NetRankState):
-            return mesh.pair_exchange(_labels(state.net(*images)))[0]
-        return torch.stack([_labels(net(*images)) for net in state.nets])
+        with blocks.space_partition(spatial):
+            if not dual:
+                return _labels(state.net(*images))
+            if isinstance(state, NetRankState):
+                return mesh.pair_exchange(_labels(state.net(*images)))[0]
+            return torch.stack([_labels(net(*images)) for net in state.nets])
 
     return predict
 

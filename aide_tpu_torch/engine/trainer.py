@@ -65,8 +65,22 @@ test pass, case evaluation, the probe and refresh exchange what the other
 net needs or both nets' results over the pair (``mesh.pair_exchange``), so
 every rank takes the same decisions, and the primary rank gathers its
 partner's net for the files, which stay the pair's. A single-net run
-replicates its net over the axis and says so, as the JAX trainer does. Not
-ported yet, and refused: the ``space`` mesh axis (ROADMAP Queue 1 item 7).
+replicates its net over the axis and says so, as the JAX trainer does.
+
+With a space axis (``mesh.extra_axes = (("space", S),)``, alone or after a
+net axis; S ranks more each) the S ranks of a block of images each hold
+its rows [s*H/S, (s+1)*H/S) and train on them (``engine/steps.py``,
+``models.blocks.space_partition``): the axis is layout only, so the
+numbers are the one-process run's up to reduction order. Case evaluation,
+the probe and refresh gather the labels' rows, so every rank takes the
+same decisions from whole images; the parameters are replicated over the
+axis and rank 0 writes the files. Where the images cannot be split (S does
+not divide ``img_size``, as the JAX trainer checks, or, in the port, a
+level of the model holds fewer rows a rank than its pools or its widest
+halo need) the trainer says so and turns the axis off: the space ranks run
+as replicas on whole images. The TTA warps stay on the CUDA kernel on a
+card: each fetches the whole source rows and writes its shard's rows (the
+JAX trainer pins them to its 3-shear path instead, which GSPMD can split).
 """
 
 from __future__ import annotations
@@ -98,7 +112,7 @@ from aide_tpu_torch.evaluation.case_eval import (
     start_case_evaluation,
     start_host_copy,
 )
-from aide_tpu_torch.models import build_model
+from aide_tpu_torch.models import build_model, space_needs
 from aide_tpu_torch.ops import tta
 from aide_tpu_torch.ops.schedules import make_optimizer, rate_schedule
 
@@ -148,18 +162,20 @@ def init_net(model_cfg, seed: int) -> nn.Module:
 def check_mesh(cfg: TrainConfig) -> int:
     """The ranks this process trains with: its process group's (1 without
     one). Raises where the config asks for more than the process was
-    started with, for the axes the port does not have, for a net axis of a
+    started with, for an axis neither package has, for a net axis of a
     dual run whose size is not 2 (as ``place_state`` does), for a group
-    whose net axis is not the config's, and for a data axis whose size does
-    not divide gcd(batch_size, eval_batch_size)."""
+    whose net or space axis is not the config's, and for a data axis whose
+    size does not divide gcd(batch_size, eval_batch_size)."""
     mesh.refuse_axes(cfg.mesh)
     net = mesh.axis_size(cfg.mesh, "net")
+    space = mesh.axis_size(cfg.mesh, "space")
     if net > 1 and net != 2 and cfg.data.variant == "proposed" and cfg.coteach.enabled:
         raise ValueError(
             f"mesh axis 'net' must have size 2 (the dual co-teaching pair), got {net}")
     world = mesh.world_size()
     launched = mesh.fit_data_devices(mesh.data_batch(cfg), cfg.mesh.num_devices)
-    if not mesh.in_group() and (launched > 1 or net > 1 or cfg.mesh.coordinator_address):
+    if not mesh.in_group() and (launched > 1 or net > 1 or space > 1
+                                or cfg.mesh.coordinator_address):
         raise ValueError(
             f"mesh.num_devices={cfg.mesh.num_devices}, mesh.extra_axes="
             f"{tuple(cfg.mesh.extra_axes)}, mesh.coordinator_address="
@@ -167,10 +183,11 @@ def check_mesh(cfg: TrainConfig) -> int:
             "which aide_tpu_torch.core.mesh.launch starts (the CLI's train does); this process "
             "was not started by launch"
         )
-    if mesh.in_group() and mesh.net_size() != net:
+    if mesh.in_group() and (mesh.net_size(), mesh.space_size()) != (net, space):
         raise ValueError(
-            f"the process group has a net axis of {mesh.net_size()}, mesh.extra_axes="
-            f"{tuple(cfg.mesh.extra_axes)} asks for {net}")
+            f"the process group has a net axis of {mesh.net_size()} and a space axis of "
+            f"{mesh.space_size()}, mesh.extra_axes={tuple(cfg.mesh.extra_axes)} asks for "
+            f"{net} and {space}")
     data = mesh.data_size()
     if data > 1 and mesh.fit_data_devices(mesh.data_batch(cfg), data) != data:
         raise ValueError(
@@ -194,6 +211,7 @@ class Trainer:
             cfg.history_dir, cfg.experiment_name, primary=mesh.is_primary())
         record_params(self.logger, cfg)
         self._warn_mesh()
+        self._size_space_axis()
 
         self.task = task = task if task is not None else build_task(cfg)
         self.two_modal = task.two_modal
@@ -339,6 +357,48 @@ class Trainer:
         else:
             self.logger.warning(mesh.shrunk_message(asked, self.cfg, mesh.data_size()))
 
+    def _size_space_axis(self) -> None:
+        """Turn a space axis off where it cannot split the images, with a
+        warning: S not dividing img_size (the JAX trainer's check and
+        words), or a level of the model whose rows a rank, img_size / (S *
+        2^level), are not whole down to the last pool, or fewer than its
+        widest halo (a dilated gate's dilation, else 1). Otherwise say how
+        the TTA warps run: on the gathered source rows, into this shard's
+        rows; an explicit 'gather' gets the JAX trainer's warning."""
+        k = mesh.space_size()
+        if k == 1:
+            return
+        size = self.cfg.data.img_size
+        live = size % k == 0
+        if not live:
+            self.logger.warning(
+                "mesh 'space' axis (%d) does not divide img_size=%d — spatial partitioning "
+                "disabled", k, size)
+        else:
+            pools, halo = space_needs(self.cfg.model)
+            rows = size // k
+            deepest = rows >> pools
+            if rows % (1 << pools) or deepest < halo:
+                live = False
+                self.logger.warning(
+                    "mesh 'space' axis (%d): img_size=%d leaves %s rows a rank at level %d of "
+                    "%s, whose pools need whole rows and whose widest halo is %d rows — "
+                    "spatial partitioning disabled; the space ranks run as replicas",
+                    k, size, f"{rows / (1 << pools):g}", pools + 1, self.cfg.model.name, halo)
+        mesh.set_space_live(live)
+        if not live:
+            return
+        wm = self.cfg.data.warp_method
+        if wm == "gather":
+            self.logger.warning(
+                f"data.warp_method={wm!r} with an active space axis: the partitioner will "
+                "all-gather the batch around it — expect degraded scaling; use 'auto'/'shear'")
+        else:
+            self.logger.info(
+                "space axis active: each TTA warp all-gathers its source rows over the space "
+                "group and writes this rank's %d output rows (data.warp_method=%r)",
+                size // k, wm)
+
     # ------------------------------------------------------------------
 
     def view_params(self, epoch: int, step: int, batch: int):
@@ -370,8 +430,12 @@ class Trainer:
         """predict_step on a case-evaluation batch, moved to the device
         first when the pipe serves host batches. Over a data axis the batch
         is this rank's rows of a full eval batch (N divides it), and the
-        labels of all ranks' rows are fetched."""
-        labels = self.predict_step(state, self._on_device(batch))
+        labels of all ranks' rows are fetched; on a live space axis its H
+        rows, and the labels' rows are fetched first."""
+        spatial = mesh.h_sharded(self.cfg.data.eval_batch_size)
+        labels = self.predict_step(state, self._on_device(batch), *((True,) if spatial else ()))
+        if spatial:
+            labels = mesh.fetch_h(labels, dim=2 if self.dual else 1)
         if mesh.data_size() == 1:
             return labels
         if not self.dual:
@@ -406,20 +470,21 @@ class Trainer:
         # every train batch is a full global batch (drop_last); a rank holds
         # its rows of it and takes its columns of the global view draws
         b = cfg.data.batch_size
-        rows, sharded = mesh.local_rows(b), mesh.rows_sharded(b)
+        rows, sharded, spatial = mesh.local_rows(b), mesh.rows_sharded(b), mesh.h_sharded(b)
         for i, batch in enumerate(self.train_pipe.batches(b, rng=shuffle_rng)):
             batch = self._on_device(batch)
             if self.augment_batch is not None:
                 degrees, hflip = self.augment_params(epoch, i, b)
-                batch = self.augment_batch(batch, degrees[rows], hflip[rows])
+                batch = self.augment_batch(batch, degrees[rows], hflip[rows],
+                                           *((True,) if spatial else ()))
             if self.dual:
                 degrees, hflip = self.view_params(epoch, i, b)
                 args = (batch, degrees[:, rows], hflip[:, rows], rate)
             else:
                 args = (batch,)
-            # ``sharded`` only over a data axis: a step wrapped with
-            # positional arguments sees the single-card call
-            m = self.train_step(self.state, *args, *((sharded,) if mesh.data_size() > 1 else ()))
+            # ``sharded`` (and ``spatial``) only over a data (space) axis: a
+            # step wrapped with positional arguments sees the single-card call
+            m = self.train_step(self.state, *args, *self._flags(sharded, spatial))
             totals = self._accumulate(totals, m)
             if cfg.log_every_steps and (i + 1) % cfg.log_every_steps == 0:
                 # opt-in mid-epoch visibility; each line costs a host sync
@@ -429,6 +494,14 @@ class Trainer:
                 self.logger.info("epoch %d step %d | %s", epoch + 1, i + 1, vals)
         return self._finalize(totals)
 
+    @staticmethod
+    def _flags(sharded: bool, spatial: bool) -> tuple:
+        """The steps' trailing (sharded, spatial) arguments, as far as they
+        are needed."""
+        if spatial:
+            return sharded, True
+        return (sharded,) if mesh.data_size() > 1 else ()
+
     def _test_epoch(self) -> Dict[str, float]:
         totals: Optional[dict] = None
         eb, n = self.cfg.data.eval_batch_size, len(self.test_pipe)
@@ -437,10 +510,12 @@ class Trainer:
             batch = self._on_device(batch)
             if self.dual:
                 batch = dict(batch, target1=batch["target"], target2=batch["target"])
-            # the ragged last batch of a data axis runs replicated: the
-            # metrics are the whole batch's on every rank, counted once
-            sharded = (mesh.rows_sharded(min(eb, n - start)),) if mesh.data_size() > 1 else ()
-            totals = self._accumulate(totals, self.eval_step(self.state, batch, *sharded))
+            # the ragged last batch of a data axis runs replicated, on whole
+            # images: the metrics are the whole batch's on every rank,
+            # counted once
+            rows = min(eb, n - start)
+            flags = self._flags(mesh.rows_sharded(rows), mesh.h_sharded(rows))
+            totals = self._accumulate(totals, self.eval_step(self.state, batch, *flags))
         return self._finalize(totals)
 
     def _dispatch_fused_test(self, case_timing):
@@ -781,7 +856,8 @@ class Trainer:
         """The state's snapshot for the files on the primary rank, None on
         the others. On a net axis the primary's partner sends its net (a
         collective of their pair)."""
-        partner = isinstance(self.state, NetRankState) and mesh.data_rank() == 0
+        partner = (isinstance(self.state, NetRankState) and mesh.data_rank() == 0
+                   and mesh.space_rank() == 0)
         if not (mesh.is_primary() or partner):
             return None
         snap = ckpt.snapshot(self.state, clone=clone)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from torch import nn
 
+from aide_tpu_torch.models.blocks import POOLS
 from aide_tpu_torch.models.fuseunet import VARIANTS, FuseUNet
 from aide_tpu_torch.models.unet import UNet
 
@@ -48,6 +49,16 @@ def build_eval_model(model_cfg) -> nn.Module:
     package drops its packed block barrier here, a TPU layout knob the port
     does not have, so this is ``build_model``."""
     return build_model(model_cfg)
+
+
+def space_needs(model_cfg) -> tuple:
+    """What a space axis needs of the network a ModelConfig names: (the
+    2x2 pools it descends through, so each level's rows a rank must be
+    whole; its widest halo in rows, the spatial gates' dilation in the
+    attention models, else the 3x3 convs' 1)."""
+    name = model_cfg.name
+    gated = name == "unetsa" or FUSEUNET_VARIANTS.get(name, "plain") != "plain"
+    return POOLS, max(1, model_cfg.attention_dilation) if gated else 1
 
 
 def is_two_modal(name: str) -> bool:

@@ -14,6 +14,17 @@ GroupNorm has no running statistics and ignores it.
 the JAX package wraps its blocks in ``nn.remat``. The recompute in the
 backward pass runs with the BatchNorm folds switched off, so the running
 statistics are folded once per forward, as flax's functional remat does.
+
+Inside ``space_partition`` on a space axis (``core.mesh``) each rank holds
+rows [s*H/S, (s+1)*H/S) of every map, and the layers compute what they
+compute on whole images: a 3x3 conv (``Conv2d``, dilated or not) takes
+``padding`` rows of each neighbour (``mesh.halo_rows``, zeros at the
+image's edges) and pads W alone; the bilinear upsample takes one row of
+each, the edge row copied at the image's edges (the clamp of the
+half-pixel resize); BatchNorm's statistics span the replica group (data x
+space), GroupNorm's and the channel gate's sums the space group. Pools,
+1x1 convs and the transposed 2x2 conv are local. No module changes its
+parameters or names for it.
 """
 
 from __future__ import annotations
@@ -27,6 +38,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from aide_tpu_torch.core import mesh
+
+# the UNet family and the FuseUNet pool 2x2 before each of their levels
+# after the first: POOLS + 1 levels
+POOLS = 4
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -71,6 +86,32 @@ def global_batch_stats(enabled: bool = True):
         yield
     finally:
         _global_stats = before
+
+
+# whether the layers run on this rank's rows of a space axis
+# (``space_partition``); a module global for the same reason
+_space = False
+
+
+@contextlib.contextmanager
+def space_partition(enabled: bool = True):
+    """Inside, on a space axis of S > 1 ranks (``core.mesh``), the layers
+    take this rank's rows of each image and exchange what crosses the rows'
+    edges with the other shards of its space group: collectives in the
+    forwards and the backward, which every rank of the group runs in the
+    same order (remat's recompute issues its halos again). Outside it, or
+    at S = 1, every layer computes on the rows it is given."""
+    global _space
+    before = _space
+    _space = enabled
+    try:
+        yield
+    finally:
+        _space = before
+
+
+def _partitioned() -> bool:
+    return _space and mesh.space_size() > 1
 
 
 def _channels(v: torch.Tensor) -> torch.Tensor:
@@ -154,21 +195,24 @@ def _row_counts(world: int, count: int, device: torch.device):
 class _GlobalBatchNorm(torch.autograd.Function):
     """Train-mode batch norm over the global batch of the data axis. The
     forward all-gathers each rank's per-channel mean and inverse std over
-    its net's data group (one collective; on a net axis the pair's other
-    net normalises its own activations in its own group) and combines them; the backward all-reduces the
+    ``group`` of ``world`` ranks, each holding an equal block (its net's
+    data group, or its replica group under ``space_partition``; on a net
+    axis the pair's other net normalises its own activations in its own
+    group) and combines them; the backward all-reduces the
     per-channel sum(dy) and sum(dy * (x - mean)) (one collective). The
     weight's and bias's gradients stay this rank's share, which the step's
     gradient all-reduce sums. Returns y and the global mean and inverse
     std (no gradient), which the module folds into its running ones."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group, world):
         x = x.contiguous(memory_format=_memory_format(x))
-        c, world = x.shape[1], mesh.data_size()
+        c = x.shape[1]
+        ctx.group = group
         mean, invstd = _stats(x, eps)
         local = torch.cat([mean, invstd])
         gathered = local.new_empty(world * 2 * c)
-        mesh.all_gather(gathered, local)
+        mesh.all_gather(gathered, local, group, "bn")
         gathered = gathered.view(world, 2, c)
         counts, ctx.counts = _row_counts(world, x.numel() // c, x.device)
         mean, invstd = _combine_stats(x, gathered[:, 0], gathered[:, 1], counts, eps)
@@ -182,10 +226,10 @@ class _GlobalBatchNorm(torch.autograd.Function):
         gy = gy.contiguous(memory_format=_memory_format(x))
         sum_dy, sum_dy_xmu, gw, gb = _backward_sums(gy, x, mean, invstd, weight)
         sums = torch.cat([sum_dy, sum_dy_xmu])
-        mesh.all_reduce(sums)
+        mesh.all_reduce(sums, ctx.group, "bn")
         c = x.shape[1]
         gx = _backward_input(gy, x, mean, invstd, weight, sums[:c], sums[c:], ctx.counts)
-        return gx, gw, gb, None
+        return gx, gw, gb, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -198,7 +242,8 @@ class BatchNorm(nn.Module):
     which is why this is its own module. Eval mode uses the running stats.
     ``fold`` is cleared while a remat block recomputes its forward.
 
-    Inside ``global_batch_stats`` on a data axis of N > 1 ranks the
+    Inside ``global_batch_stats`` on a data axis of N > 1 ranks (or under
+    ``space_partition``, on the N blocks of data x space) the
     train-mode statistics are those of the global batch
     (``_GlobalBatchNorm``: one collective a forward, one a backward), and
     every rank folds the same running statistics, with the biased global
@@ -222,8 +267,10 @@ class BatchNorm(nn.Module):
                 False, 0.0, self.eps,
             )
         fold = update_stats and self.fold
-        if _global_stats and mesh.data_size() > 1:
-            y, mean, invstd = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        group, world = mesh.replicas(_partitioned())
+        if _global_stats and world > 1:
+            y, mean, invstd = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, group,
+                                                     world)
             if fold:
                 with torch.no_grad():
                     self.running_mean.lerp_(mean, self.momentum)
@@ -265,8 +312,16 @@ class GroupNorm(nn.Module):
         b, c, h, w = x.shape
         # splitting C is a view in channels_last memory too
         xg = x.to(_stats_dtype(x)).reshape(b, self.num_groups, c // self.num_groups, h, w)
-        mean = xg.mean(dim=(2, 3, 4), keepdim=True)
-        var = torch.clamp((xg * xg).mean(dim=(2, 3, 4), keepdim=True) - mean * mean, min=0.0)
+        if _partitioned():
+            # the whole image's sums: this shard's, summed over the space group
+            sums = mesh.space_all_reduce(torch.stack([xg.sum(dim=(2, 3, 4)),
+                                                      (xg * xg).sum(dim=(2, 3, 4))]))
+            n = (c // self.num_groups) * h * mesh.space_size() * w
+            mean, sq = (sums / n)[..., None, None, None]
+        else:
+            mean = xg.mean(dim=(2, 3, 4), keepdim=True)
+            sq = (xg * xg).mean(dim=(2, 3, 4), keepdim=True)
+        var = torch.clamp(sq - mean * mean, min=0.0)
         y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(b, c, h, w)
         y = y * self.weight.view(1, c, 1, 1) + self.bias.view(1, c, 1, 1)
         return y.to(x.dtype)
@@ -305,14 +360,31 @@ def run_block(module: nn.Module, remat: bool, *args):
     )
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that, under ``space_partition``, takes its H padding
+    from the space neighbours' rows (``mesh.halo_rows``: ``padding`` rows,
+    the dilation's reach, in the dtype the conv consumes under autocast)
+    and pads W alone. Outside it, ``nn.Conv2d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        r = self.padding[0]
+        if not (r and _partitioned()):
+            return super().forward(x)
+        kind = x.device.type
+        if torch.is_autocast_enabled(kind):
+            x = x.to(torch.get_autocast_dtype(kind))
+        return F.conv2d(mesh.halo_rows(x, r), self.weight, self.bias, self.stride,
+                        (0, self.padding[1]), self.dilation, self.groups)
+
+
 class ConvBlock(nn.Module):
     """Two conv3x3 -> norm -> relu stages."""
 
     def __init__(self, cin: int, features: int, norm: str = "batch", groups: int = 8):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, features, 3, padding=1)
+        self.conv1 = Conv2d(cin, features, 3, padding=1)
         self.bn1 = Norm(features, norm, groups)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv2 = Conv2d(features, features, 3, padding=1)
         self.bn2 = Norm(features, norm, groups)
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
@@ -336,8 +408,16 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
-    """2x bilinear upsample with half-pixel centres (jax.image.resize)."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    """2x bilinear upsample with half-pixel centres (jax.image.resize).
+    Under ``space_partition``: one halo row of each neighbour, the edge row
+    copied at the image's top and bottom (where the resize clamps), then
+    the resize and rows [2, 2h + 2) of it."""
+    if not _partitioned():
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    h = x.shape[2]
+    up = F.interpolate(mesh.halo_rows(x, 1, edge=True), scale_factor=2, mode="bilinear",
+                       align_corners=False)
+    return up[:, :, 2:2 * h + 2]
 
 
 class Upsample2x(nn.Module):
@@ -354,7 +434,7 @@ class UpsampleConv(nn.Sequential):
     def __init__(self, cin: int, features: int, learned: bool = False, norm: str = "batch",
                  groups: int = 8):
         up = [nn.ConvTranspose2d(cin, features, 2, stride=2)] if learned else [
-            Upsample2x(), nn.Conv2d(cin, features, 3, padding=1)]
+            Upsample2x(), Conv2d(cin, features, 3, padding=1)]
         super().__init__(*up, Norm(features, norm, groups), nn.ReLU())
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
@@ -389,7 +469,14 @@ class ChannelAttention(nn.Module):
         self.fc2 = nn.Linear(mid, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.sigmoid(self.fc2(F.relu(self.fc1(x.mean(dim=(2, 3))))))
+        if _partitioned():
+            # the whole image's mean: this shard's sums (at least f32) over
+            # the space group
+            total = mesh.space_all_reduce(x.sum(dim=(2, 3), dtype=_stats_dtype(x)))
+            mean = (total / (x.shape[2] * mesh.space_size() * x.shape[3])).to(x.dtype)
+        else:
+            mean = x.mean(dim=(2, 3))
+        y = torch.sigmoid(self.fc2(F.relu(self.fc1(mean))))
         return y[:, :, None, None]
 
 
@@ -402,8 +489,8 @@ class _DilatedGate(nn.Module):
         super().__init__()
         mid = max(1, channels // reduction)
         self.conv1 = nn.Conv2d(channels, mid, 1)
-        self.conv2 = nn.Conv2d(mid, mid, 3, padding=dilation, dilation=dilation)
-        self.conv3 = nn.Conv2d(mid, mid, 3, padding=dilation, dilation=dilation)
+        self.conv2 = Conv2d(mid, mid, 3, padding=dilation, dilation=dilation)
+        self.conv3 = Conv2d(mid, mid, 3, padding=dilation, dilation=dilation)
         self.conv4 = nn.Conv2d(mid, 1, 1)
         self.bn = Norm(1, norm, 1)
 
@@ -458,9 +545,9 @@ class FeatureRefine(nn.Module):
 
     def __init__(self, features: int, norm: str = "batch", groups: int = 8):
         super().__init__()
-        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv1 = Conv2d(features, features, 3, padding=1)
         self.bn1 = Norm(features, norm, groups)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv2 = Conv2d(features, features, 3, padding=1)
         self.bn2 = Norm(features, norm, groups)
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from aide_tpu_torch.models.blocks import (
+    POOLS,
     DownBlock,
     SpatialAttention,
     UpBlock,
@@ -61,7 +62,7 @@ class FuseUNet(nn.Module):
                          norm=norm)
         common = dict(norm=norm, groups=group_norm_groups)
         w = base_width
-        widths = [w, 2 * w, 4 * w, 8 * w, 16 * w]
+        widths = [w << level for level in range(POOLS + 1)]
         for level, feats in enumerate(widths):
             prev = widths[level - 1]
             cin1 = in_channels if level == 0 else (2 * prev if self.fused_descent else prev)
@@ -72,8 +73,8 @@ class FuseUNet(nn.Module):
                 for m in (1, 2):
                     self.add_module(f"modal{m}_sa{level + 1}", SpatialAttention(
                         feats, attention_reduction, attention_dilation, norm))
-        for level in range(3, -1, -1):
-            self.add_module(f"up_block{4 - level}", UpBlock(
+        for level in range(POOLS - 1, -1, -1):
+            self.add_module(f"up_block{POOLS - level}", UpBlock(
                 2 * widths[level + 1], 2 * widths[level], 2 * widths[level], learned_bilinear,
                 **common))
         self.last_conv1 = nn.Conv2d(2 * widths[0], num_classes, 1)
@@ -91,7 +92,7 @@ class FuseUNet(nn.Module):
         x = modal2.permute(0, 3, 1, 2)
         with autocast(y, self.compute_dtype):
             fused = []
-            for level in range(5):
+            for level in range(POOLS + 1):
                 if level > 0:
                     y = max_pool_2x2(fused[-1] if self.fused_descent else y)
                     x = max_pool_2x2(x)
@@ -99,8 +100,8 @@ class FuseUNet(nn.Module):
                 x = self._encode(2, level, x, update_stats)
                 fused.append(torch.cat([y, x], dim=1))
             out = fused[-1]
-            for level in range(3, -1, -1):
-                out = run_block(getattr(self, f"up_block{4 - level}"), self.remat,
+            for level in range(POOLS - 1, -1, -1):
+                out = run_block(getattr(self, f"up_block{POOLS - level}"), self.remat,
                                 fused[level], out, update_stats)
             logits = self.last_conv1(out)
         return logits.to(torch.float32).permute(0, 2, 3, 1)

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from aide_tpu_torch.models.blocks import (
+    POOLS,
     DownBlock,
     SpatialAttention,
     UpBlock,
@@ -51,15 +52,15 @@ class UNet(nn.Module):
                          learned_bilinear=learned_bilinear, norm=norm)
         common = dict(norm=norm, groups=group_norm_groups)
         w = base_width
-        widths = [w, 2 * w, 4 * w, 8 * w, 16 * w]
+        widths = [w << level for level in range(POOLS + 1)]
         for level, feats in enumerate(widths):
             cin = in_channels if level == 0 else widths[level - 1]
             self.add_module(f"down_block{level + 1}", DownBlock(cin, feats, **common))
             if spatial_attention:
                 self.add_module(f"sa{level + 1}", SpatialAttention(
                     feats, attention_reduction, attention_dilation, norm))
-        for level in range(3, -1, -1):
-            self.add_module(f"up_block{4 - level}", UpBlock(
+        for level in range(POOLS - 1, -1, -1):
+            self.add_module(f"up_block{POOLS - level}", UpBlock(
                 widths[level + 1], widths[level], widths[level], learned_bilinear, **common))
         self.last_conv1 = nn.Conv2d(widths[0], num_classes, 1)
 
@@ -67,15 +68,15 @@ class UNet(nn.Module):
         x = image.permute(0, 3, 1, 2)
         with autocast(x, self.compute_dtype):
             skips = []
-            for level in range(5):
+            for level in range(POOLS + 1):
                 if level > 0:
                     x = max_pool_2x2(x)
                 x = run_block(getattr(self, f"down_block{level + 1}"), self.remat, x, update_stats)
                 if self.spatial_attention:
                     x = getattr(self, f"sa{level + 1}")(x, update_stats) * x
                 skips.append(x)
-            for level in range(3, -1, -1):
-                x = run_block(getattr(self, f"up_block{4 - level}"), self.remat,
+            for level in range(POOLS - 1, -1, -1):
+                x = run_block(getattr(self, f"up_block{POOLS - level}"), self.remat,
                               skips[level], x, update_stats)
             logits = self.last_conv1(x)
         return logits.to(torch.float32).permute(0, 2, 3, 1)

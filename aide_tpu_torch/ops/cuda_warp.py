@@ -39,6 +39,12 @@ the index math: the kernel reads and writes NHWC (the memory of a
 channels_last NCHW tensor) with no copy. ``source_boxes`` is the tile boxes
 in plain PyTorch, from the same index math as ``warp_plain``.
 
+A launch may write a window of output rows [row0, row0 + rows) alone (a
+space shard's rows, ``rows`` = (row0, rows) in the wrapper): the grid then
+covers only the window's tiles, and each tile's index math and source box
+are the whole warp's at its global rows, so the window is exactly that
+slice of the whole warp; the source stays the whole image.
+
 ``warp_rotate_flip`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs ``warp_plain``, the same 8-tap function in
 plain PyTorch ops, which the tests hold to the JAX package and the chip
@@ -167,23 +173,33 @@ def fill_table(fill, n: int, c: int, device) -> torch.Tensor:
 # ----------------------------- plain version -----------------------------
 
 
-def _taps(table: torch.Tensor, s: int, inverse: bool):
-    """The kernel's index math for every output pixel of (N, S, S).
+def _window(s: int, rows) -> Tuple[int, int]:
+    """(row0, rows) of an output window; None is the whole image."""
+    row0, n = (0, s) if rows is None else rows
+    if not (0 <= row0 and n >= 0 and row0 + n <= s):
+        raise ValueError(f"output rows [{row0}, {row0 + n}) outside an image of {s}")
+    return row0, n
 
-    Returns (f3, taps): f3 the stage-3 fraction, (N, S, S, 1), and taps
+
+def _taps(table: torch.Tensor, s: int, inverse: bool, rows=None):
+    """The kernel's index math for every output pixel of (N, R, S), the
+    output rows ``rows`` = (row0, R) (None: all S).
+
+    Returns (f3, taps): f3 the stage-3 fraction, (N, R, S, 1), and taps
     nested as [(v3, f2, [(v2, f1, [(v1, r, col)] * 2)] * 2)] * 2 over
     t3, t2, t1: each stage's validity and fraction, and the source pixel
     (r, col) of every stage-1 tap (clamped into the image; only read when
     v3, v2 and v1 hold)."""
     n = table.shape[0]
     dev = table.device
+    row0, nr = _window(s, rows)
     cen = (s - 1) / 2.0
     lam_x = table[:, 0].reshape(n, 1, 1)
     lam_y = table[:, 1].reshape(n, 1, 1)
     n90 = table[:, 2].to(torch.int64).reshape(n, 1, 1)
     flip = (table[:, 3] > 0.5).reshape(n, 1, 1)
-    ys = torch.arange(s, device=dev).reshape(1, s, 1).expand(n, s, s)
-    xs = torch.arange(s, device=dev).reshape(1, 1, s).expand(n, s, s)
+    ys = torch.arange(row0, row0 + nr, device=dev).reshape(1, nr, 1).expand(n, nr, s)
+    xs = torch.arange(s, device=dev).reshape(1, 1, s).expand(n, nr, s)
     if not inverse:
         xs = torch.where(flip, s - 1 - xs, xs)
 
@@ -222,11 +238,14 @@ def _taps(table: torch.Tensor, s: int, inverse: bool):
 
 
 def warp_plain(
-    images: torch.Tensor, table: torch.Tensor, fill: torch.Tensor, inverse: bool
+    images: torch.Tensor, table: torch.Tensor, fill: torch.Tensor, inverse: bool, rows=None
 ) -> torch.Tensor:
     """The kernel's 8-tap function in plain PyTorch: (N, S, S, C) f32 in,
-    (N, S, S, C) f32 out. Same index math, same operation order."""
+    (N, R, S, C) f32 out, the output rows ``rows`` = (row0, R) (None: all
+    S). Same index math, same operation order; every pixel is computed
+    alone, so a window is exactly a slice of the whole warp."""
     n, s, _, c = images.shape
+    nr = _window(s, rows)[1]
     flat = images.reshape(n * s * s, c)
     base = (torch.arange(n, device=images.device) * (s * s)).reshape(n, 1, 1)
     fill_b = fill.reshape(n, 1, 1, c)
@@ -235,10 +254,10 @@ def warp_plain(
         return (1.0 - f) * a + f * b
 
     def tap(v, r, col):
-        src = flat[(base + r * s + col).reshape(-1)].reshape(n, s, s, c)
+        src = flat[(base + r * s + col).reshape(-1)].reshape(n, nr, s, c)
         return torch.where(v[..., None], src, fill_b)
 
-    f3, taps = _taps(table, s, inverse)
+    f3, taps = _taps(table, s, inverse, rows)
     s2 = []
     for v3, f2, row3 in taps:
         s1 = [torch.where(v2[..., None], lerp(f1, tap(*row2[0]), tap(*row2[1])), fill_b)
@@ -247,18 +266,22 @@ def warp_plain(
     return lerp(f3, *s2)
 
 
-def source_boxes(table: torch.Tensor, s: int, inverse: bool, tile: int = TILE) -> torch.Tensor:
+def source_boxes(table: torch.Tensor, s: int, inverse: bool, tile: int = TILE,
+                 rows=None) -> torch.Tensor:
     """Every tile x tile output tile's exact source box over the taps the
-    kernel reads: (N, T, T, 4) int64 [r0, r1, c0, c1] with T = ceil(S/tile),
-    r0 > r1 where the tile reads no tap (it lies wholly in the fill). The
-    same index math as warp_plain; the tests hold each box to BOX_SIDE."""
+    kernel reads: (N, T_r, T, 4) int64 [r0, r1, c0, c1] with T = ceil(S/tile)
+    and T_r = ceil(R/tile) tile rows of the output window ``rows`` = (row0,
+    R) (None: all S), r0 > r1 where the tile reads no tap (it lies wholly
+    in the fill). The same index math as warp_plain; the tests hold each
+    box to BOX_SIDE."""
     n = table.shape[0]
-    t = -(-s // tile)
+    nr = _window(s, rows)[1]
+    t, t_r = -(-s // tile), -(-nr // tile)
     big = 1 << 30
-    lo_r = torch.full((n, s, s), big, dtype=torch.int64, device=table.device)
+    lo_r = torch.full((n, nr, s), big, dtype=torch.int64, device=table.device)
     hi_r = torch.full_like(lo_r, -big)
     lo_c, hi_c = lo_r.clone(), hi_r.clone()
-    _, taps = _taps(table, s, inverse)
+    _, taps = _taps(table, s, inverse, rows)
     for v3, _, row3 in taps:
         for v2, _, row2 in row3:
             for v1, r, col in row2:
@@ -269,9 +292,8 @@ def source_boxes(table: torch.Tensor, s: int, inverse: bool, tile: int = TILE) -
                 hi_c = torch.maximum(hi_c, torch.where(read, col, -big))
 
     def per_tile(a, fill_value, reduce):
-        pad = t * tile - s
-        a = torch.nn.functional.pad(a, (0, pad, 0, pad), value=fill_value)
-        a = a.reshape(n, t, tile, t, tile).transpose(2, 3).reshape(n, t, t, tile * tile)
+        a = torch.nn.functional.pad(a, (0, t * tile - s, 0, t_r * tile - nr), value=fill_value)
+        a = a.reshape(n, t_r, tile, t, tile).transpose(2, 3).reshape(n, t_r, t, tile * tile)
         return reduce(a, dim=-1)
 
     return torch.stack([
@@ -313,10 +335,11 @@ def build(verbose: bool = False, source: str = SOURCE) -> str:
 
 
 def load(path: str):
-    """ctypes handle of a built library, with warp_rotate_flip_f32 typed."""
+    """ctypes handle of a built library, with warp_rotate_flip_f32 typed
+    (in, out, table, fill, n_img, s, c, inverse, row0, rows, stream)."""
     lib = ctypes.CDLL(path)
     fn = lib.warp_rotate_flip_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -339,14 +362,16 @@ def _library():
 
 
 def launch(
-    images: torch.Tensor, table: torch.Tensor, fill: torch.Tensor, inverse: bool
+    images: torch.Tensor, table: torch.Tensor, fill: torch.Tensor, inverse: bool, rows=None
 ) -> torch.Tensor:
     """Run the kernel on CUDA tensors: images (N, S, S, C) contiguous f32,
-    table (N, 4) f32, fill (N, C) f32, all on one device."""
+    table (N, 4) f32, fill (N, C) f32, all on one device; the (N, R, S, C)
+    output rows ``rows`` = (row0, R) (None: all S)."""
     global launches
     n, s, s2, c = images.shape
     if s != s2:
         raise ValueError(f"warp kernel needs a square image, got {s}x{s2}")
+    row0, nr = _window(s, rows)
     if smem_bytes(c) > SMEM_LIMIT:
         raise ValueError(
             f"C={c}: a {BOX_SIDE}x{BOX_SIDE} source box takes {smem_bytes(c)} bytes of "
@@ -365,14 +390,14 @@ def launch(
             raise ValueError(f"{name} must be contiguous float32")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
-    out = torch.empty_like(images)
-    if images.numel() == 0:
+    out = images.new_empty((n, nr, s, c))
+    if out.numel() == 0:
         return out
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().warp_rotate_flip_f32(
             images.data_ptr(), out.data_ptr(), table.data_ptr(), fill.data_ptr(),
-            n, s, c, int(inverse), stream,
+            n, s, c, int(inverse), row0, nr, stream,
         )
     if err != 0:
         raise RuntimeError(f"warp_rotate_flip kernel launch failed: CUDA error {err}")
@@ -389,11 +414,14 @@ def warp_rotate_flip(
     hflip: torch.Tensor,
     fill,
     inverse: bool = False,
+    rows=None,
 ) -> torch.Tensor:
     """Fused warp equivalent to ops.warp.augment / invert (shear method).
 
     images (B, H, W, C) with H == W, any float dtype (computed in f32 and
-    cast back); degrees/hflip (B,); fill scalar | (C,) | (B, C). A CUDA
+    cast back); degrees/hflip (B,); fill scalar | (C,) | (B, C); ``rows``
+    = (row0, R) returns output rows [row0, row0 + R) alone, (B, R, W, C)
+    (None: all of them). A CUDA
     tensor goes to the kernel, which takes |degrees| <= 180 (a larger
     angle can need a source box over BOX_SIDE, and the kernel traps); a
     CPU tensor goes to the plain version."""
@@ -405,9 +433,9 @@ def warp_rotate_flip(
     fills = fill_table(fill, b, c, dev)
     x = images.to(torch.float32).contiguous()
     if dev.type == "cuda":
-        out = launch(x, table, fills, inverse)
+        out = launch(x, table, fills, inverse, rows)
     elif dev.type == "cpu":
-        out = warp_plain(x, table, fills, inverse)
+        out = warp_plain(x, table, fills, inverse, rows)
     else:
         raise ValueError(f"warp_rotate_flip has no path for device {dev}")
     return out.to(images.dtype)
@@ -418,3 +446,21 @@ def bytes_moved(shape: Tuple[int, ...], itemsize: int = 4) -> int:
     written once (the (N, 4) and (N, C) tables are negligible but counted)."""
     n, s, _, c = shape
     return 2 * n * s * s * c * itemsize + n * 4 * 4 + n * c * 4
+
+
+def window_bytes_moved(table: torch.Tensor, s: int, c: int, inverse: bool, rows,
+                       itemsize: int = 4) -> int:
+    """Least device-memory traffic of a launch of the output rows ``rows``
+    = (row0, R): every source pixel its taps read at these angles
+    (``table``), read once, and the (N, R, S, C) output written once, plus
+    the tables."""
+    n = table.shape[0]
+    read = torch.zeros(n * s * s, dtype=torch.bool, device=table.device)
+    base = (torch.arange(n, device=table.device) * (s * s)).reshape(n, 1, 1)
+    _, taps = _taps(table, s, inverse, rows)
+    for v3, _, row3 in taps:
+        for v2, _, row2 in row3:
+            for v1, r, col in row2:
+                read[(base + r * s + col)[v3 & v2 & v1]] = True
+    pixels = int(read.sum()) + n * _window(s, rows)[1] * s
+    return pixels * c * itemsize + n * 4 * 4 + n * c * 4

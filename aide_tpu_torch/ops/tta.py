@@ -32,9 +32,10 @@ def sample_view_params(
     return degrees, (coin < hflip_prob).to(torch.float32)
 
 
-def make_views(images, degrees, hflip, fill=0.0, method: str = "auto"):
+def make_views(images, degrees, hflip, fill=0.0, method: str = "auto", rows=None):
     """(B, H, W, C) -> (V, B, H, W, C) augmented views via one batched warp.
-    A (B, C) fill is tiled over the views."""
+    A (B, C) fill is tiled over the views. With ``rows`` = (row0, R), the
+    views' rows [row0, row0 + R) alone: (V, B, R, W, C)."""
     v, b = degrees.shape
     flat = images.unsqueeze(0).expand((v,) + tuple(images.shape))
     flat = flat.reshape((v * b,) + tuple(images.shape[1:]))
@@ -42,17 +43,18 @@ def make_views(images, degrees, hflip, fill=0.0, method: str = "auto"):
     if torch.as_tensor(fill).ndim == 2:
         fill_flat = torch.as_tensor(fill).repeat(v, 1)
     out = warp.augment(
-        flat, degrees.reshape(-1), hflip.reshape(-1), fill_flat, method=method
+        flat, degrees.reshape(-1), hflip.reshape(-1), fill_flat, method=method, rows=rows
     )
-    return out.reshape((v, b) + tuple(images.shape[1:]))
+    return out.reshape((v, b) + tuple(out.shape[1:]))
 
 
-def invert_views(view_logits, degrees, hflip, method: str = "auto"):
-    """Invert the augmentation on per-view logits (V, B, H, W, C), zero fill."""
+def invert_views(view_logits, degrees, hflip, method: str = "auto", rows=None):
+    """Invert the augmentation on per-view logits (V, B, H, W, C), zero fill;
+    with ``rows`` = (row0, R), the output rows [row0, row0 + R) alone."""
     v, b = degrees.shape
     flat = view_logits.reshape((v * b,) + tuple(view_logits.shape[2:]))
-    out = warp.invert(flat, degrees.reshape(-1), hflip.reshape(-1), 0.0, method=method)
-    return out.reshape(view_logits.shape)
+    out = warp.invert(flat, degrees.reshape(-1), hflip.reshape(-1), 0.0, method=method, rows=rows)
+    return out.reshape((v, b) + tuple(out.shape[1:]))
 
 
 def sharpen(probs: torch.Tensor, temperature: float, mode: str = "pow_t") -> torch.Tensor:

@@ -13,6 +13,11 @@ implementations compute it:
     (``ops.cuda_warp``); on a CPU tensor it runs the kernel's plain version.
 
 ``auto`` picks ``cuda`` for a CUDA tensor and ``shear`` for a CPU tensor.
+
+``rows`` = (row0, R) asks for output rows [row0, row0 + R) alone: the rows
+of a space shard (``core.mesh``), warped from the whole source. The kernel
+(and its plain version) computes only the window; the ``shear`` and
+``gather`` paths compute the whole warp and slice it.
 """
 
 from __future__ import annotations
@@ -178,30 +183,36 @@ def _resolve_method(method: str, images: torch.Tensor) -> str:
     return "cuda" if images.is_cuda else "shear"
 
 
-def augment(images, degrees, hflip, fill=0.0, method: str = "auto"):
-    """Forward augmentation: rotate by ``degrees`` then horizontally flip."""
+def _rows(out: torch.Tensor, rows) -> torch.Tensor:
+    return out if rows is None else out[:, rows[0]:rows[0] + rows[1]]
+
+
+def augment(images, degrees, hflip, fill=0.0, method: str = "auto", rows=None):
+    """Forward augmentation: rotate by ``degrees`` then horizontally flip;
+    the output rows ``rows`` = (row0, R) alone when given."""
     method = _resolve_method(method, images)
     degrees = degrees.to(images.device)
     hflip = hflip.to(images.device)
     if method == "gather":
-        return sample_affine(images, aug_matrices(degrees, hflip), fill)
+        return _rows(sample_affine(images, aug_matrices(degrees, hflip), fill), rows)
     if method == "cuda":
-        return cuda_warp.warp_rotate_flip(images, degrees, hflip, fill, inverse=False)
+        return cuda_warp.warp_rotate_flip(images, degrees, hflip, fill, inverse=False, rows=rows)
     b, _, _, c = images.shape
     v = _shear_rotate(images.to(torch.float32), degrees, _fill_arr(fill, b, c, images.device))
-    return _hflip_select(v, hflip).to(images.dtype)
+    return _rows(_hflip_select(v, hflip).to(images.dtype), rows)
 
 
-def invert(maps, degrees, hflip, fill=0.0, method: str = "auto"):
-    """Inverse augmentation of predicted maps (un-flip, un-rotate)."""
+def invert(maps, degrees, hflip, fill=0.0, method: str = "auto", rows=None):
+    """Inverse augmentation of predicted maps (un-flip, un-rotate); the
+    output rows ``rows`` = (row0, R) alone when given."""
     method = _resolve_method(method, maps)
     degrees = degrees.to(maps.device)
     hflip = hflip.to(maps.device)
     if method == "gather":
-        return sample_affine(maps, inverse_matrices(degrees, hflip), fill)
+        return _rows(sample_affine(maps, inverse_matrices(degrees, hflip), fill), rows)
     if method == "cuda":
-        return cuda_warp.warp_rotate_flip(maps, degrees, hflip, fill, inverse=True)
+        return cuda_warp.warp_rotate_flip(maps, degrees, hflip, fill, inverse=True, rows=rows)
     b, _, _, c = maps.shape
     v = _hflip_select(maps.to(torch.float32), hflip)
     v = _shear_rotate(v, -degrees, _fill_arr(fill, b, c, maps.device))
-    return v.to(maps.dtype)
+    return _rows(v.to(maps.dtype), rows)

@@ -169,16 +169,38 @@ Phases:
      the pair exchange's bytes and ms, at data 2 the gradient all-reduce's,
      beside phase 5's and phase 12's step medians. On a machine with one
      card it checks that the net axis raises naming the cards, and says
-     that the axis was not exercised there.
+     that the axis was not exercised there;
+ 14. the space axis: phase 5's CHAOS point through aide_tpu_torch.core.mesh.
+     launch with the image rows split over the cards, one process a card:
+     (a) mesh.extra_axes=(("space", 2),) on 2 cards and, with 4 cards, (b)
+     (("net", 2), ("space", 2)). Each layout is held as phase 13's: rank
+     0's history to phase 5's with the cross-mesh bars, each refresh
+     decision with a margin, the ranks of each net ending with equal
+     parameters and BN statistics, every rank with the same history and
+     working labels, the files written by rank 0 alone, 3 warp launches a
+     step on every rank, the row-windowed warp at the rank's shapes equal
+     to its plain version on its card (max abs 0), and rank 0's _last_full
+     resumed by a one-process Trainer bit for bit. (c) a few supervised
+     steps of kidney_comparison_mask1 (UNet-64, 512 px, batch 4) at space 2
+     against the same steps on one card: the losses within rtol 2e-2 and
+     the peak memory of a rank under the card's. It prints each rank's step
+     median, peak and launches, the collectives a step by kind (halo,
+     BatchNorm, gather, gradient) with their bytes (--profile adds the
+     halo exchanges' device time a step from the trace, the NCCL ms and the
+     idle share), beside phase 5's step median. On a machine with one card
+     it checks and times the windowed kernel at (a)'s per-rank shapes
+     against its plain version and checks that the space axis raises
+     naming the cards, and says that the layouts were not exercised there.
 Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's,
-phase 10's, phase 12's and phase 13's launch shapes.
+phase 10's, phase 12's, phase 13's and phase 14's launch shapes (phase 14's
+with their output-row windows).
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
 Run from the repository root:
   python3 chip_smoke.py [--profile] [--baseline FILE.cu] [--data-axis]
-(--data-axis runs phases 1-5, 12 and 13 alone, for a machine with several
-cards; --profile adds, after phases 5, 7, 12 and 13 and in phase 9 (a) and (b), a
+(--data-axis runs phases 1-5 and 12-14 alone, for a machine with several
+cards; --profile adds, after phases 5, 7 and 12-14 and in phase 9 (a) and (b), a
 torch.profiler breakdown of a few more co-teaching steps of each; --baseline times another version of csrc/warp_rotate_flip.cu, for
 instance an earlier commit's, beside this one in phase 4; it may be given
 more than once).
@@ -250,6 +272,17 @@ KERNEL_LAUNCHES = (
     ("net_axis_2", (32, 256, 256, 2), True, 1),
     ("net_axis_4", (16, 256, 256, 3), False, 2),
     ("net_axis_4", (16, 256, 256, 2), True, 1),
+)
+# phase 14's per-rank launches, each writing 1/k of the output rows from the
+# whole source (k = the space axis; rank 0's window, rows [0, 256/k), is
+# timed, every rank's is checked): (path, shape, inverse, launches a step,
+# k). Space 2: both modalities' views of all 8 images, both nets' logits;
+# net 2 x space 2: the same forward warps, then the rank's own net's logits
+WINDOW_LAUNCHES = (
+    ("space_axis_2", (32, 256, 256, 3), False, 2, 2),
+    ("space_axis_2", (64, 256, 256, 2), True, 1, 2),
+    ("space_axis_4", (32, 256, 256, 3), False, 2, 2),
+    ("space_axis_4", (32, 256, 256, 2), True, 1, 2),
 )
 # phase 12's per-rank launch shapes by world size: their rows above
 DATA_AXIS_SHAPES = {1: "chaos_coteach", 2: "chaos_preset", 4: "data_axis_4"}
@@ -371,16 +404,52 @@ def check_kernel(cuda_warp, device):
         if not bool(torch.isfinite(got).all()) or err > 1e-5:
             fail(f"kernel disagrees with its plain version at launch shape {shape}: max abs {err}")
         worst = max(worst, err)
+    # phase 14's windows: every shard's rows, held to the plain version's
+    # window exactly, and to the whole launch's rows
+    for shape, inverse, k in sorted({(sh, inv, k) for _, sh, inv, _, k in WINDOW_LAUNCHES}):
+        worst = max(worst, window_vs_plain(cuda_warp, shape, inverse, k, device))
     return worst
 
 
-def raw_launch(lib, images, table, fills, inverse, out):
-    """One launch of a built library's warp_rotate_flip_f32, uncounted."""
+def window_vs_plain(cuda_warp, shape, inverse, k, device, seed=0) -> float:
+    """The kernel's k output-row windows of a launch at ``shape`` (±60
+    degrees, both flips) against the plain version's windows: fails unless
+    each is equal to it and to the whole launch's rows. Returns 0.0."""
+    import torch
+
+    n, s, _, c = shape
+    degrees = [60.0 * (2.0 * i / (n - 1) - 1.0) for i in range(n)]
+    images, degrees_t, hflip_t, fill = warp_inputs(degrees, [i % 2 for i in range(n)], s, c,
+                                                   seed=n + s + c + seed, device=device)
+    table = cuda_warp.coef_table(degrees_t, hflip_t, inverse)
+    fills = cuda_warp.fill_table(fill, n, c, device)
+    whole = cuda_warp.warp_rotate_flip(images, degrees_t, hflip_t, fill, inverse=inverse)
+    for shard in range(k):
+        rows = (shard * s // k, s // k)
+        got = cuda_warp.warp_rotate_flip(images, degrees_t, hflip_t, fill, inverse=inverse,
+                                         rows=rows)
+        ref = cuda_warp.warp_plain(images, table, fills, inverse, rows)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        sliced = bool(torch.equal(got, whole[:, rows[0]:rows[0] + rows[1]]))
+        print(f"windowed kernel vs plain at {shape} {'inverse' if inverse else 'forward'} rows "
+              f"[{rows[0]}, {rows[0] + rows[1]}): max abs {err:.3e}, equal to the whole "
+              f"launch's rows: {sliced}", flush=True)
+        if err != 0.0 or not sliced:
+            fail(f"windowed kernel at {shape} rows {rows}: max abs {err} against its plain "
+                 f"version, equal to the whole launch's rows: {sliced}")
+    return 0.0
+
+
+def raw_launch(lib, images, table, fills, inverse, out, rows=None):
+    """One launch of a built library's warp_rotate_flip_f32 (the entry
+    point with the output-row window), uncounted."""
     import torch
 
     n, s, _, c = images.shape
+    row0, nr = rows or (0, s)
     err = lib.warp_rotate_flip_f32(images.data_ptr(), out.data_ptr(), table.data_ptr(),
-                                   fills.data_ptr(), n, s, c, int(inverse),
+                                   fills.data_ptr(), n, s, c, int(inverse), row0, nr,
                                    torch.cuda.current_stream().cuda_stream)
     if err != 0:
         fail(f"baseline kernel launch failed: CUDA error {err}")
@@ -399,22 +468,24 @@ def time_kernel(cuda_warp, device, baselines=()):
         scratch.fill_(1.0)
 
     rows = []
-    for path, shape, inverse, per_step in KERNEL_LAUNCHES:
+    for path, shape, inverse, per_step, *k in KERNEL_LAUNCHES + WINDOW_LAUNCHES:
         n, s, _, c = shape
+        window = (0, s // k[0]) if k else None
         degrees = [60.0 * (2.0 * i / (n - 1) - 1.0) for i in range(n)]  # the main path's ±60
         images, degrees, hflip, fill = warp_inputs(degrees, [i % 2 for i in range(n)], s, c,
                                                    seed=7, device=device)
         table = cuda_warp.coef_table(degrees, hflip, inverse)
         fills = cuda_warp.fill_table(fill, n, c, device)
-        got = cuda_warp.launch(images, table, fills, inverse)
-        ref = cuda_warp.warp_plain(images, table, fills, inverse)
+        got = cuda_warp.launch(images, table, fills, inverse, window)
+        ref = cuda_warp.warp_plain(images, table, fills, inverse, window)
         err = float((got - ref).abs().max())
-        if err > 1e-5:
-            fail(f"kernel disagrees at the main path shape {shape}: {err}")
-        versions = {"kernel": lambda: cuda_warp.launch(images, table, fills, inverse)}
-        out = torch.empty_like(images)
+        if err > (0.0 if window else 1e-5):
+            fail(f"kernel disagrees at the main path shape {shape} rows {window}: {err}")
+        versions = {"kernel": lambda: cuda_warp.launch(images, table, fills, inverse, window)}
+        out = torch.empty((n, window[1] if window else s, s, c), device=device)
         for name, lib in baselines:
-            versions[name] = (lambda lib=lib: raw_launch(lib, images, table, fills, inverse, out))
+            versions[name] = (lambda lib=lib: raw_launch(lib, images, table, fills, inverse, out,
+                                                         window))
             versions[name]()
             torch.cuda.synchronize()
             base_err = float((out - ref).abs().max())
@@ -429,17 +500,19 @@ def time_kernel(cuda_warp, device, baselines=()):
             warm[k].append(time_cuda(versions[k]))
         k_ms = statistics.mean(cold["kernel"])
         k_warm = statistics.mean(warm["kernel"])
-        w_ms = time_cuda(lambda: cuda_warp.warp_rotate_flip(images, degrees, hflip, fill, inverse),
-                         flush=flush)
-        p_ms = time_cuda(lambda: cuda_warp.warp_plain(images, table, fills, inverse), runs=20)
-        nbytes = cuda_warp.bytes_moved(shape)
+        w_ms = time_cuda(lambda: cuda_warp.warp_rotate_flip(images, degrees, hflip, fill, inverse,
+                                                            window), flush=flush)
+        p_ms = time_cuda(lambda: cuda_warp.warp_plain(images, table, fills, inverse, window),
+                         runs=20)
+        nbytes = (cuda_warp.window_bytes_moved(table, s, c, inverse, window) if window
+                  else cuda_warp.bytes_moved(shape))
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        label = "inverse" if inverse else "forward"
+        label = ("inverse" if inverse else "forward") + (f" rows {list(window)}" if window else "")
         print(f"timing {label} {shape}: kernel cold {k_ms:.4f} ms, warm {k_warm:.4f} ms, "
               f"wrapper cold {w_ms:.4f} ms, plain {p_ms:.4f} ms, bytes {nbytes}, "
               f"bound {bound_ms * 1e3:.2f} us ({bound_ms / k_ms:.1%} of the bound cold, "
               f"{bound_ms / k_warm:.1%} warm)", flush=True)
-        row = dict(path=path, shape=shape, inverse=inverse, per_step=per_step, ms=k_ms,
+        row = dict(path=path, shape=shape, inverse=inverse, rows=window, per_step=per_step, ms=k_ms,
                    ms_warm=k_warm, wrapper_ms=w_ms, plain_ms=p_ms, bytes=nbytes,
                    bound_ms=bound_ms, max_abs_err=err)
         if baselines:
@@ -1859,32 +1932,38 @@ KERNEL_KINDS = (
 )
 
 
-def profile_steps(name, trainer, steps: int = 3) -> None:
-    """With --profile: device time by kernel over a few more co-teaching
-    steps of ``trainer``, and the device's busy share of the host wall time
-    around them (torch.profiler, CUPTI). On a data axis every rank steps
-    (the collectives need them all) on its rows; rank 0 prints."""
-    import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+@contextlib.contextmanager
+def tagged_halos():
+    """Inside, each halo exchange of ``core.mesh`` (its all-gather, in the
+    forward and the backward) runs in a ``record_function("halo_exchange")``
+    range, so that a trace attributes its NCCL kernels to it."""
+    from torch.profiler import record_function
 
     from aide_tpu_torch.core import mesh
 
-    b = trainer.cfg.data.batch_size
-    batch = trainer._on_device(next(trainer.train_pipe.batches(b, rng=np.random.default_rng(0))))
-    degrees, hflip = trainer.view_params(0, 0, b)
-    rows = mesh.local_rows(b)
-    args = (trainer.state, batch, degrees[:, rows], hflip[:, rows], 0.5,
-            *((mesh.rows_sharded(b),) if mesh.data_size() > 1 else ()))
-    trainer.train_step(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.train_step(*args)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    gather_space = mesh._gather_space
+
+    def tagged(x, kind):
+        if kind != "halo":
+            return gather_space(x, kind)
+        with record_function("halo_exchange"):
+            return gather_space(x, kind)
+
+    mesh._gather_space = tagged
+    try:
+        yield
+    finally:
+        mesh._gather_space = gather_space
+
+
+def device_breakdown(prof, steps: int, wall_us: float) -> dict:
+    """A step's device time from a torch.profiler trace of ``steps`` steps
+    taken in ``wall_us`` of host time: busy and idle share, launches, ms by
+    kernel kind and the top kernels, and the halo exchanges' device time
+    (inside ``tagged_halos``: the kernels CUPTI correlates with the
+    ranges, their NCCL all-gathers with the waits for the peer in them)."""
+    from torch.autograd import DeviceType
+
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -1899,9 +1978,11 @@ def profile_steps(name, trainer, steps: int = 3) -> None:
         kind = next((k for k, keys in KERNEL_KINDS if any(w in e.name for w in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    if not mesh.is_primary():
-        return
-    print(f"profile ({name}): " + json.dumps({
+    ranges = [e for e in prof.events()
+              if e.name == "halo_exchange" and e.device_type == DeviceType.CPU]
+    halo_us = sum(e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
+                  for e in ranges)
+    return {
         "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy / steps / 1e3,
         "device_idle_share": 1.0 - busy / wall_us if wall_us > 0 else None,
@@ -1909,7 +1990,42 @@ def profile_steps(name, trainer, steps: int = 3) -> None:
         "kinds_ms_per_step": {k: t / steps / 1e3
                               for k, t in sorted(by_kind.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": [[n[:90], t / steps / 1e3] for n, t in top],
-    }), flush=True)
+        "halo_exchanges_per_step": len(ranges) / steps,
+        "halo_ms_per_step": halo_us / steps / 1e3,
+    }
+
+
+def profile_steps(name, trainer, steps: int = 3) -> dict:
+    """With --profile: device time by kernel over a few more co-teaching
+    steps of ``trainer``, the device's busy share of the host wall time
+    around them and the halo exchanges' device time (torch.profiler,
+    CUPTI; ``device_breakdown``). On a data axis every rank steps (the
+    collectives need them all) on its rows and gets the breakdown of its
+    own trace; rank 0 prints."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aide_tpu_torch.core import mesh
+
+    b = trainer.cfg.data.batch_size
+    batch = trainer._on_device(next(trainer.train_pipe.batches(b, rng=np.random.default_rng(0))))
+    degrees, hflip = trainer.view_params(0, 0, b)
+    rows = mesh.local_rows(b)
+    args = (trainer.state, batch, degrees[:, rows], hflip[:, rows], 0.5,
+            *trainer._flags(mesh.rows_sharded(b), mesh.h_sharded(b)))
+    trainer.train_step(*args)
+    torch.cuda.synchronize()
+    with tagged_halos(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(*args)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = device_breakdown(prof, steps, wall_us)
+    if mesh.is_primary():
+        print(f"profile ({name}): " + json.dumps(out), flush=True)
+    return out
 
 
 def small_config(model: str = "fuseunet", supervised: bool = False, options=None):
@@ -2163,7 +2279,7 @@ def global_batchnorm_error(rank, world, batch, device):
         return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
 
     x, w, b = (on_card(t).requires_grad_() for t in (x_all[rows], w0, b0))
-    y, _, _ = blocks._GlobalBatchNorm.apply(x, w, b, 1e-5)
+    y, _, _ = blocks._GlobalBatchNorm.apply(x, w, b, 1e-5, *mesh.replicas(False))
     (y * on_card(g_all[rows])).sum().backward()
     grads = torch.cat([w.grad, b.grad])
     mesh.all_reduce(grads)
@@ -2618,6 +2734,287 @@ def run_net_axis(scratch, chaos, chaos_log, data_axis, profile=False):
             for world in ((2, 4) if cards >= 4 else (2,))}
 
 
+# ------------------------------- phase 14 -------------------------------
+
+SPACE_LAYOUTS = {2: (("space", 2),), 4: (("net", 2), ("space", 2))}
+
+
+def space_axis_config(world: int):
+    """Phase 5's CHAOS point with the image rows split over the cards: space
+    2 on 2 cards, net 2 x space 2 on 4 (0: every visible card, space 2)."""
+    cfg = chaos_config()
+    cfg.mesh.num_devices = world
+    cfg.mesh.extra_axes = SPACE_LAYOUTS.get(world, SPACE_LAYOUTS[2])
+    return cfg
+
+
+def space_axis_rank(rank, device, scratch, world, profile=False):
+    """Phase 14 on one rank (a process of ``mesh.launch``, on its card):
+    phase 5's CHAOS point, Trainer.run(2) on this rank's rows of each image
+    (and, at net 2 x space 2, with net (rank // 2) % 2 of the pair), driven
+    as phase 5's; its own files under ``scratch/rank{rank}``. Returns what
+    the phase compares across ranks and with phase 5. A failed check exits
+    this rank non-zero, which ends the launch."""
+    import torch
+
+    from aide_tpu_torch.core import mesh
+    from aide_tpu_torch.engine.trainer import Trainer
+    from aide_tpu_torch.ops import cuda_warp
+
+    work = fresh_dir(os.path.join(scratch, f"rank{rank}"))
+    cfg = space_axis_config(world)
+    cfg.checkpoint_dir = os.path.join(work, "ckpt")
+    cfg.history_dir = os.path.join(work, "hist")
+    cfg.data.tempmask_folder = "tempmasks"
+    task = chaos_task(os.path.join(work, "chaos"))
+    release_device_memory()
+    trainer = Trainer(cfg, task, device=device)
+    trainer.label_cases = set(task.clean_case_ids())
+    if (trainer.world != world or trainer.device != device or mesh.space_shards() != 2
+            or mesh.space_rank() != rank % 2):
+        fail(f"rank {rank}: trainer on {trainer.device} at world {trainer.world}, space "
+             f"{mesh.space_shards()} shard {mesh.space_rank()}")
+    per_step, inner = [], trainer.train_step
+
+    def counted(*args):
+        before = {k: list(v) for k, v in mesh.by_kind.items()}
+        out = inner(*args)
+        per_step.append({k: [v[0] - before.get(k, [0, 0])[0], v[1] - before.get(k, [0, 0])[1]]
+                         for k, v in mesh.by_kind.items()})
+        return out
+
+    trainer.train_step = counted
+    mesh.reset_collectives()
+    run = drive(trainer, cuda_warp)
+    trainer.train_step = inner
+    nets = [digest([t for _, t in sorted(net.state_dict().items())]) for net in trainer.state.nets]
+    # the halo exchanges' device time a step, from the profile's trace
+    halo = (profile_steps(f"space axis, world {world}", trainer)["halo_ms_per_step"]
+            if profile else None)
+    labels, blocks_ok, tempmasks_ok = rank_label_checks(trainer, task, rank)
+    v, b = cfg.data.num_tta_views, cfg.data.batch_size
+    views = v * b * (2 if world == 2 else 1)
+    window_vs_plain(cuda_warp, (v * b, 256, 256, 3), False, 2, device, seed=rank)
+    window_vs_plain(cuda_warp, (views, 256, 256, 2), True, 2, device, seed=rank)
+    return dict(
+        rank=rank, device=str(device), world=mesh.world_size(), net_size=mesh.net_size(),
+        space_rank=mesh.space_rank(), index=getattr(trainer.state, "index", None),
+        name=torch.cuda.get_device_name(device),
+        rows=run["rows"], case_dice=run["case_dice"], refresh_log=list(trainer.refresh_log),
+        steady=run["steady"], step_ms=run["step_ms"], spe=run["spe"], peak=run["peak"],
+        launches=run["launches"], outside=run["outside"], best_epochs=run["best_epochs"],
+        by_kind=per_step[-1], halo_ms=halo, nets=nets,
+        labels=digest(labels), blocks_ok=blocks_ok, tempmasks_ok=tempmasks_ok, warp_err=0.0,
+        files=sorted(os.path.relpath(os.path.join(d, f), work)
+                     for d, _, fs in os.walk(work) for f in fs if "tempmasks" in d or
+                     d.endswith(("ckpt", "hist"))),
+    )
+
+
+def run_space_layout(scratch, world, chaos, chaos_log, profile=False):
+    """Phase 14 (a) or (b): phase 5's CHAOS point through ``mesh.launch`` on
+    ``world`` cards with the rows split over a space axis of 2. Holds rank
+    0's history and refresh decisions to phase 5's (``hold_to_phase5``),
+    the ranks of each net to equal parameters and BN statistics, every rank
+    to the same history and working labels (host and device), the files to
+    rank 0 alone, 3 warp launches a step on every rank, and rank 0's
+    ``_last_full`` to the ranks' nets through a one-process Trainer."""
+    import torch
+
+    from aide_tpu_torch.core import mesh
+    from aide_tpu_torch.engine import checkpoint as ckpt
+    from aide_tpu_torch.engine.trainer import Trainer
+
+    name = "space axis 2" if world == 2 else "space axis net 2 x space 2"
+    work = fresh_dir(os.path.join(scratch, f"space_axis_{world}"))
+    release_device_memory()
+    t0 = time.perf_counter()
+    try:
+        ranks = mesh.launch(space_axis_rank, space_axis_config(world), "cuda",
+                            (work, world, profile))
+    except Exception as err:  # a rank that failed ends the launch
+        fail(f"phase 14: the space axis on {world} cards failed: {err}")
+    seconds = time.perf_counter() - t0
+    net = 2 if world == 4 else 1
+    if sorted(ranks) != list(range(world)) or any(
+            (r["world"], r["net_size"], r["space_rank"]) != (world, net, i % 2)
+            for i, r in ranks.items()):
+        fail(f"phase 14: ranks {sorted(ranks)}: "
+             f"{[(r['world'], r['net_size'], r['space_rank']) for r in ranks.values()]}")
+    r0 = ranks[0]
+    print(f"{name}: world {world} over NCCL, space 2, net {net}, {torch.cuda.device_count()} "
+          f"cards visible; devices {[ranks[r]['device'] for r in sorted(ranks)]}; "
+          f"{seconds:.1f} s", flush=True)
+    for r in sorted(ranks):
+        res = ranks[r]
+        halo = ("not measured (no --profile)" if res["halo_ms"] is None else
+                f"{res['halo_ms']:.3f} ms a step (the device time of their NCCL kernels in the "
+                f"--profile trace)")
+        print(f"{name} rank {r} ({res['device']}, {res['name']}, space shard "
+              f"{res['space_rank']}, net {res['index']}): median step {res['steady']:.3f} ms, "
+              f"max_memory_allocated {res['peak']} bytes, warp launches {res['launches']} "
+              f"({res['outside']} outside the train steps), collectives a step by kind "
+              f"[count, bytes] {json.dumps(res['by_kind'])}, halo exchanges {halo}", flush=True)
+    print_run(name.replace(" ", "_"), r0)
+    print(f"{name}: median step {r0['steady']:.3f} ms (ranks "
+          f"{[round(ranks[r]['steady'], 3) for r in sorted(ranks)]}), phase 5 (one card) "
+          f"{chaos['steady']:.3f} ms; peak {r0['peak']} bytes a rank against phase 5's "
+          f"{chaos['peak']}", flush=True)
+
+    def metrics(res):
+        return [{k: v for k, v in row.items() if not k.startswith("time")} for row in res["rows"]]
+
+    for r in sorted(ranks)[1:]:
+        other = ranks[r]
+        if (other["labels"], other["refresh_log"], metrics(other)) != (
+                r0["labels"], r0["refresh_log"], metrics(r0)):
+            fail(f"phase 14: rank {r} ends with other labels or history than rank 0")
+        twin = ranks[r - r % 2]  # the other space shard of its block holds the same nets
+        if other["nets"] != twin["nets"]:
+            fail(f"phase 14: rank {r} ends with other parameters than rank {r - r % 2}")
+        if other["files"]:
+            fail(f"phase 14: rank {r} wrote files: {other['files'][:5]}")
+    per_step = len(r0["step_ms"])
+    for r, res in ranks.items():
+        if res["launches"] != 3 * per_step or res["outside"] != 0:
+            fail(f"phase 14: rank {r} launched the warp {res['launches']} times over {per_step} "
+                 f"steps ({res['outside']} outside the train steps)")
+        if not (res["blocks_ok"] and res["tempmasks_ok"]):
+            fail(f"phase 14: rank {r}: device labels {res['blocks_ok']}, tempmasks "
+                 f"{res['tempmasks_ok']}")
+        if res["by_kind"] != r0["by_kind"]:
+            fail(f"phase 14: rank {r} ran other collectives than rank 0: {res['by_kind']}")
+    wanted = ("_history.json", ".log", "_last_full.msgpack", "_besttraincasedice.pkl", ".png")
+    if not all(any(f.endswith(w) for f in r0["files"]) for w in wanted):
+        fail(f"phase 14: rank 0 did not write every file: {r0['files']}")
+    hold_to_phase5("phase 14", name, name, r0, chaos, chaos_log)
+    cfg = chaos_config()
+    cfg.resume_file = ckpt.full_path(os.path.join(work, "rank0", "ckpt"), cfg.experiment_name,
+                                     last=True)
+    cfg.checkpoint_dir = fresh_dir(os.path.join(work, "resume", "ckpt"))
+    cfg.history_dir = fresh_dir(os.path.join(work, "resume", "hist"))
+    resumed = Trainer(cfg, chaos_task(os.path.join(work, "rank0", "chaos")))
+    got = [digest([t for _, t in sorted(n.state_dict().items())]) for n in resumed.state.nets]
+    held = r0["nets"] if net == 1 else r0["nets"] + ranks[2]["nets"]
+    if got != held or resumed.start_epoch != 2:
+        fail(f"phase 14: rank 0's _last_full does not hold the ranks' nets ({got} against "
+             f"{held}, next epoch {resumed.start_epoch})")
+    print(f"{name}: rank 0's _last_full ({os.path.getsize(cfg.resume_file)} bytes) resumes in "
+          f"one process at epoch {resumed.start_epoch + 1} with the pair equal to the ranks' "
+          f"nets bit for bit", flush=True)
+    del resumed
+    release_device_memory()
+    return dict(r0, ranks=ranks, seconds=seconds)
+
+
+def kidney_steps(trainer) -> dict:
+    """One train epoch of a supervised trainer (8 steps at the kidney
+    shapes): its metrics, the step times and the peak memory."""
+    import torch
+
+    step_ms, inner = [], trainer.train_step
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    trainer.train_step = timed
+    release_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = trainer._train_epoch(0, 0.0)
+    torch.cuda.synchronize()
+    trainer.train_step = inner
+    return dict(metrics=metrics, step_ms=step_ms, steady=statistics.median(step_ms[1:]),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def kidney_space_rank(rank, device, scratch):
+    """Phase 14 (c) on one rank: the supervised kidney comparison trainer's
+    first epoch at space 2."""
+    from aide_tpu_torch.core import mesh
+    from aide_tpu_torch.engine.trainer import Trainer
+
+    cfg = kidney_config("kidney_comparison_mask1", scratch, f"kidney_space_rank{rank}")
+    cfg.mesh.num_devices, cfg.mesh.extra_axes = 2, (("space", 2),)
+    trainer = Trainer(cfg, kidney_task(scratch, f"kidney_space_rank{rank}"), device=device)
+    if mesh.space_shards() != 2:
+        fail(f"phase 14 (c): rank {rank}: the space axis is not live")
+    return kidney_steps(trainer)
+
+
+def run_kidney_space(scratch):
+    """Phase 14 (c): the kidney comparison preset's first supervised epoch
+    at space 2 on 2 cards against the same epoch on one card (the same
+    seeds): the losses and dice within rtol 2e-2, and a rank's peak under
+    the card's."""
+    from aide_tpu_torch.core import mesh
+    from aide_tpu_torch.engine.trainer import Trainer
+
+    cfg = kidney_config("kidney_comparison_mask1", scratch, "kidney_space_one")
+    release_device_memory()
+    one = kidney_steps(Trainer(cfg, kidney_task(scratch, "kidney_space_one")))
+    release_device_memory()
+    cfg2 = kidney_config("kidney_comparison_mask1", scratch, "kidney_space_launch")
+    cfg2.mesh.num_devices, cfg2.mesh.extra_axes = 2, (("space", 2),)
+    try:
+        ranks = mesh.launch(kidney_space_rank, cfg2, "cuda", (scratch,))
+    except Exception as err:
+        fail(f"phase 14 (c): the kidney preset at space 2 failed: {err}")
+    for r in sorted(ranks):
+        res = ranks[r]
+        print(f"kidney at space 2 rank {r}: train {json.dumps(res['metrics'])}, median step "
+              f"{res['steady']:.3f} ms, max_memory_allocated {res['peak']} bytes; one card: "
+              f"train {json.dumps(one['metrics'])}, median step {one['steady']:.3f} ms, "
+              f"max_memory_allocated {one['peak']} bytes ({res['peak'] / one['peak']:.3f}x)",
+              flush=True)
+        for key, v in one["metrics"].items():
+            if not math.isclose(res["metrics"][key], v, rel_tol=2e-2, abs_tol=2e-3):
+                fail(f"phase 14 (c): rank {r} {key} {res['metrics'][key]} against one card's {v}")
+        if not res["peak"] < one["peak"]:
+            fail(f"phase 14 (c): rank {r}'s peak {res['peak']} is not under one card's "
+                 f"{one['peak']}")
+    return dict(one=one, ranks=ranks)
+
+
+def run_space_axis(scratch, chaos, chaos_log, profile=False):
+    """Phase 14: the space axis on the cards of this machine: (a) space 2 on
+    2 cards and, with 4, (b) net 2 x space 2 (``run_space_layout``), then
+    (c) the kidney preset at space 2 (``run_kidney_space``). With one card,
+    the windowed kernel at (a)'s per-rank shapes against its plain version
+    (phase 3 checks them too) and the refusal that names the cards; it says
+    that the layouts were not exercised there. Returns ({world: run}, (c))."""
+    import torch
+
+    from aide_tpu_torch.core import mesh
+    from aide_tpu_torch.ops import cuda_warp
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        for _, shape, inverse, _, k in WINDOW_LAUNCHES[:2]:
+            window_vs_plain(cuda_warp, shape, inverse, k, torch.device("cuda"), seed=14)
+        try:
+            mesh.launch(space_axis_rank, space_axis_config(0), "cuda", (scratch, 2, profile))
+        except ValueError as err:
+            if "card" not in str(err):
+                fail(f"phase 14: a space axis on {cards} card raised without naming the cards: "
+                     f"{err}")
+            print(f"space axis: not exercised on this machine ({cards} card visible): "
+                  f"mesh.extra_axes=(('space', 2),) raised as it must ({err}); the windowed "
+                  f"kernel at (a)'s per-rank shapes equals its plain version. "
+                  f"tests/test_torch_space_axis.py and tests/test_torch_space_epoch.py run the "
+                  f"axis over gloo CPU ranks; a machine with 2 or 4 cards runs it here",
+                  flush=True)
+            return {}, None
+        fail("phase 14: a space axis on one card did not raise")
+    runs = {world: run_space_layout(scratch, world, chaos, chaos_log, profile)
+            for world in ((2, 4) if cards >= 4 else (2,))}
+    return runs, run_kidney_space(scratch)
+
+
 def run_phases_6_to_11(cuda_warp, scratch, args, chaos, chaos_log):
     """Phases 6-11; returns their runs by path and the kernels line's extra
     entries."""
@@ -2691,8 +3088,8 @@ def main() -> int:
                         help="another version of csrc/warp_rotate_flip.cu to time in phase 4 "
                              "(repeatable)")
     parser.add_argument("--data-axis", action="store_true",
-                        help="phases 1-5, 12 and 13 only: the data and net axes and what they "
-                             "are held to (for a machine with several cards)")
+                        help="phases 1-5 and 12-14 only: the data, net and space axes and what "
+                             "they are held to (for a machine with several cards)")
     args = parser.parse_args()
     import torch
 
@@ -2748,9 +3145,14 @@ def main() -> int:
     print(f"phase 13: {time.perf_counter() - t13:.2f} s", flush=True)
     stamp("phase 13")
     net_runs = {f"net_axis_{w}": run for w, run in net_axis.items()}
+    t14 = time.perf_counter()
+    space_axis, kidney_space = run_space_axis(scratch, chaos, chaos_log, args.profile)
+    print(f"phase 14: {time.perf_counter() - t14:.2f} s", flush=True)
+    stamp("phase 14")
+    space_runs = {f"space_axis_{w}": run for w, run in space_axis.items()}
 
     by_path = {}
-    for path, run in {**runs, "data_axis": data_axis, **net_runs}.items():
+    for path, run in {**runs, "data_axis": data_axis, **net_runs, **space_runs}.items():
         launched = [r for r in rows if r["path"] in SAME_SHAPES.get(path, (path,))]
         by_path[path] = {
             "launches": run["launches"],
@@ -2793,10 +3195,26 @@ def main() -> int:
             "step_ms_world1": chaos["steady"],
             "step_ms_data_axis": data_axis["steady"],
         })
+    for path, run in space_runs.items():
+        space_ranks = run["ranks"]
+        by_path[path].update({
+            "world": run["world"], "space": 2, "net_size": run["net_size"],
+            "launches_by_rank": [space_ranks[r]["launches"] for r in sorted(space_ranks)],
+            "step_ms_by_rank": [space_ranks[r]["steady"] for r in sorted(space_ranks)],
+            "max_memory_allocated_by_rank": [space_ranks[r]["peak"] for r in sorted(space_ranks)],
+            "collectives_by_kind_per_step": run["by_kind"],
+            "halo_ms_per_step": [space_ranks[r]["halo_ms"] for r in sorted(space_ranks)],
+            "step_ms_world1": chaos["steady"],
+        })
+    if kidney_space is not None:
+        extra["kidney_space_2"] = {
+            "one_card": {k: kidney_space["one"][k] for k in ("metrics", "steady", "peak")},
+            "ranks": {r: {k: v[k] for k in ("metrics", "steady", "peak")}
+                      for r, v in kidney_space["ranks"].items()}}
     chaos_step = by_path["chaos_coteach"]
     launches = {path: run["launches"] for path, run in runs.items()}
     launches.update({f"data_axis_rank{r}": ranks[r]["launches"] for r in sorted(ranks)})
-    for path, run in net_runs.items():
+    for path, run in {**net_runs, **space_runs}.items():
         launches.update({f"{path}_rank{r}": n["launches"] for r, n in sorted(run["ranks"].items())})
     kernels = [{
         "name": "warp_rotate_flip",

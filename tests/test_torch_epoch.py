@@ -309,19 +309,17 @@ def test_trainer_refuses_an_unknown_checkpoint_flush(tmp_path):
 ])
 def test_trainer_refuses_mesh_settings(tmp_path, setting):
     """Mesh settings the trainer cannot honour raise instead of being
-    ignored: the space axis (not ported), and a net axis or a data axis of
-    two ranks asked of a process that ``launch`` did not start (a batch of
-    4 and an eval batch of 4 shard over 2)."""
+    ignored: a net axis, a space axis or a data axis of two ranks asked of
+    a process that ``launch`` did not start (a batch of 4 and an eval batch
+    of 4 shard over 2)."""
     _, cfg = _cfgs(tmp_path)
     setattr(cfg.mesh, *setting)
     cfg.data.eval_batch_size = 4
     task = SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS)
-    if setting == ("extra_axes", (("space", 2),)):
-        with pytest.raises(NotImplementedError,
-                           match="mesh.extra_axes.*the space axis.*ROADMAP Queue 1 item 7"):
-            ttrainer.Trainer(cfg, task, device="cpu")
-    elif setting[0] == "extra_axes":
-        with pytest.raises(ValueError, match=r"mesh.extra_axes=\(\('net', 2\),\).*mesh.launch"):
+    if setting[0] == "extra_axes":
+        axis = setting[1][0][0]
+        with pytest.raises(ValueError,
+                           match=rf"mesh.extra_axes=\(\('{axis}', 2\),\).*mesh.launch"):
             ttrainer.Trainer(cfg, task, device="cpu")
     else:
         with pytest.raises(ValueError, match="mesh.num_devices=2.*mesh.launch"):

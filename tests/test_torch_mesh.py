@@ -127,20 +127,28 @@ def test_backend_refuses_other_devices():
 
 @pytest.mark.parametrize("axes,name", [
     ((("net", 2),), "net"), ((("space", 2),), "space"), ((("net", 2), ("space", 2)), "net"),
+    ((("model", 2),), "model"),
 ])
 def test_net_and_space_axes_are_refused(axes, name):
-    """The net axis is accepted (launch sizes its ranks: 2 for 2 devices);
-    the space axis, alone or beside net, is still refused, naming ROADMAP
-    Queue 1 item 7."""
+    """The net and space axes are accepted, alone or together: launch sizes
+    their ranks (2 for 2 devices; net 2 x space 2 needs a multiple of 4),
+    and a trainer in a process that launch did not start refuses them,
+    naming launch. An axis neither package has is refused."""
     cfg = _cfg(2, extra_axes=axes)
-    if all(axis == "net" for axis, _ in axes):
-        mesh.refuse_axes(cfg.mesh)
-        assert mesh.resolve_ranks(cfg, "cpu") == 2
+    if name == "model":
+        with pytest.raises(NotImplementedError, match="unknown mesh axis 'model'"):
+            mesh.refuse_axes(cfg.mesh)
+        with pytest.raises(NotImplementedError, match="unknown mesh axis"):
+            mesh.launch(_one_rank, cfg, "cpu", ("x",))
         return
-    with pytest.raises(NotImplementedError, match="the space axis.*ROADMAP Queue 1 item 7"):
-        mesh.refuse_axes(cfg.mesh)
-    with pytest.raises(NotImplementedError, match="the space axis"):
-        mesh.launch(_one_rank, cfg, "cpu", ("x",))
+    mesh.refuse_axes(cfg.mesh)
+    if len(axes) == 1:
+        assert mesh.resolve_ranks(cfg, "cpu") == 2
+    else:
+        with pytest.raises(ValueError, match="needs a multiple of 4 ranks"):
+            mesh.resolve_ranks(cfg, "cpu")
+    with pytest.raises(ValueError, match="mesh.launch"):
+        ttrainer.check_mesh(cfg)
 
 
 def test_axes_of_size_one_are_accepted():

@@ -281,3 +281,31 @@ def test_cuda_kernel_single_image(cuda_device, size, c, deg, flip, inverse):
     fill = rng.normal(size=(1, c)).astype(np.float32)
     _cuda_matches_plain(cuda_device, images, np.array([deg], np.float32),
                         np.array([flip], np.float32), fill, inverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("size,rows", [(256, (0, 128)), (256, (128, 128)), (256, (64, 64)),
+                                       (100, (37, 50)), (33, (0, 33))])
+def test_cuda_kernel_row_window(cuda_device, size, rows, inverse):
+    """A launch of output rows [row0, row0 + R) equals the plain version's
+    window and the whole launch's rows exactly, at angles over ±135 and
+    both flips; one launch a call."""
+    images, degrees, hflip, fill = _inputs(3, "image", size=size, seed=size + rows[0])
+    degrees = np.concatenate([degrees * 1.5, BOUNDARY_DEGS]).astype(np.float32)
+    hflip = np.concatenate([hflip, np.ones(len(BOUNDARY_DEGS))]).astype(np.float32)
+    rng = np.random.default_rng(size)
+    images = np.concatenate([images, rng.normal(size=(len(BOUNDARY_DEGS),) + images.shape[1:])])
+    fill = np.concatenate([fill, rng.normal(size=(len(BOUNDARY_DEGS), 3))])
+    x = torch.from_numpy(images.astype(np.float32)).to(cuda_device)
+    d, h = torch.from_numpy(degrees).to(cuda_device), torch.from_numpy(hflip).to(cuda_device)
+    f = torch.from_numpy(fill.astype(np.float32)).to(cuda_device)
+    before = cuda_warp.launches
+    got = cuda_warp.warp_rotate_flip(x, d, h, f, inverse=inverse, rows=rows)
+    assert cuda_warp.launches == before + 1 and tuple(got.shape) == (len(x), rows[1], size, 3)
+    whole = cuda_warp.warp_rotate_flip(x, d, h, f, inverse=inverse)
+    table = cuda_warp.coef_table(d, h, inverse)
+    ref = cuda_warp.warp_plain(x, table, cuda_warp.fill_table(f, len(x), 3, cuda_device), inverse,
+                               rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(got, whole[:, rows[0]:rows[0] + rows[1]])
