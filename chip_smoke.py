@@ -190,10 +190,27 @@ Phases:
      idle share), beside phase 5's step median. On a machine with one card
      it checks and times the windowed kernel at (a)'s per-rank shapes
      against its plain version and checks that the space axis raises
-     naming the cards, and says that the layouts were not exercised there.
+     naming the cards, and says that the layouts were not exercised there;
+ 15. the bench at its operating points on this card, each a `python -m
+     aide_tpu_torch.bench` process (its files under build/chip_smoke/
+     bench/): (a) the CHAOS co-teaching point at full depth (FuseUNet-32,
+     bf16, 256 px, batch 8, 30 train cases x 33 slices, 10 test cases x
+     33), a warm-up epoch, 16 bare steps and the timed full epoch; (b) the
+     same point's per-volume eval (--eval-volume); (c) the kidney point
+     (UNet-64, 512 px, batch 8) with --steps-only; (d) the CHAOS point's
+     supervised comparison with --steps-only. Each JSON line must parse,
+     its value be finite and above 0 with vs_baseline = baseline / value
+     within 2%, the card's name and power limit beside it; warp launches a
+     step 3 at (a), 2 at (c), 0 at (d); MFU in (0, 1) against 989.5 TFLOP/s
+     on an H100 80GB HBM3, null on a card the bench's table lacks; finite
+     epoch rows; (a) 123 train steps and 369 launches in the timed epoch,
+     with its phases. The model FLOPs a step must equal one image's
+     forward and forward-and-backward counts on the card composed as the
+     step runs them, and the card's count equal the CPU's at 64 px (cuDNN's
+     convolutions counted once). It prints each line and its seconds.
 Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's,
-phase 10's, phase 12's, phase 13's and phase 14's launch shapes (phase 14's
-with their output-row windows).
+phase 10's, phase 12's, phase 13's, phase 14's (with their output-row
+windows) and phase 15 (c)'s launch shapes.
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
@@ -272,6 +289,10 @@ KERNEL_LAUNCHES = (
     ("net_axis_2", (32, 256, 256, 2), True, 1),
     ("net_axis_4", (16, 256, 256, 3), False, 2),
     ("net_axis_4", (16, 256, 256, 2), True, 1),
+    # phase 15 (c): the bench's kidney point at batch 8, one image's views
+    # of 4 x 8 images, then both nets' logits
+    ("bench_kidney", (32, 512, 512, 3), False, 1),
+    ("bench_kidney", (64, 512, 512, 2), True, 1),
 )
 # phase 14's per-rank launches, each writing 1/k of the output rows from the
 # whole source (k = the space axis; rank 0's window, rows [0, 256/k), is
@@ -295,7 +316,7 @@ PRESET_AUGMENT = ("chaos_preset", "chaos_preset_augment")
 SAME_SHAPES = {"cli_chaos": ("chaos_preset",), "zoo_fuseunetsaseparate": ("chaos_preset",),
                "zoo_unetsa": ("prostate_preset",), "chaos_resume": ("chaos_coteach",),
                "cli_resume_first": PRESET_AUGMENT, "cli_resume": PRESET_AUGMENT,
-               "cli_sgd": PRESET_AUGMENT}
+               "cli_sgd": PRESET_AUGMENT, "bench_chaos": ("chaos_coteach",)}
 # phase 8: (path, preset, the fixture tree's native px, warp launches a step)
 PRESET_RUNS = (
     ("chaos_preset", "chaos_proposed_30cases1labeled", 256, 3),
@@ -3015,6 +3036,156 @@ def run_space_axis(scratch, chaos, chaos_log, profile=False):
     return runs, run_kidney_space(scratch)
 
 
+# ------------------------------- phase 15 -------------------------------
+
+# the bench's points, one `python -m aide_tpu_torch.bench` process each:
+# (subphase, path, arguments, warp launches a step; None: no train step)
+BENCH_RUNS = (
+    ("a", "bench_chaos", ("--task", "chaos"), 3),
+    ("b", "bench_chaos_eval_volume", ("--task", "chaos", "--eval-volume"), None),
+    ("c", "bench_kidney", ("--task", "kidney", "--steps-only"), 2),
+    ("d", "bench_chaos_supervised", ("--task", "chaos", "--supervised", "--steps-only"), 0),
+)
+# 990 synthetic CHAOS slices at batch 8, the last partial batch dropped
+BENCH_CHAOS_STEPS = 123
+BENCH_TIMEOUT_S = 420
+H100_BF16_TFLOPS = 989.5  # dense, NVIDIA's H100 SXM5 data sheet (1,979 with sparsity)
+
+
+def image_flops(model_cfg, size: int, two_modal: bool, device) -> tuple:
+    """FlopCounterMode's count of one image through the net a ModelConfig
+    names: its forward without gradient, and its forward and backward with
+    the input outside the graph (the main forward of a train step)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from aide_tpu_torch.models import build_model
+
+    net = build_model(model_cfg).to(device, memory_format=torch.channels_last)
+    x = torch.zeros((1, size, size, 3), device=device)
+    ins = (x, x) if two_modal else (x,)
+    with FlopCounterMode(display=False) as forward, torch.no_grad():
+        net(*ins)
+    with FlopCounterMode(display=False) as both:
+        net(*ins).sum().backward()
+    return forward.get_total_flops(), both.get_total_flops()
+
+
+def check_bench_flops(bench, device) -> None:
+    """The bench's model FLOPs a step against the count of one image's
+    forward F and forward-and-backward FB on the card: a co-teaching step
+    is 2 nets x 4 views x B view forwards and 2 x B main forwards with
+    their backward, a supervised step B forwards with their backward. The
+    card's count under bf16 autocast at 64 px equals the CPU's in f32, so
+    cuDNN's convolutions (forward, grad-input, grad-weight) count once."""
+    from aide_tpu_torch.core.config import ModelConfig
+
+    chaos = ModelConfig(name="fuseunet", compute_dtype="bfloat16")
+    card = image_flops(chaos, 64, True, device)
+    host = image_flops(ModelConfig(name="fuseunet", compute_dtype="float32"), 64, True, "cpu")
+    print(f"phase 15: FuseUNet-32 at 64 px, one image: forward, forward+backward {card} "
+          f"FLOP on the card (bf16 autocast), {host} on the CPU (f32)", flush=True)
+    if card != host:
+        fail(f"phase 15: the card counts {card} FLOP where the CPU counts {host}")
+    f, fb = image_flops(chaos, 256, True, device)
+    want = {"a": 2 * 4 * 8 * f + 2 * 8 * fb, "d": 8 * fb}
+    f, fb = image_flops(ModelConfig(name="unet", compute_dtype="bfloat16"), 512, False, device)
+    want["c"] = 2 * 4 * 8 * f + 2 * 8 * fb
+    for sub, n in want.items():
+        got = bench[sub]["model_flops_per_step"]
+        print(f"phase 15 ({sub}): {got} model FLOP a step, {n} from one image's counts",
+              flush=True)
+        if got != n:
+            fail(f"phase 15 ({sub}): the bench counts {got} FLOP a step, one image's "
+                 f"counts give {n}")
+
+
+def check_bench_row(sub, argv, row, per_step, device_name) -> None:
+    """One bench line against the contract of phase 15."""
+    value = row.get("value")
+    if not (isinstance(value, (int, float)) and math.isfinite(value) and value > 0):
+        fail(f"phase 15 ({sub}): value {value!r}")
+    # the reference's seconds a volume, a supervised epoch, a co-teaching epoch
+    baseline = 3.0 if per_step is None else 300.0 if "--supervised" in argv else 420.0
+    if abs(row["vs_baseline"] - baseline / value) > 0.02 * baseline / value:
+        fail(f"phase 15 ({sub}): vs_baseline {row['vs_baseline']} against {baseline} / {value}")
+    if row["device_name"] != device_name or row["power_limit_w"] is None:
+        fail(f"phase 15 ({sub}): device {row['device_name']!r}, power limit "
+             f"{row['power_limit_w']!r} (this card: {device_name!r})")
+    if per_step is None:
+        return
+    if row["warp_launches_timed"] != per_step * row["bare_steps"]:
+        fail(f"phase 15 ({sub}): {row['warp_launches_timed']} warp launches in "
+             f"{row['bare_steps']} timed steps, expected {per_step} a step")
+    mfu = row["train_step_mfu"]
+    if device_name == "NVIDIA H100 80GB HBM3":
+        if row["peak_tflops"] != H100_BF16_TFLOPS or not (isinstance(mfu, float) and 0 < mfu < 1):
+            fail(f"phase 15 ({sub}): MFU {mfu!r} against a peak of {row['peak_tflops']!r}")
+    elif mfu is not None or row["peak_tflops"] is not None:
+        fail(f"phase 15 ({sub}): a peak {row['peak_tflops']!r} and MFU {mfu!r} for a card the "
+             "table lacks")
+    for r in row["history"]:
+        bad = {k: v for k, v in r.items() if not math.isfinite(v)}
+        if bad:
+            fail(f"phase 15 ({sub}): epoch {r['epoch']} has non-finite values {bad}")
+    if row["mfu_basis"] != "model" or not row["model_flops_per_step"] > 0:
+        fail(f"phase 15 ({sub}): FLOPs {row['model_flops_per_step']!r} ({row['mfu_basis']})")
+    if sub == "a":
+        if row["train_steps_per_epoch"] != BENCH_CHAOS_STEPS or "partial" in row:
+            fail(f"phase 15 (a): {row['train_steps_per_epoch']} train steps, partial "
+                 f"{row.get('partial')!r}; expected the full epoch's {BENCH_CHAOS_STEPS}")
+        if row["warp_launches_epoch"] != per_step * BENCH_CHAOS_STEPS:
+            fail(f"phase 15 (a): {row['warp_launches_epoch']} warp launches in the epoch, "
+                 f"expected {per_step * BENCH_CHAOS_STEPS}")
+        missing = {"time_train", "time_test", "time_cases", "time_ckpt", "time_refresh"} - set(row)
+        if missing or len(row["history"]) != 2:
+            fail(f"phase 15 (a): phases {sorted(missing)} missing, {len(row['history'])} epochs")
+    elif row.get("partial") != "steps_only":
+        fail(f"phase 15 ({sub}): partial {row.get('partial')!r} on a --steps-only run")
+
+
+def run_bench(root, scratch) -> dict:
+    """Phase 15: the bench's points on this card, each in its own process
+    (stderr under build/chip_smoke/bench/), held to the contract; returns
+    each subphase's line with its seconds."""
+    import torch
+
+    release_device_memory()
+    work = fresh_dir(os.path.join(scratch, "bench"))
+    env = dict(os.environ, TMPDIR=os.path.join(work, "tmp"))
+    os.makedirs(env["TMPDIR"])
+    device_name = torch.cuda.get_device_name(0)
+    out = {}
+    for sub, path, argv, per_step in BENCH_RUNS:
+        cmd = [sys.executable, "-m", "aide_tpu_torch.bench", *argv]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                                  timeout=BENCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"phase 15 ({sub}): {' '.join(cmd[1:])} ran past {BENCH_TIMEOUT_S} s")
+        secs = time.perf_counter() - t0
+        with open(os.path.join(work, f"{path}.log"), "w") as fh:
+            fh.write(proc.stderr)
+        if proc.returncode:
+            fail(f"phase 15 ({sub}): {' '.join(cmd[1:])} exited {proc.returncode}:\n"
+                 f"{proc.stderr[-3000:]}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        try:
+            row = json.loads(lines[-1])
+        except (IndexError, ValueError) as err:
+            fail(f"phase 15 ({sub}): no JSON line ({err}): {proc.stdout[-2000:]}")
+        print(f"phase 15 ({sub}) python -m aide_tpu_torch.bench {' '.join(argv)}: {secs:.2f} s",
+              flush=True)
+        print(json.dumps({k: v for k, v in row.items() if k != "history"}), flush=True)
+        for r in row.get("history", []):
+            print(f"phase 15 ({sub}) epoch {r['epoch']}: " + json.dumps(r), flush=True)
+        check_bench_row(sub, argv, row, per_step, device_name)
+        out[sub] = dict(row, path=path, seconds=secs)
+    check_bench_flops(out, torch.device("cuda"))
+    return out
+
+
 def run_phases_6_to_11(cuda_warp, scratch, args, chaos, chaos_log):
     """Phases 6-11; returns their runs by path and the kernels line's extra
     entries."""
@@ -3150,6 +3321,12 @@ def main() -> int:
     print(f"phase 14: {time.perf_counter() - t14:.2f} s", flush=True)
     stamp("phase 14")
     space_runs = {f"space_axis_{w}": run for w, run in space_axis.items()}
+    bench = {}
+    if not args.data_axis:
+        t15 = time.perf_counter()
+        bench = run_bench(root, scratch)
+        print(f"phase 15: {time.perf_counter() - t15:.2f} s", flush=True)
+        stamp("phase 15")
 
     by_path = {}
     for path, run in {**runs, "data_axis": data_axis, **net_runs, **space_runs}.items():
@@ -3206,6 +3383,23 @@ def main() -> int:
             "halo_ms_per_step": [space_ranks[r]["halo_ms"] for r in sorted(space_ranks)],
             "step_ms_world1": chaos["steady"],
         })
+    for row in bench.values():
+        if "warp_launches_timed" not in row:
+            continue  # the eval-volume line: no train step
+        launched = [r for r in rows if r["path"] in SAME_SHAPES.get(row["path"], (row["path"],))]
+        by_path[row["path"]] = {
+            "launches_per_step": row["warp_launches_per_step"],
+            **({"launches_epoch": row["warp_launches_epoch"]} if "warp_launches_epoch" in row
+               else {}),
+            "kernel_ms_per_step": sum(r["per_step"] * r["ms"] for r in launched),
+            "plain_ms_per_step": sum(r["per_step"] * r["plain_ms"] for r in launched),
+            "bound_ms_per_step": sum(r["per_step"] * r["bound_ms"] for r in launched),
+            "step_ms": row["train_step_seconds"] * 1e3,
+            "max_memory_allocated": row["peak_memory_bytes"],
+        }
+    if bench:
+        extra["bench"] = {sub: {k: v for k, v in row.items() if k != "history"}
+                          for sub, row in bench.items()}
     if kidney_space is not None:
         extra["kidney_space_2"] = {
             "one_card": {k: kidney_space["one"][k] for k in ("metrics", "steady", "peak")},
@@ -3216,6 +3410,10 @@ def main() -> int:
     launches.update({f"data_axis_rank{r}": ranks[r]["launches"] for r in sorted(ranks)})
     for path, run in {**net_runs, **space_runs}.items():
         launches.update({f"{path}_rank{r}": n["launches"] for r, n in sorted(run["ranks"].items())})
+    # the bench's own processes: the timed epoch's launches at (a), the
+    # timed bare steps' at (c) and (d), as each process counted them
+    launches.update({row["path"]: row.get("warp_launches_epoch", row["warp_launches_timed"])
+                     for row in bench.values() if "warp_launches_timed" in row})
     kernels = [{
         "name": "warp_rotate_flip",
         "route": "cuda",
