@@ -234,6 +234,9 @@ class Trainer:
             task.load_case_list(d.testcase_csv) if d.testcase_csv else list(self.test_pipe.cases)
         )
         self.label_cases = set(task.load_case_list(d.labelcase_csv) if d.labelcase_csv else [])
+        # an observation hook, on_refresh(epoch), called after each label
+        # refresh (_refresh_labels)
+        self.on_refresh = None
         # every refresh decision in order: (epoch, net, worst-k selection,
         # the subset actually rewritten)
         self.refresh_log: list = []
@@ -579,7 +582,10 @@ class Trainer:
 
     def _refresh_labels(self, epoch: int, traincase_results) -> None:
         """Overwrite the working labels of the worst update_percent cases
-        per net with the net's post-CC prediction."""
+        per net with the net's post-CC prediction, sync them to the device,
+        then call ``on_refresh(epoch)`` when it is set. Every rank of a
+        data, net or space axis calls it with the same labels, so a hook
+        that prints must print on the primary rank alone."""
         cfg = self.cfg
         k = int(cfg.coteach.update_percent * len(self.train_cases))
         if cfg.coteach.engagement_check and self._bootstrap_labels is None:
@@ -614,6 +620,8 @@ class Trainer:
                     "skipped)".format(net_idx + 1, refreshed)
                 )
         self.train_pipe.sync_labels_to_device()
+        if self.on_refresh is not None:
+            self.on_refresh(epoch)
 
     def _is_refresh_epoch(self, epoch: int) -> bool:
         e1 = epoch + 1

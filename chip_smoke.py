@@ -207,17 +207,33 @@ Phases:
      with its phases. The model FLOPs a step must equal one image's
      forward and forward-and-backward counts on the card composed as the
      step runs them, and the card's count equal the CPU's at 64 px (cuDNN's
-     convolutions counted once). It prints each line and its seconds.
+     convolutions counted once). It prints each line and its seconds;
+ 16. the algorithm-validation ladder: (a) `python -m aide_tpu_torch.
+     experiments.synthetic_aide` at the flagship point at full width
+     (--style xhard --protocol pseudo --two-modal --model fuseunet
+     --img-size 128 --num-cases 30 --clean-cases 1 --slices-per-case 30
+     --ceiling), its epochs cut to 3 a stage, in its own process (its files
+     under build/chip_smoke/ladder/): every line of its output JSON, the
+     summary with the JAX program's keys and the card's name and power
+     limit, every stage's history finite, pseudo_label_quality in (0, 1],
+     one label-quality entry a refresh epoch, the engagement verdict, 3 warp
+     launches a train step in the AIDE stage and none in the others, every
+     stage's export present; (b) at phase 6's small size (two-modal
+     FuseUNet at base width 4, 32 px, f32, TF32 off), apply_pseudo_labels
+     from one pretrain export and one AIDE epoch after it on the card and
+     on the CPU: pseudo-labels equal in >= 99.9% of voxels, their quality
+     within 1e-3, the same refresh decisions each with a margin, working
+     labels within Dice 0.995, history metrics within 1e-3.
 Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's,
 phase 10's, phase 12's, phase 13's, phase 14's (with their output-row
-windows) and phase 15 (c)'s launch shapes.
+windows), phase 15 (c)'s and phase 16's launch shapes.
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
 Run from the repository root:
   python3 chip_smoke.py [--profile] [--baseline FILE.cu] [--data-axis]
 (--data-axis runs phases 1-5 and 12-14 alone, for a machine with several
-cards; --profile adds, after phases 5, 7 and 12-14 and in phase 9 (a) and (b), a
+cards, and skips phases 15 and 16; --profile adds, after phases 5, 7 and 12-14 and in phase 9 (a) and (b), a
 torch.profiler breakdown of a few more co-teaching steps of each; --baseline times another version of csrc/warp_rotate_flip.cu, for
 instance an earlier commit's, beside this one in phase 4; it may be given
 more than once).
@@ -293,6 +309,11 @@ KERNEL_LAUNCHES = (
     # of 4 x 8 images, then both nets' logits
     ("bench_kidney", (32, 512, 512, 3), False, 1),
     ("bench_kidney", (64, 512, 512, 2), True, 1),
+    # phase 16: the flagship ladder's AIDE stage (two-modal FuseUNet-32,
+    # 128 px, batch 8, 4 views): both modalities' views of 4 x 8 images,
+    # then both nets' logits
+    ("ladder_aide", (32, 128, 128, 3), False, 2),
+    ("ladder_aide", (64, 128, 128, 2), True, 1),
 )
 # phase 14's per-rank launches, each writing 1/k of the output rows from the
 # whole source (k = the space axis; rank 0's window, rows [0, 256/k), is
@@ -3186,6 +3207,253 @@ def run_bench(root, scratch) -> dict:
     return out
 
 
+# ------------------------------- phase 16 -------------------------------
+
+# the flagship two-modal pseudo ladder at full width, its epochs cut to 3 a
+# stage (the AIDE stage's warmup max(2, 3 // 3) = 2: two refreshes, the
+# label-quality oracle and the end-of-ramp verdict)
+LADDER_ARGV = ("--style", "xhard", "--protocol", "pseudo", "--two-modal", "--model", "fuseunet",
+               "--img-size", "128", "--num-cases", "30", "--clean-cases", "1",
+               "--slices-per-case", "30", "--ceiling", "--epochs", "3", "--pretrain-epochs", "3")
+LADDER_TIMEOUT_S = 600
+LADDER_STAGES = ("aide", "ceiling", "naive", "pretrain")
+# the JAX program's summary keys under the pseudo protocol with --ceiling
+LADDER_SUMMARY_KEYS = {
+    "style", "protocol", "seed", "model", "two_modal", "slices_per_case", "noisy_fraction",
+    "noise_shift_divisor", "clean_cases", "num_cases", "ceiling_best_dice", "img_size",
+    "pretrain_best_dice", "naive_best_dice", "aide_best_dice", "aide_over_naive",
+    "aide_over_pretrain"}
+
+
+def run_ladder(root, scratch) -> dict:
+    """Phase 16 (a): ``python -m aide_tpu_torch.experiments.synthetic_aide``
+    at the flagship point (LADDER_ARGV) in its own process (its log under
+    build/chip_smoke/ladder/), held to the program's contract; returns its
+    stages, summary, seconds and the AIDE stage's epoch times."""
+    import glob
+    from types import SimpleNamespace
+
+    import torch
+
+    from aide_tpu_torch.engine.trainer import Trainer
+    from aide_tpu_torch.experiments import synthetic_aide as SA
+
+    release_device_memory()
+    work = fresh_dir(os.path.join(scratch, "ladder"))
+    out_file = os.path.join(work, "ladder.json")
+    cmd = [sys.executable, "-m", "aide_tpu_torch.experiments.synthetic_aide", *LADDER_ARGV,
+           "--workdir", os.path.join(work, "run"), "--out", out_file]
+    env = dict(os.environ, TMPDIR=os.path.join(work, "tmp"))
+    os.makedirs(env["TMPDIR"])
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                              timeout=LADDER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 16: {' '.join(cmd[1:])} ran past {LADDER_TIMEOUT_S} s")
+    secs = time.perf_counter() - t0
+    with open(os.path.join(work, "ladder.log"), "w") as fh:
+        fh.write(proc.stderr)
+    if proc.returncode:
+        fail(f"phase 16: {' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines = []
+    for ln in proc.stdout.splitlines():
+        if ln.strip():
+            try:
+                lines.append(json.loads(ln))
+            except ValueError:
+                fail(f"phase 16: a line of the program's output is not JSON: {ln!r}")
+    with open(out_file) as fh:
+        saved = json.load(fh)
+    runs, summary = saved["runs"], saved["summary"]
+    print(f"phase 16 (a) python -m aide_tpu_torch.experiments.synthetic_aide "
+          f"{' '.join(LADDER_ARGV)}: {secs:.2f} s", flush=True)
+    print(json.dumps(summary), flush=True)
+    missing = (LADDER_SUMMARY_KEYS | {"device_name", "power_limit_w"}) - set(summary)
+    if not lines or lines[-1] != summary or missing:
+        fail(f"phase 16: the summary line {lines[-1:]} lacks {sorted(missing)}")
+    if summary["device_name"] != torch.cuda.get_device_name(0) or summary["power_limit_w"] is None:
+        fail(f"phase 16: device {summary['device_name']!r}, power limit "
+             f"{summary['power_limit_w']!r}")
+    quality = [ln["pseudo_label_quality"] for ln in lines if "pseudo_label_quality" in ln]
+    if len(quality) != 2 or not all(0.0 < q <= 1.0 for q in quality):
+        fail(f"phase 16: pseudo_label_quality {quality} (one a pseudo-labelled stage, in (0, 1])")
+    if sorted(runs) != list(LADDER_STAGES):
+        fail(f"phase 16: stages {sorted(runs)}")
+    epoch_s = {}
+    for stage in LADDER_STAGES:
+        r = runs[stage]
+        files = glob.glob(os.path.join(work, "run", f"hist_{stage}", "*_history.json"))
+        if len(files) != 1:
+            fail(f"phase 16 {stage}: history files {files}")
+        with open(files[0]) as fh:
+            history = json.load(fh)
+        bad = [(row["epoch"], k) for row in history for k, v in row.items()
+               if not math.isfinite(v)]
+        if len(history) != r["epochs"] or bad:
+            fail(f"phase 16 {stage}: {len(history)} epochs of {r['epochs']}, non-finite {bad}")
+        epoch_s[stage] = [row["time"] for row in history]
+        per_step = 3 if stage == "aide" else 0
+        if r["train_steps"] <= 0 or r["warp_launches"] != per_step * r["train_steps"]:
+            fail(f"phase 16 {stage}: {r['warp_launches']} warp launches in {r['train_steps']} "
+                 f"train steps, expected {per_step} a step")
+        if not os.path.exists(r["checkpoint"]):
+            fail(f"phase 16 {stage}: no export at {r['checkpoint']}")
+        print(f"phase 16 (a) {stage}: {r['seconds']:.2f} s, epochs {epoch_s[stage]} s, best "
+              f"test-case dice {r['best_testcase_dice']:.4f}, {r['train_steps']} steps, "
+              f"{r['warp_launches']} warp launches", flush=True)
+    aide = runs["aide"]
+    # the refresh epochs by the trainer's rule at the AIDE stage's config
+    SA.PROTOCOL = "pseudo"
+    probe = SimpleNamespace(cfg=SA.build_cfg("aide", work, aide["epochs"]))
+    want = [e + 1 for e in range(aide["epochs"]) if Trainer._is_refresh_epoch(probe, e)]
+    track = [t["epoch"] for t in aide["label_quality_track"]]
+    if not want or track != want or "engagement" not in aide:
+        fail(f"phase 16 aide: label-quality track at epochs {track} (refresh epochs {want}), "
+             f"engagement {aide.get('engagement')!r}")
+    print("phase 16 (a) aide: label quality " + json.dumps(aide["label_quality_track"])
+          + ", engagement " + json.dumps(aide["engagement"]), flush=True)
+    return dict(runs=runs, summary=summary, seconds=secs, epoch_s=epoch_s)
+
+
+def ladder_small_aide(SA, device, work, pretrain, weights, seed) -> dict:
+    """Phase 16 (b) on ``device``: apply_pseudo_labels from ``pretrain``,
+    then one AIDE epoch with refresh from ``weights`` (None: the nets drawn
+    from ``seed``) and seeded view parameters. Returns the pseudo-labels
+    and their quality, the rows, refresh log and case dice, the working
+    labels and the initial weights."""
+    import numpy as np
+    import torch
+
+    from aide_tpu_torch.engine.trainer import init_weights
+
+    rec = {"case_dice": {}}
+
+    def prepare(tr, stage):
+        for n, net in enumerate(tr.state.nets):
+            if weights is None:
+                init_weights(net, 100 * seed + n)
+            else:
+                net.load_state_dict(weights[n])
+        rec["weights"] = [{k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+                          for net in tr.state.nets]
+        rec["pseudo"] = [tr.train_pipe.labels.get(n).copy() for n in (1, 2)]
+
+        def view_params(epoch, step, b):
+            g = np.random.default_rng(1000 * epoch + step)
+            v = tr.cfg.data.num_tta_views
+            views = (g.uniform(-45, 45, (v, b)).astype(np.float32),
+                     (g.random((v, b)) < 0.5).astype(np.float32))
+            return tuple(torch.from_numpy(x).to(tr.device) for x in views)
+
+        tr.view_params = view_params
+        inner = tr._refresh_labels
+
+        def refresh(epoch, traincase):
+            for n in traincase:
+                rec["case_dice"][epoch, n] = {r.case_id: r.dice for r in traincase[n]}
+            inner(epoch, traincase)
+
+        tr._refresh_labels = refresh
+        rec["trainer"] = tr
+
+    SA.DEVICE = device
+    result = SA.run("aide", fresh_dir(os.path.join(work, f"aide_{device}")), 1,
+                    pseudo_from=pretrain, prepare=prepare)
+    tr = rec.pop("trainer")
+    k = int(tr.cfg.coteach.update_percent * len(tr.train_cases))
+    return dict(rec, q=result["engagement_probe"]["bootstrap_skill1"], rows=tr.history,
+                log=tr.refresh_log, labels=[tr.train_pipe.labels.get(n) for n in (1, 2)], k=k)
+
+
+def ladder_vs_cpu(scratch) -> dict:
+    """Phase 16 (b): the ladder's pseudo-labelling and an AIDE epoch after
+    it at phase 6's small size (two-modal FuseUNet at base width 4, 32 px,
+    f32, TF32 off, 6 cases x 8 slices, 1 clean, lr 1e-6 and the worst half
+    refreshed in the AIDE stage),
+    on the card and on the CPU from one pretrain export (trained on the
+    CPU), the same initial nets and view parameters: pseudo-labels equal in
+    >= 99.9% of voxels, pseudo_label_quality within 1e-3, the same refresh
+    decisions each with a margin (the CPU run's seeds drawn until its
+    worst-k boundaries have a gap of 1e-3, else the widest, as phase 6
+    draws them, and a refresh rewrites a case), working labels within
+    Dice 0.995, history metrics within 1e-3."""
+    import numpy as np
+    import torch
+
+    from aide_tpu_torch.evaluation.case_eval import dice3d_np
+    from aide_tpu_torch.experiments import synthetic_aide as SA
+
+    settings = dict(NUM_CASES=6, CLEAN_CASES=1, SLICES_PER_CASE=8, MODEL="fuseunet",
+                    IMG_SIZE=32, SEED=8, STYLE="xhard", PROTOCOL="pseudo", TWO_MODAL=True,
+                    # the worst 3 of 6 cases a net: the labeled case, which
+                    # fresh nets score worst, and two that are rewritten
+                    AIDE_OVERRIDES=["coteach.update_percent=0.5"])
+    saved = {k: getattr(SA, k) for k in (*settings, "build_cfg", "DEVICE")}
+    base = SA.build_cfg
+
+    def small_cfg(stage, workdir, epochs, resume=""):
+        cfg = base(stage, workdir, epochs, resume)
+        cfg.model.base_width = 4
+        cfg.model.compute_dtype = "float32"
+        cfg.mesh.num_devices = 1
+        if stage == "aide":
+            cfg.optim.lr = 1e-6  # as phase 6 trains
+        return cfg
+
+    for key, value in settings.items():
+        setattr(SA, key, value)
+    SA.build_cfg = small_cfg
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        work = fresh_dir(os.path.join(scratch, "ladder_small"))
+        SA.DEVICE = "cpu"
+        pretrain = SA.run("pretrain", os.path.join(work, "pretrain"), 6)["checkpoint"]
+        if not os.path.exists(pretrain):
+            fail(f"phase 16 (b): the pretrain wrote no export at {pretrain}")
+        # the first seed whose every worst-k boundary has a gap of 1e-3, else
+        # the widest of seeds 0-9
+        best = None
+        for seed in range(10):
+            cpu = ladder_small_aide(SA, "cpu", work, pretrain, None, seed)
+            gaps = boundary_gaps(cpu["case_dice"], cpu["k"])
+            if len(gaps) != len(cpu["log"]) or not any(done for *_, done in cpu["log"]):
+                continue
+            if best is None or min(gaps.values()) > min(best[2].values()):
+                best = (seed, cpu, gaps)
+            if min(gaps.values()) >= 1e-3:
+                break
+        if best is None or min(best[2].values()) <= 0.0:
+            fail("phase 16 (b): no seed in 0-9 gives the CPU run a refresh that rewrites a "
+                 "case without a tie")
+        seed, cpu, gaps = best
+        gpu = ladder_small_aide(SA, "cuda", work, pretrain, cpu["weights"], seed)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        for key, value in saved.items():
+            setattr(SA, key, value)
+    agree = [float(np.mean(g == c)) for g, c in zip(gpu["pseudo"], cpu["pseudo"])]
+    label_dice = [dice3d_np(g, c) for g, c in zip(gpu["labels"], cpu["labels"])]
+    worst = worst_difference(gpu["rows"], cpu["rows"])
+    margins = [(gaps[key], max(abs(gpu["case_dice"][key][c] - d)
+                               for c, d in cpu["case_dice"][key].items()))
+               for key in sorted(cpu["case_dice"])]
+    name = "phase 16 (b) the ladder's small slice, card vs CPU"
+    print(f"{name} (seed {seed}): pseudo-label voxel agreement {agree}, quality "
+          f"{gpu['q']:.6f} / {cpu['q']:.6f}; refresh decisions {gpu['log']} / {cpu['log']}, "
+          f"margins (CPU gap, largest card-CPU case-dice difference) {json.dumps(margins)}; "
+          f"working-label agreement {label_dice}; worst metric difference {worst:.3e}",
+          flush=True)
+    if min(agree) < 0.999 or abs(gpu["q"] - cpu["q"]) > 1e-3:
+        fail(f"{name}: pseudo-labels agree in {agree} of voxels, quality {gpu['q']} vs {cpu['q']}")
+    if gpu["log"] != cpu["log"] or not all(gap > diff for gap, diff in margins):
+        fail(f"{name}: refresh decisions {gpu['log']} vs {cpu['log']}, margins {margins}")
+    if min(label_dice) < 0.995 or worst > 1e-3:
+        fail(f"{name}: working labels agree to Dice {label_dice}, metrics differ by {worst}")
+    return dict(pseudo_agreement=agree, quality=[gpu["q"], cpu["q"]], margins=margins,
+                label_dice=label_dice, worst_metric_difference=worst)
+
+
 def run_phases_6_to_11(cuda_warp, scratch, args, chaos, chaos_log):
     """Phases 6-11; returns their runs by path and the kernels line's extra
     entries."""
@@ -3321,12 +3589,17 @@ def main() -> int:
     print(f"phase 14: {time.perf_counter() - t14:.2f} s", flush=True)
     stamp("phase 14")
     space_runs = {f"space_axis_{w}": run for w, run in space_axis.items()}
-    bench = {}
+    bench, ladder = {}, None
     if not args.data_axis:
         t15 = time.perf_counter()
         bench = run_bench(root, scratch)
         print(f"phase 15: {time.perf_counter() - t15:.2f} s", flush=True)
         stamp("phase 15")
+        t16 = time.perf_counter()
+        ladder = run_ladder(root, scratch)
+        ladder_small = ladder_vs_cpu(scratch)
+        print(f"phase 16: {time.perf_counter() - t16:.2f} s", flush=True)
+        stamp("phase 16")
 
     by_path = {}
     for path, run in {**runs, "data_axis": data_axis, **net_runs, **space_runs}.items():
@@ -3400,6 +3673,23 @@ def main() -> int:
     if bench:
         extra["bench"] = {sub: {k: v for k, v in row.items() if k != "history"}
                           for sub, row in bench.items()}
+    if ladder is not None:
+        aide = ladder["runs"]["aide"]
+        launched = [r for r in rows if r["path"] == "ladder_aide"]
+        by_path["ladder_aide"] = {
+            "launches": aide["warp_launches"],
+            "launches_per_step": aide["warp_launches"] / aide["train_steps"],
+            "kernel_ms_per_step": sum(r["per_step"] * r["ms"] for r in launched),
+            "plain_ms_per_step": sum(r["per_step"] * r["plain_ms"] for r in launched),
+            "bound_ms_per_step": sum(r["per_step"] * r["bound_ms"] for r in launched),
+            "epoch_s": ladder["epoch_s"]["aide"],
+        }
+        extra["ladder"] = {
+            "seconds": ladder["seconds"], "summary": ladder["summary"],
+            "stages": {stage: {k: r[k] for k in ("seconds", "train_steps", "warp_launches",
+                                                 "best_testcase_dice")}
+                       for stage, r in ladder["runs"].items()},
+            "epoch_s": ladder["epoch_s"], "card_vs_cpu": ladder_small}
     if kidney_space is not None:
         extra["kidney_space_2"] = {
             "one_card": {k: kidney_space["one"][k] for k in ("metrics", "steady", "peak")},
@@ -3414,6 +3704,9 @@ def main() -> int:
     # timed bare steps' at (c) and (d), as each process counted them
     launches.update({row["path"]: row.get("warp_launches_epoch", row["warp_launches_timed"])
                      for row in bench.values() if "warp_launches_timed" in row})
+    # the ladder's process: its AIDE stage's launches (its other stages' 0)
+    if ladder is not None:
+        launches["ladder_aide"] = ladder["runs"]["aide"]["warp_launches"]
     kernels = [{
         "name": "warp_rotate_flip",
         "route": "cuda",
