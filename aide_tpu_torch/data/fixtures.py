@@ -17,6 +17,10 @@ they list, as the real data stores them:
 Each slice holds a bright ellipse (the organ) over noise; the masks mark it,
 the noisy labels shifted by a few pixels. So ``Trainer(get_preset(name,
 root))`` trains from native files where the real data is absent.
+
+``write_reference_chaos(ref_dir, ...)`` writes the part of the reference
+repository's CHAOS tree that the real-data programs
+(``aide_tpu_torch.experiments.chaos_real_*``) read, in its own layout.
 """
 
 from __future__ import annotations
@@ -62,12 +66,13 @@ def _path(root: str, rel: str) -> str:
     return path
 
 
-def _write_csv(path: str, header: Sequence[str], rows: List[Sequence]) -> None:
+def _write_csv(path: str, header: Sequence[str], rows: List[Sequence],
+               lineterminator: str = "\r\n") -> None:
     if not path:
         return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w", newline="") as fh:
-        out = csv.writer(fh)
+        out = csv.writer(fh, lineterminator=lineterminator)
         out.writerow(header)
         out.writerows(rows)
 
@@ -223,3 +228,123 @@ def write_fixture_tree(
     else:
         raise ValueError(f"no fixture tree for task {task!r}")
     _case_lists(cfg, train, test, labeled)
+
+
+# the reference tree's two cases that ship images, and their slice pairs
+REFERENCE_CASES = (("37", 30), ("10", 50))
+# the folder of the 1-case pretrain's bootstrap pseudo-labels, under All_Sets
+REFERENCE_PSEUDO_DIR = "generated_masks/pretrain_1case_fuseunet_r1"
+# cases listed in the reference's manifests whose files it does not ship
+_ABSENT_VAL = (1, 2, 3, 5, 8, 13, 15, 19, 20)
+_ABSENT_TRAIN = (21, 22, 31, 32, 33, 34, 36, 38, 39) + tuple(range(40, 60))
+_ABSENT_SLICES = 4
+
+
+def _liver(rng: np.random.Generator, slices: int, size: int) -> np.ndarray:
+    """(slices, size, size) bool: an ellipse that grows from nothing at the
+    volume's ends to its full size in the middle slices."""
+    cy, cx = rng.uniform(0.42, 0.58, 2) * size
+    ry, rx = rng.uniform(0.2, 0.28, 2) * size
+    yy, xx = np.mgrid[:size, :size]
+    out = np.zeros((slices, size, size), bool)
+    for s in range(slices):
+        f = max(np.sin(np.pi * (s + 0.5) / slices) - 0.2, 0.0) / 0.8
+        if f > 0:
+            out[s] = ((yy - cy) / (ry * f)) ** 2 + ((xx - cx) / (rx * f)) ** 2 <= 1.0
+    return out
+
+
+def _bootstrap(liver: np.ndarray) -> np.ndarray:
+    """A pretrain's poor prediction of ``liver``: shifted down and right by
+    7% and 4% of the image and cut at the organ's mid column."""
+    size = liver.shape[-1]
+    moved = np.roll(np.roll(liver, round(0.07 * size), -2), round(0.04 * size), -1)
+    cols = np.nonzero(liver.any(axis=(0, 1)))[0]
+    if cols.size:
+        moved[:, :, : (cols[0] + cols[-1]) // 2] = False
+    return moved
+
+
+def _reference_rows(case, slices: int, mask_dir: str = ""):
+    """Manifest rows (Inphase, Outphase, Mask) of ``case``, relative to
+    All_Sets; the mask is the ground truth's unless ``mask_dir`` names
+    another folder (relative to All_Sets) holding ``<case>/<stem>.png``."""
+    series = f"{int(case):04d}"
+    rows = []
+    for s in range(slices):
+        # the in-phase instance follows its out-phase one, as CHAOS numbers them
+        stem = f"IMG-{series}-{2 * s + 2:05d}"
+        base = f"{case}/T1DUAL"
+        mask = f"{mask_dir}/{case}/{stem}.png" if mask_dir else f"{base}/Ground/{stem}.png"
+        rows.append((f"{base}/DICOM_anon/InPhase/{stem}.dcm",
+                     f"{base}/DICOM_anon/OutPhase/IMG-{series}-{2 * s + 1:05d}.dcm", mask))
+    return rows
+
+
+def write_reference_chaos(ref_dir: str, size: int = 256, seed: int = 0) -> dict:
+    """Write, from ``seed``, the reference's CHAOS files that the real-data
+    programs read, under ``ref_dir`` in the reference's layout:
+
+    - ``inputs_chaos/All_Sets/{37,10}/T1DUAL/DICOM_anon/{InPhase,OutPhase}/
+      IMG-*.dcm`` (``size`` x ``size`` px, the out-phase instance one below
+      the in-phase one) and ``.../T1DUAL/Ground/<in-phase stem>.png``
+      (palette PNGs, liver gray 63, a second class 126): case 37 with 30
+      slice pairs, case 10 with 50;
+    - ``inputs_chaos/All_Sets/generated_masks/pretrain_1case_fuseunet_r1/10/
+      <in-phase stem>.png``: case 10's bootstrap pseudo-labels in the
+      tempmask format (gray 63), each a shifted and cut copy of the ground
+      truth; their 3D Dice against it is 0.5328 at 256 px and 0.5773 at
+      32 px for seed 0 (the reference's own measure 0.479);
+    - ``inputs_chaos/All_Sets_split/``: ``splitimages_cleanlabel/
+      train_data_1cases.csv`` (case 37), ``splitimages_cleanlabel/
+      val_data_10cases.csv`` (case 10 among nine other validation cases)
+      and ``splitimages_pseudolabels_1pretrain/train_data_30cases.csv``
+      (case 37's ground truth among 29 other cases whose masks point into
+      the pseudo-label folder), each ``Inphase,Outphase,Mask`` with paths
+      relative to All_Sets. The other cases' files are absent, as in the
+      reference, where only cases 10 and 37 ship images.
+
+    Returns the ``root`` (All_Sets) and ``split`` (All_Sets_split) paths
+    and ``pseudo_dice``, the bootstrap labels' 3D Dice against case 10's
+    ground truth."""
+    from aide_tpu_torch.data.tasks.chaos import PALETTE
+
+    rng = np.random.default_rng(seed)
+    root = os.path.join(ref_dir, "inputs_chaos", "All_Sets")
+    split = os.path.join(ref_dir, "inputs_chaos", "All_Sets_split")
+    rows, pseudo_dice = {}, None
+    for case, slices in REFERENCE_CASES:
+        liver = _liver(rng, slices, size)
+        # a second class (gray 126) in the lower left quadrant, outside the liver
+        second = np.zeros_like(liver)
+        second[:, size // 2:, : size // 2] = _organ(rng, slices, size // 2, size // 2)
+        second &= ~liver
+        rows[case] = _reference_rows(case, slices)
+        for s, (inphase, outphase, mask) in enumerate(rows[case]):
+            for rel, gain in ((inphase, 420.0), (outphase, 300.0)):
+                write_dicom(_path(root, rel), _image(rng, liver[s] | second[s], 120.0, gain))
+            write_palette_png(_path(root, mask), liver[s] * 1 + second[s] * 2, PALETTE)
+        if case == "10":
+            boot = _bootstrap(liver)
+            for (inphase, _, _), sl in zip(rows[case], boot):
+                stem = os.path.basename(inphase).split(".")[0]
+                png.write_mask(_path(root, f"{REFERENCE_PSEUDO_DIR}/10/{stem}.png"), sl, scale=63)
+            inter = np.count_nonzero(boot & liver)
+            pseudo_dice = 2.0 * inter / (np.count_nonzero(boot) + np.count_nonzero(liver))
+
+    def absent(cases, mask_dir=""):
+        return {str(c): _reference_rows(c, _ABSENT_SLICES, mask_dir) for c in cases}
+
+    def listed(by_case):
+        return [row for c in sorted(by_case, key=int) for row in by_case[c]]
+
+    header = ("Inphase", "Outphase", "Mask")
+    clean = os.path.join(split, "splitimages_cleanlabel")
+    # pandas' line ends, as the reference's manifests were written
+    _write_csv(os.path.join(clean, "train_data_1cases.csv"), header, rows["37"], os.linesep)
+    _write_csv(os.path.join(clean, "val_data_10cases.csv"), header,
+               listed({**absent(_ABSENT_VAL), "10": rows["10"]}), os.linesep)
+    _write_csv(os.path.join(split, "splitimages_pseudolabels_1pretrain", "train_data_30cases.csv"),
+               header, listed({**absent(_ABSENT_TRAIN, REFERENCE_PSEUDO_DIR), "37": rows["37"]}),
+               os.linesep)
+    return {"root": root, "split": split, "pseudo_dice": pseudo_dice}

@@ -223,17 +223,38 @@ Phases:
      from one pretrain export and one AIDE epoch after it on the card and
      on the CPU: pseudo-labels equal in >= 99.9% of voxels, their quality
      within 1e-3, the same refresh decisions each with a margin, working
-     labels within Dice 0.995, history metrics within 1e-3.
+     labels within Dice 0.995, history metrics within 1e-3;
+ 17. the real-data CHAOS programs at their own point (FuseUNet-32, bf16,
+     256 px, batch 4, 4 views at +-60 degrees), 3 epochs each, each in its
+     own process (files under build/chip_smoke/real/): (a)
+     write_reference_chaos writes a 256 px fixture tree in the reference's
+     layout and its digest is taken; (b) `python -m aide_tpu_torch.
+     experiments.chaos_real_1case`: the JAX program's keys and the port's,
+     30 train and 50 val slices, a finite history of 3 epochs, no warp
+     launch, the best export present, the card's name and power limit; (c)
+     chaos_real_ladder --stage both: the naive rung 0 launches, the AIDE
+     rung 3 a train step (60 steps), one label-quality entry a refresh
+     epoch, the half-life warning in its log, case 10's 100 tempmasks under
+     the work directory; (d) the AIDE rung warm-started from (b)'s export
+     (--resume): warm_start true, launches as (c); (e) chaos_real_proposed:
+     80 train slices, the bootstrap label dice equal to (c)'s initial
+     pseudo quality, one oracle line a refresh, 3 launches a step; (f) the
+     tree's digest unchanged; (g) in process, the ladder's AIDE rung at 64
+     px, base width 4, f32, TF32 off, lr 1e-6, 2 epochs on the card and on
+     the CPU from the same nets and view parameters: the seeded labels
+     equal voxel for voxel, the same refresh decisions each with a margin
+     (or on equal case dice), history and label quality within 1e-3.
 Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's,
 phase 10's, phase 12's, phase 13's, phase 14's (with their output-row
-windows), phase 15 (c)'s and phase 16's launch shapes.
+windows), phase 15 (c)'s and phase 16's launch shapes (phase 17 launches
+at phase 8 (a)'s, the CHAOS preset's).
 Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 {...}}.
 
 Run from the repository root:
   python3 chip_smoke.py [--profile] [--baseline FILE.cu] [--data-axis]
 (--data-axis runs phases 1-5 and 12-14 alone, for a machine with several
-cards, and skips phases 15 and 16; --profile adds, after phases 5, 7 and 12-14 and in phase 9 (a) and (b), a
+cards, and skips phases 15-17; --profile adds, after phases 5, 7 and 12-14 and in phase 9 (a) and (b), a
 torch.profiler breakdown of a few more co-teaching steps of each; --baseline times another version of csrc/warp_rotate_flip.cu, for
 instance an earlier commit's, beside this one in phase 4; it may be given
 more than once).
@@ -337,7 +358,10 @@ PRESET_AUGMENT = ("chaos_preset", "chaos_preset_augment")
 SAME_SHAPES = {"cli_chaos": ("chaos_preset",), "zoo_fuseunetsaseparate": ("chaos_preset",),
                "zoo_unetsa": ("prostate_preset",), "chaos_resume": ("chaos_coteach",),
                "cli_resume_first": PRESET_AUGMENT, "cli_resume": PRESET_AUGMENT,
-               "cli_sgd": PRESET_AUGMENT, "bench_chaos": ("chaos_coteach",)}
+               "cli_sgd": PRESET_AUGMENT, "bench_chaos": ("chaos_coteach",),
+               # phase 17: the real-data programs at the CHAOS preset's point
+               "real_ladder_aide": ("chaos_preset",), "real_warm_aide": ("chaos_preset",),
+               "real_proposed": ("chaos_preset",)}
 # phase 8: (path, preset, the fixture tree's native px, warp launches a step)
 PRESET_RUNS = (
     ("chaos_preset", "chaos_proposed_30cases1labeled", 256, 3),
@@ -3454,6 +3478,338 @@ def ladder_vs_cpu(scratch) -> dict:
                 label_dice=label_dice, worst_metric_difference=worst)
 
 
+# ------------------------------- phase 17 -------------------------------
+
+# the real-data CHAOS programs at their own point (FuseUNet-32, bf16, 256
+# px, batch 4, 4 views at +-60 degrees) on a fixture tree in the
+# reference's layout, 3 epochs each: every epoch of the AIDE rungs a
+# refresh (warmup 20), 20 train steps an epoch (80 slices, batch 4)
+REAL_EPOCHS = 3
+REAL_TIMEOUT_S = 300
+# the JAX programs' keys
+REAL_KEYS = {
+    "chaos_real_1case": {"config", "epochs", "train_slices", "val_slices", "final_case10_dice",
+                         "best_case10_dice", "golden_reference_case10_dice", "minutes"},
+    "ladder_top": {"golden", "pretrain_rung", "naive", "aide", "aide_over_naive"},
+    "naive": {"stage", "warm_start", "epochs", "initial_pseudo_quality", "final_case10_dice",
+              "best_case10_dice", "golden_reference_case10_dice", "minutes"},
+    "aide": {"stage", "warm_start", "epochs", "initial_pseudo_quality", "label_quality_track",
+             "engagement_probe", "final_case10_dice", "best_case10_dice",
+             "golden_reference_case10_dice", "minutes"},
+    "chaos_real_proposed": {
+        "config", "epochs", "train_slices", "bootstrap_label_dice_case10", "final_case10_dice",
+        "best_case10_dice", "at_checkpoint_gate", "gate_epoch", "label_oracle_last",
+        "label_oracle_peak", "golden_reference_case10_dice_supervised1case",
+        "our_comparison_run_case10", "minutes", "label_oracle", "history"},
+}
+REAL_ADDED = {"seconds", "train_steps", "warp_launches", "checkpoint"}
+HALF_LIFE_WARNING = "STRUCTURAL REFRESH CHECK FAILED"
+
+
+def tree_digest(path: str) -> str:
+    """Every entry under ``path``: its name, a link's target, a file's bytes."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for top, dirs, files in sorted(os.walk(path)):
+        dirs.sort()
+        for name in sorted(dirs + files):
+            full = os.path.join(top, name)
+            h.update(os.path.relpath(full, path).encode())
+            if os.path.islink(full):
+                h.update(b"link:" + os.readlink(full).encode())
+            elif os.path.isfile(full):
+                with open(full, "rb") as fh:
+                    h.update(fh.read())
+    return h.hexdigest()
+
+
+def real_program(root, work, tag, module, argv) -> tuple:
+    """``python -m aide_tpu_torch.experiments.<module> argv`` in its own
+    process (its log under ``work``); returns its seconds, JSON lines,
+    ``#`` lines and the ``--out`` file's contents."""
+    out_file = os.path.join(work, f"{tag}.json")
+    cmd = [sys.executable, "-m", f"aide_tpu_torch.experiments.{module}", *argv,
+           "--workdir", os.path.join(work, tag), "--out", out_file]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=REAL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 17: {' '.join(cmd[1:])} ran past {REAL_TIMEOUT_S} s")
+    secs = time.perf_counter() - t0
+    with open(os.path.join(work, f"{tag}.log"), "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    if proc.returncode:
+        fail(f"phase 17: {' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines, notes = [], []
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("#"):
+            notes.append(ln)
+        elif ln.strip():
+            try:
+                lines.append(json.loads(ln))
+            except ValueError:
+                fail(f"phase 17 {tag}: a line of the program's output is not JSON: {ln!r}")
+    with open(out_file) as fh:
+        saved = json.load(fh)
+    return secs, lines, notes, saved
+
+
+def real_history(name, hist_dir, epochs) -> list:
+    """The run's history file: ``epochs`` rows, every value finite."""
+    import glob
+
+    files = glob.glob(os.path.join(hist_dir, "*_history.json"))
+    if len(files) != 1:
+        fail(f"phase 17 {name}: history files {files}")
+    with open(files[0]) as fh:
+        history = json.load(fh)
+    bad = [(row["epoch"], k) for row in history for k, v in row.items() if not math.isfinite(v)]
+    if len(history) != epochs or bad:
+        fail(f"phase 17 {name}: {len(history)} epochs of {epochs}, non-finite {bad}")
+    return history
+
+
+def check_real_run(name, r, want_keys, per_step, steps_per_epoch) -> None:
+    """A run's keys (the JAX program's and the port's additions), its warp
+    launches (``per_step`` a train step) and its export."""
+    missing = (want_keys | REAL_ADDED) - set(r)
+    if missing:
+        fail(f"phase 17 {name}: the result lacks {sorted(missing)}")
+    if r["train_steps"] != REAL_EPOCHS * steps_per_epoch:
+        fail(f"phase 17 {name}: {r['train_steps']} train steps in {REAL_EPOCHS} epochs")
+    if r["warp_launches"] != per_step * r["train_steps"]:
+        fail(f"phase 17 {name}: {r['warp_launches']} warp launches in {r['train_steps']} train "
+             f"steps, expected {per_step} a step")
+    if not os.path.exists(r["checkpoint"]):
+        fail(f"phase 17 {name}: no export at {r['checkpoint']}")
+
+
+def check_card(name, info, card) -> None:
+    """The program's output names the card and its power limit."""
+    if info.get("device_name") != card or info.get("power_limit_w") is None:
+        fail(f"phase 17 {name}: device {info.get('device_name')!r}, power limit "
+             f"{info.get('power_limit_w')!r}")
+
+
+def print_real(tag, secs, r, history) -> None:
+    best = r["best_case10_dice"]
+    print(f"phase 17 {tag}: {secs:.2f} s of command ({r['seconds']:.2f} s in the program), "
+          f"{r['epochs']} epochs of {[row['time'] for row in history]} s, {r['train_steps']} "
+          f"train steps, {r['warp_launches']} warp launches, best case-10 dice "
+          f"{json.dumps(best)}", flush=True)
+
+
+def run_real_programs(root, scratch) -> dict:
+    """Phase 17 (a)-(f): the three real-data programs in their own
+    processes on a 256 px fixture tree in the reference's layout, held to
+    their contract; the tree unchanged after them. Returns each run's
+    seconds, epoch times, steps and launches."""
+    import torch
+
+    from aide_tpu_torch.data.fixtures import write_reference_chaos
+
+    release_device_memory()
+    card = torch.cuda.get_device_name(0)
+    work = fresh_dir(os.path.join(scratch, "real"))
+    ref_dir = os.path.join(work, "reference")
+    t0 = time.perf_counter()
+    tree = write_reference_chaos(ref_dir, size=256, seed=0)
+    digest = tree_digest(ref_dir)
+    print(f"phase 17 (a) the reference tree at 256 px: {time.perf_counter() - t0:.2f} s, "
+          f"bootstrap label dice {tree['pseudo_dice']:.6f}, digest {digest}", flush=True)
+    common = ["--epochs", str(REAL_EPOCHS), "--reference", ref_dir]
+    runs = {}
+
+    # (b) the supervised pretrain rung
+    secs, lines, _, one = real_program(root, work, "one", "chaos_real_1case", common)
+    if not lines or lines[-1] != one:
+        fail(f"phase 17 (b): the printed line {lines[-1:]} is not the --out file's")
+    history = real_history("(b)", os.path.join(work, "one", "hist"), REAL_EPOCHS)
+    check_real_run("(b)", one, REAL_KEYS["chaos_real_1case"], 0, 7)
+    check_card("(b)", one, card)
+    if (one["train_slices"], one["val_slices"]) != (30, 50):
+        fail(f"phase 17 (b): {one['train_slices']} train and {one['val_slices']} val slices")
+    print_real("(b) chaos_real_1case", secs, one, history)
+    runs["real_1case"] = dict(one, command_s=secs, epoch_s=[row["time"] for row in history])
+
+    # (c) both rungs of the ladder, (d) the warm AIDE rung from (b)'s export
+    for tag, extra in (("ladder", ["--stage", "both"]),
+                       ("warm", ["--stage", "aide", "--resume", one["checkpoint"]])):
+        secs, lines, _, saved = real_program(root, work, tag, "chaos_real_ladder", common + extra)
+        stages = ("naive", "aide") if tag == "ladder" else ("aide",)
+        want_top = REAL_KEYS["ladder_top"] if tag == "ladder" else {"golden", "pretrain_rung",
+                                                                     "aide"}
+        if want_top - set(saved):
+            fail(f"phase 17 {tag}: the summary lacks {sorted(want_top - set(saved))}")
+        check_card(tag, saved, card)
+        if lines[-1] != {k: v for k, v in saved.items() if k != "golden"}:
+            fail(f"phase 17 {tag}: the last line is not the summary")
+        for stage in stages:
+            r = saved[stage]
+            check_real_run(f"{tag} {stage}", r, REAL_KEYS[stage], 3 if stage == "aide" else 0, 20)
+            history = real_history(f"{tag} {stage}", os.path.join(work, tag, f"hist_{stage}"),
+                                   REAL_EPOCHS)
+            print_real(f"({'c' if tag == 'ladder' else 'd'}) chaos_real_ladder {stage}"
+                       f"{' warm' if tag == 'warm' else ''}", secs, r, history)
+            runs[f"real_{tag}_{stage}"] = dict(r, command_s=secs,
+                                               epoch_s=[row["time"] for row in history])
+        aide = saved["aide"]
+        track = [t["epoch"] for t in aide["label_quality_track"]]
+        if track != list(range(1, REAL_EPOCHS + 1)) or aide["warm_start"] != (tag == "warm"):
+            fail(f"phase 17 {tag}: label-quality track at epochs {track}, warm_start "
+                 f"{aide['warm_start']}")
+        with open(os.path.join(work, tag, "hist_aide", "fuseunet_temp1.0_r3.log")) as fh:
+            if HALF_LIFE_WARNING not in fh.read():
+                fail(f"phase 17 {tag}: no half-life warning in the AIDE rung's log")
+        temp = os.path.join(work, tag, "tempmask_aide", "10")
+        names = os.listdir(temp) if os.path.isdir(temp) else []
+        if len(names) != 100:
+            fail(f"phase 17 {tag}: {len(names)} tempmasks of case 10 under {temp}, expected 100")
+        print(f"phase 17 {tag} aide: label quality " + json.dumps(aide["label_quality_track"])
+              + f", initial pseudo quality {aide['initial_pseudo_quality']}", flush=True)
+    initial = runs["real_ladder_aide"]["initial_pseudo_quality"]
+
+    # (e) the proposed program
+    secs, lines, notes, saved = real_program(root, work, "proposed", "chaos_real_proposed", common)
+    r = {k: v for k, v in saved.items() if k not in ("label_oracle", "history")}
+    if not lines or lines[-1] != r:
+        fail("phase 17 (e): the printed line is not the --out file's")
+    check_real_run("(e)", saved, REAL_KEYS["chaos_real_proposed"], 3, 20)
+    check_card("(e)", saved, card)
+    history = real_history("(e)", os.path.join(work, "proposed", "hist"), REAL_EPOCHS)
+    oracle = [n for n in notes if n.startswith("# label oracle ")]
+    if saved["train_slices"] != 80 or saved["bootstrap_label_dice_case10"] != initial:
+        fail(f"phase 17 (e): {saved['train_slices']} train slices, bootstrap label dice "
+             f"{saved['bootstrap_label_dice_case10']} against (c)'s {initial}")
+    if len(oracle) != REAL_EPOCHS or len(saved["label_oracle"]) != REAL_EPOCHS:
+        fail(f"phase 17 (e): {len(oracle)} oracle lines in {REAL_EPOCHS} refresh epochs")
+    print_real("(e) chaos_real_proposed", secs, saved, history)
+    print(f"phase 17 (e): label oracle {json.dumps(saved['label_oracle'])}", flush=True)
+    runs["real_proposed"] = dict(r, command_s=secs, epoch_s=[row["time"] for row in history])
+
+    # (f) nothing wrote under the reference tree
+    if tree_digest(ref_dir) != digest:
+        fail("phase 17 (f): the reference tree changed")
+    print("phase 17 (f): the reference tree unchanged", flush=True)
+    return runs
+
+
+def real_ladder_small(PL, device, work, weights) -> dict:
+    """Phase 17 (g) on ``device``: the ladder's AIDE rung for 2 epochs from
+    ``weights`` (None: the trainer's own initial nets) and seeded view
+    parameters. Returns the seeded labels as the device copy holds them,
+    the case dice at each refresh, the rows, the refresh log, the oracle
+    track and the working labels."""
+    import numpy as np
+    import torch
+
+    rec = {"case_dice": {}}
+
+    def prepare(tr, stage):
+        for n, net in enumerate(tr.state.nets):
+            if weights is not None:
+                net.load_state_dict(weights[n])
+        rec["weights"] = [{k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+                          for net in tr.state.nets]
+        pipe = tr.train_pipe
+        # a copy: on the CPU the device copy shares the host labels' memory
+        rec["seeded"] = [pipe._device_labels[f"target{n}"].cpu().numpy().copy() for n in (1, 2)]
+
+        def view_params(epoch, step, b):
+            g = np.random.default_rng(1000 * epoch + step)
+            v = tr.cfg.data.num_tta_views
+            views = (g.uniform(-60, 60, (v, b)).astype(np.float32),
+                     (g.random((v, b)) < 0.5).astype(np.float32))
+            return tuple(torch.from_numpy(x).to(tr.device) for x in views)
+
+        tr.view_params = view_params
+        inner = tr._refresh_labels
+
+        def refresh(epoch, traincase):
+            for n in traincase:
+                rec["case_dice"][epoch, n] = {r.case_id: r.dice for r in traincase[n]}
+            inner(epoch, traincase)
+
+        tr._refresh_labels = refresh
+        rec["trainer"] = tr
+
+    PL.DEVICE = device
+    result = PL.run_stage("aide", fresh_dir(os.path.join(work, f"aide_{device}")), 2,
+                          prepare=prepare, img_size=64, base_width=4)
+    tr = rec.pop("trainer")
+    return dict(rec, result=result, rows=tr.history, log=tr.refresh_log,
+                labels=[tr.train_pipe.labels.get(n) for n in (1, 2)])
+
+
+def real_ladder_vs_cpu(scratch) -> dict:
+    """Phase 17 (g): the ladder's AIDE rung at 64 px (a fixture tree of that
+    size), base width 4, f32, TF32 off, lr 1e-6, 2 epochs, on the card and
+    on the CPU from the same initial nets and view parameters: the seeded
+    pseudo-labels equal voxel for voxel, the same refresh decisions (both
+    cases a net, ordered by their dice) each with a margin or on equal
+    case dice, the history within 1e-3 and the label-quality track within
+    1e-3."""
+    import numpy as np
+    import torch
+
+    from aide_tpu_torch.data.fixtures import write_reference_chaos
+    from aide_tpu_torch.evaluation.case_eval import dice3d_np
+    from aide_tpu_torch.experiments import chaos_real_ladder as PL
+
+    work = fresh_dir(os.path.join(scratch, "real_small"))
+    tree = write_reference_chaos(os.path.join(work, "reference"), size=64, seed=0)
+    saved = {k: getattr(PL, k) for k in ("REF_ROOT", "REF_SPLIT", "DEVICE", "build_cfg")}
+    base = PL.build_cfg
+
+    def small_cfg(*args, **kw):
+        cfg = base(*args, **kw)
+        cfg.model.compute_dtype = "float32"
+        cfg.mesh.num_devices = 1
+        cfg.optim.lr = 1e-6  # as phase 6 trains
+        return cfg
+
+    PL.REF_ROOT, PL.REF_SPLIT, PL.build_cfg = tree["root"], tree["split"], small_cfg
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = real_ladder_small(PL, "cpu", work, None)
+        gpu = real_ladder_small(PL, "cuda", work, cpu["weights"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        for key, value in saved.items():
+            setattr(PL, key, value)
+    seeded = [bool(np.array_equal(g, c)) for g, c in zip(gpu["seeded"], cpu["seeded"])]
+    label_dice = [dice3d_np(g, c) for g, c in zip(gpu["labels"], cpu["labels"])]
+    worst = worst_difference(gpu["rows"], cpu["rows"])
+    # the order of the two cases decides the logged selection: the CPU's gap
+    # between their dice against the largest card-CPU case-dice difference
+    # (where that is 0 both sort the same dice, ties included)
+    margins = []
+    for key in sorted(cpu["case_dice"]):
+        ranked = sorted(cpu["case_dice"][key].values())
+        margins.append((ranked[1] - ranked[0], max(abs(gpu["case_dice"][key][c] - d)
+                                                   for c, d in cpu["case_dice"][key].items())))
+    gt, ct = gpu["result"]["label_quality_track"], cpu["result"]["label_quality_track"]
+    track = max(abs(a["label_quality"] - b["label_quality"]) for a, b in zip(gt, ct))
+    name = "phase 17 (g) the ladder's AIDE rung at 64 px, card vs CPU"
+    print(f"{name}: seeded labels equal {seeded}, initial quality "
+          f"{gpu['result']['initial_pseudo_quality']} / {cpu['result']['initial_pseudo_quality']}; "
+          f"refresh decisions {gpu['log']} / {cpu['log']}, margins (CPU gap, largest card-CPU "
+          f"case-dice difference) {json.dumps(margins)}; label quality {json.dumps(gt)} / "
+          f"{json.dumps(ct)}; working-label agreement {label_dice}; worst metric difference "
+          f"{worst:.3e}", flush=True)
+    if not all(seeded) or (gpu["result"]["initial_pseudo_quality"]
+                           != cpu["result"]["initial_pseudo_quality"]):
+        fail(f"{name}: seeded labels equal {seeded}")
+    if gpu["log"] != cpu["log"] or not all(gap > diff or diff == 0 for gap, diff in margins):
+        fail(f"{name}: refresh decisions {gpu['log']} vs {cpu['log']}, margins {margins}")
+    if len(gt) != len(ct) or len(gt) != 2 or track > 1e-3 or worst > 1e-3:
+        fail(f"{name}: label quality {gt} vs {ct}, metrics differ by {worst}")
+    return dict(seeded_equal=seeded, margins=margins, label_dice=label_dice,
+                label_quality_difference=track, worst_metric_difference=worst)
+
+
 def run_phases_6_to_11(cuda_warp, scratch, args, chaos, chaos_log):
     """Phases 6-11; returns their runs by path and the kernels line's extra
     entries."""
@@ -3589,7 +3945,7 @@ def main() -> int:
     print(f"phase 14: {time.perf_counter() - t14:.2f} s", flush=True)
     stamp("phase 14")
     space_runs = {f"space_axis_{w}": run for w, run in space_axis.items()}
-    bench, ladder = {}, None
+    bench, ladder, real = {}, None, {}
     if not args.data_axis:
         t15 = time.perf_counter()
         bench = run_bench(root, scratch)
@@ -3600,6 +3956,11 @@ def main() -> int:
         ladder_small = ladder_vs_cpu(scratch)
         print(f"phase 16: {time.perf_counter() - t16:.2f} s", flush=True)
         stamp("phase 16")
+        t17 = time.perf_counter()
+        real = run_real_programs(root, scratch)
+        real_small = real_ladder_vs_cpu(scratch)
+        print(f"phase 17: {time.perf_counter() - t17:.2f} s", flush=True)
+        stamp("phase 17")
 
     by_path = {}
     for path, run in {**runs, "data_axis": data_axis, **net_runs, **space_runs}.items():
@@ -3690,6 +4051,23 @@ def main() -> int:
                                                  "best_testcase_dice")}
                        for stage, r in ladder["runs"].items()},
             "epoch_s": ladder["epoch_s"], "card_vs_cpu": ladder_small}
+    for path, run in real.items():
+        # the AIDE rungs launch at the CHAOS preset's shapes, the supervised runs not at all
+        launched = [r for r in rows if run["warp_launches"] and r["path"] in SAME_SHAPES[path]]
+        by_path[path] = {
+            "launches": run["warp_launches"],
+            "launches_per_step": run["warp_launches"] / run["train_steps"],
+            "kernel_ms_per_step": sum(r["per_step"] * r["ms"] for r in launched),
+            "plain_ms_per_step": sum(r["per_step"] * r["plain_ms"] for r in launched),
+            "bound_ms_per_step": sum(r["per_step"] * r["bound_ms"] for r in launched),
+            "epoch_s": run["epoch_s"],
+        }
+    if real:
+        extra["real_programs"] = {
+            path: {k: run[k] for k in ("command_s", "seconds", "epoch_s", "train_steps",
+                                       "warp_launches", "best_case10_dice")}
+            for path, run in real.items()}
+        extra["real_programs"]["card_vs_cpu"] = real_small
     if kidney_space is not None:
         extra["kidney_space_2"] = {
             "one_card": {k: kidney_space["one"][k] for k in ("metrics", "steady", "peak")},
@@ -3707,6 +4085,9 @@ def main() -> int:
     # the ladder's process: its AIDE stage's launches (its other stages' 0)
     if ladder is not None:
         launches["ladder_aide"] = ladder["runs"]["aide"]["warp_launches"]
+    # the real-data programs' processes: each run's launches (0 in the
+    # supervised ones)
+    launches.update({path: run["warp_launches"] for path, run in real.items()})
     kernels = [{
         "name": "warp_rotate_flip",
         "route": "cuda",

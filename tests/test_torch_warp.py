@@ -309,3 +309,16 @@ def test_cuda_kernel_row_window(cuda_device, size, rows, inverse):
                                rows)
     torch.cuda.synchronize()
     assert torch.equal(got, ref) and torch.equal(got, whole[:, rows[0]:rows[0] + rows[1]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,inverse", [((16, 256, 256, 3), False), ((32, 256, 256, 2), True)])
+def test_cuda_kernel_at_the_real_programs_shapes(cuda_device, shape, inverse):
+    """The AIDE rungs of the real-data CHAOS programs (two-modal FuseUNet,
+    256 px, batch 4, 4 views at +-60 degrees): both modalities' views, then
+    both nets' logits, against the plain version."""
+    rng = np.random.default_rng(shape[0] + shape[3])
+    _cuda_matches_plain(cuda_device, rng.normal(size=shape).astype(np.float32),
+                        rng.uniform(-60, 60, shape[0]).astype(np.float32),
+                        (rng.random(shape[0]) < 0.5).astype(np.float32),
+                        rng.normal(size=(shape[0], shape[3])).astype(np.float32), inverse)
