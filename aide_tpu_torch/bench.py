@@ -58,8 +58,8 @@ from torch.utils.flop_counter import FlopCounterMode
 from aide_tpu_torch.core.config import ModelConfig, TrainConfig
 from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
 from aide_tpu_torch.engine.trainer import Trainer, resolve_device
-from aide_tpu_torch.evaluation.case_eval import evaluate_cases
-from aide_tpu_torch.ops import cuda_warp
+from aide_tpu_torch.evaluation.case_eval import evaluate_cases, infer_cases
+from aide_tpu_torch.ops import cc, cuda_warp
 
 EPOCH_SLICES = 984      # CHAOS proposed train set (the reference's README.md:45)
 BASELINE_EPOCH_S = 420.0
@@ -310,6 +310,25 @@ def _peak_memory(device: torch.device) -> Optional[int]:
     return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
 
 
+def host_cc_times(volumes) -> Dict:
+    """ms a volume of the host's largest-CC on ``volumes``: the native
+    library, which case evaluation runs, and its plain numpy twin, each the
+    median of one call a volume, and whether their outputs are equal."""
+    times = {"native": [], "plain": []}
+    equal = True
+    for vol in volumes:
+        outs = {}
+        for name, fn in (("native", cc.keep_largest_connected_components),
+                         ("plain", cc.keep_largest_connected_components_plain)):
+            t0 = time.perf_counter()
+            outs[name] = fn(vol)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        equal = equal and bool(np.array_equal(outs["native"], outs["plain"]))
+    return {"cc_native_ms_per_volume": float(np.median(times["native"])),
+            "cc_plain_ms_per_volume": float(np.median(times["plain"])),
+            "cc_outputs_equal": equal, "cc_volumes": len(volumes)}
+
+
 def eval_volume_bench(trainer: Trainer, cfg: TrainConfig, args, extras=None) -> int:
     """Per-volume 3D evaluation speed. One "volume eval" = batched slice
     inference through the predict program, the uint8 label fetch to the
@@ -348,6 +367,10 @@ def eval_volume_bench(trainer: Trainer, cfg: TrainConfig, args, extras=None) -> 
         thr.append(time.perf_counter() - t0)
     lat_med = float(np.median(lat))
     amortized = float(np.median(thr)) / len(cases)
+    log("timing the host's largest-CC on the raw predicted volumes...")
+    raw = infer_cases(trainer._predict_batch, trainer.state, pipe, cases, eb, trainer.dual,
+                      keep_largest_cc=False, predict_all=trainer.predict_all)
+    host_cc = host_cc_times([vol for vols in raw for vol in vols.values()])
     print(json.dumps({
         "metric": f"{args.task}_eval_volume_seconds",
         "value": lat_med,
@@ -365,6 +388,7 @@ def eval_volume_bench(trainer: Trainer, cfg: TrainConfig, args, extras=None) -> 
                     "largest-CC + 3D dice/iou/confusion (host)",
         "baseline_note": "reference README.md:46: 'several seconds' per "
                          "volume; vs_baseline uses 3.0 s",
+        **host_cc,
         **(extras or {}),
         "peak_memory_bytes": _peak_memory(trainer.device),
     }), flush=True)

@@ -35,10 +35,18 @@
 //   C. Each thread recomputes its taps, reads them from shared memory at
 //      y2*sy + x1*sx + base (the rot90 and flip folded into per-block
 //      strides) and runs the three lerps in the same order as before.
-// The box of a tile cannot exceed kBoxSide on a side for residual angles
-// |theta| <= 90 degrees (cuda_warp.box_side derives it; the CPU tests check
-// it against every tile's exact box). A larger box traps: there is no path
-// that reads the taps from device memory instead.
+//   C'. A tile whose box passes kBoxSide on a side takes the global-tap
+//      path instead of B and C: each thread reads its taps straight from
+//      device memory (__ldg) at y2*gy + x1*gx + gbase, the image's own
+//      strides, with the same index math and operation order. The box is
+//      reduced block-wide before the test, so the choice is one for the
+//      whole block and no warp diverges.
+// Every tile fits kBoxSide for residual angles |theta| <= 90 degrees, that
+// is |degrees| <= 180 (cuda_warp.box_side derives the bound; the CPU tests
+// check it against every tile's exact box). Past that the residual angle
+// passes 90 degrees and a tile's box can grow to the whole image (near
+// +-270 degrees, where lam_x = -tan(theta/2) passes 1e7): such tiles take
+// C'; cuda_warp.global_tiles counts them.
 //
 // Build with -fmad=false so that d = lam*(j - c) and the lerps round as the
 // plain version's separate multiplies and adds do.
@@ -51,14 +59,21 @@ namespace {
 
 constexpr int kTile = 32;     // output tile side; cuda_warp.TILE
 constexpr int kRows = 8;      // threads along y; each thread does kTile / kRows rows
-constexpr int kBoxSide = 50;  // bound on a tile's source box side; cuda_warp.BOX_SIDE
+constexpr int kBoxSide = 50;  // largest box side the staged path takes; cuda_warp.BOX_SIDE
 
 // Row pitch of the staged box in floats: odd, so that neighbouring box rows
 // start in different banks.
 __host__ __device__ __forceinline__ int box_pitch(int c) { return (kBoxSide * c) | 1; }
 
+// Bound on a shift's integer part. Near +-270 degrees |lam_x*(j - c)|
+// passes 2^31, where a float-to-int conversion saturates and the index
+// sums below would overflow. A shift past kFar puts every tap it moves
+// outside the image, as the plain version's int64 shift does, and the sums
+// of two clamped shifts and a pixel index stay below 2^31.
+constexpr float kFar = 536870912.0f;  // 2^29
+
 struct Split {
-  int k;     // floor(d)
+  int k;     // floor(d), clamped to +-kFar
   float f;   // d - floor(d)
 };
 
@@ -66,7 +81,7 @@ __device__ __forceinline__ Split split(float lam, int j, float cen) {
   const float d = lam * ((float)j - cen);
   const float k = floorf(d);
   Split s;
-  s.k = (int)k;
+  s.k = (int)fminf(fmaxf(k, -kFar), kFar);
   s.f = d - k;
   return s;
 }
@@ -110,6 +125,65 @@ __device__ __forceinline__ void taps(Taps& t, int y, int xo, float lam_x, float 
         t.x1[t3][t2][t1] = x1;
         t.rd[t3][t2][t1] = t.v3[t3] && t.v2[t3][t2] && inside(x1, s);
       }
+    }
+  }
+}
+
+// Phase C for one thread's pixels: the taps of each read from src at
+// y2*sy + x1*sx + base (the staged box in shared memory, or the image in
+// device memory through the read-only cache) and lerped in the plain
+// version's order. Only a read tap's offset is formed: an unread tap's
+// index can lie far outside the image.
+template <bool kStaged>
+__device__ __forceinline__ void gather(const float* __restrict__ src,
+                                       const float* __restrict__ fills,
+                                       float* __restrict__ out, int sy, int sx, int base,
+                                       int ty0, int y_end, int row0, int rows, int x, int xo,
+                                       float lam_x, float lam_y, float cen, int s, int c,
+                                       int n) {
+  for (int i = threadIdx.y; i < kTile; i += kRows) {
+    const int y = ty0 + i;
+    if (y >= y_end || x >= s) break;
+    Taps t;
+    taps(t, y, xo, lam_x, lam_y, cen, s);
+    int off[2][2][2];
+#pragma unroll
+    for (int t3 = 0; t3 < 2; ++t3)
+#pragma unroll
+      for (int t2 = 0; t2 < 2; ++t2)
+#pragma unroll
+        for (int t1 = 0; t1 < 2; ++t1)
+          off[t3][t2][t1] =
+              t.rd[t3][t2][t1] ? t.y2[t3][t2] * sy + t.x1[t3][t2][t1] * sx + base : 0;
+
+    float* dst = out + (((int64_t)n * rows + (y - row0)) * s + x) * c;
+    for (int ch = 0; ch < c; ++ch) {
+      const float fl = fills[ch];
+      float s2v[2];
+#pragma unroll
+      for (int t3 = 0; t3 < 2; ++t3) {
+        if (!t.v3[t3]) {
+          s2v[t3] = fl;
+          continue;
+        }
+        float s1v[2];
+#pragma unroll
+        for (int t2 = 0; t2 < 2; ++t2) {
+          if (!t.v2[t3][t2]) {
+            s1v[t2] = fl;
+            continue;
+          }
+          float ab[2];
+#pragma unroll
+          for (int t1 = 0; t1 < 2; ++t1) {
+            const int o = off[t3][t2][t1] + ch;
+            ab[t1] = !t.rd[t3][t2][t1] ? fl : kStaged ? src[o] : __ldg(src + o);
+          }
+          s1v[t2] = lerp(t.f1[t3][t2], ab[0], ab[1]);
+        }
+        s2v[t3] = lerp(t.f2[t3], s1v[0], s1v[1]);
+      }
+      dst[ch] = lerp(t.s3.f, s2v[0], s2v[1]);
     }
   }
 }
@@ -186,17 +260,24 @@ warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
   if (inverse && flip) {
     cy = -cy; cx = -cx; cb = s - 1 - cb;
   }
-  // so a tap's offset in the box is y2*sy + x1*sx + base
+  // so a tap's offset in the box is y2*sy + x1*sx + base, and in the image
+  // y2*gy + x1*gx + gbase
   const int sy = ry * pitch + cy * c, sx = rx * pitch + cx * c;
-  int base = 0;
-  if (lo_x <= hi_x) {  // else no tap is read: the whole tile lies in the fill
-    const int r0 = rb + min(ry * lo_y, ry * hi_y) + min(rx * lo_x, rx * hi_x);
-    const int r1 = rb + max(ry * lo_y, ry * hi_y) + max(rx * lo_x, rx * hi_x);
-    const int c0 = cb + min(cy * lo_y, cy * hi_y) + min(cx * lo_x, cx * hi_x);
-    const int c1 = cb + max(cy * lo_y, cy * hi_y) + max(cx * lo_x, cx * hi_x);
-    if (r1 - r0 + 1 > kBoxSide || c1 - c0 + 1 > kBoxSide) __trap();
-    base = (rb - r0) * pitch + (cb - c0) * c;
-
+  const int gy = (ry * s + cy) * c, gx = (rx * s + cx) * c, gbase = (rb * s + cb) * c;
+  // the box in v's coordinates: rows [r0, r1], columns [c0, c1]; every
+  // read tap lies in the image, so no side passes s. A tile that reads no
+  // tap lies wholly in the fill: its box is empty and it stages nothing.
+  int r0 = 0, r1 = -1, c0 = 0, c1 = -1;
+  if (lo_x <= hi_x) {
+    r0 = rb + min(ry * lo_y, ry * hi_y) + min(rx * lo_x, rx * hi_x);
+    r1 = rb + max(ry * lo_y, ry * hi_y) + max(rx * lo_x, rx * hi_x);
+    c0 = cb + min(cy * lo_y, cy * hi_y) + min(cx * lo_x, cx * hi_x);
+    c1 = cb + max(cy * lo_y, cy * hi_y) + max(cx * lo_x, cx * hi_x);
+  }
+  // the same values in every thread, so the whole block takes one path
+  const bool staged = r1 - r0 + 1 <= kBoxSide && c1 - c0 + 1 <= kBoxSide;
+  const int base = (rb - r0) * pitch + (cb - c0) * c;
+  if (staged) {
     // B. stage the box: warp w copies box rows w, w + kRows, ..., with
     // cp.async so that all of a thread's copies are in flight at once
     const int row_len = (c1 - c0 + 1) * c;
@@ -215,47 +296,14 @@ warp_rotate_flip_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
   __syncthreads();
 
-  // C. gather the taps from the box and lerp, in the plain version's order
-  for (int i = threadIdx.y; i < kTile; i += kRows) {
-    const int y = ty0 + i;
-    if (y >= y_end || x >= s) break;
-    Taps t;
-    taps(t, y, xo, lam_x, lam_y, cen, s);
-    int off[2][2][2];
-#pragma unroll
-    for (int t3 = 0; t3 < 2; ++t3)
-#pragma unroll
-      for (int t2 = 0; t2 < 2; ++t2) {
-        const int row = t.y2[t3][t2] * sy + base;
-#pragma unroll
-        for (int t1 = 0; t1 < 2; ++t1) off[t3][t2][t1] = row + t.x1[t3][t2][t1] * sx;
-      }
-
-    float* dst = out + (((int64_t)n * rows + (y - row0)) * s + x) * c;
-    for (int ch = 0; ch < c; ++ch) {
-      const float fl = fills[ch];
-      float s2v[2];
-#pragma unroll
-      for (int t3 = 0; t3 < 2; ++t3) {
-        if (!t.v3[t3]) {
-          s2v[t3] = fl;
-          continue;
-        }
-        float s1v[2];
-#pragma unroll
-        for (int t2 = 0; t2 < 2; ++t2) {
-          if (!t.v2[t3][t2]) {
-            s1v[t2] = fl;
-            continue;
-          }
-          const float a = t.rd[t3][t2][0] ? box[off[t3][t2][0] + ch] : fl;
-          const float b = t.rd[t3][t2][1] ? box[off[t3][t2][1] + ch] : fl;
-          s1v[t2] = lerp(t.f1[t3][t2], a, b);
-        }
-        s2v[t3] = lerp(t.f2[t3], s1v[0], s1v[1]);
-      }
-      dst[ch] = lerp(t.s3.f, s2v[0], s2v[1]);
-    }
+  // C. gather the taps from the box (or C'. from device memory) and lerp
+  if (staged) {
+    gather<true>(box, fills, out, sy, sx, base, ty0, y_end, row0, rows, x, xo, lam_x, lam_y,
+                 cen, s, c, n);
+  } else {
+    const float* img = in + (int64_t)n * s * s * c;
+    gather<false>(img, fills, out, gy, gx, gbase, ty0, y_end, row0, rows, x, xo, lam_x, lam_y,
+                  cen, s, c, n);
   }
 }
 

@@ -16,6 +16,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from aide_tpu_torch.core.registry import TASKS
 from aide_tpu_torch.data.io import nifti, png
 from aide_tpu_torch.data.tasks.base import (
     SliceSpec,
@@ -26,6 +27,7 @@ from aide_tpu_torch.data.tasks.base import (
 )
 
 
+@TASKS.register("breast")
 class BreastTask(Task):
     name = "breast"
     two_modal = False

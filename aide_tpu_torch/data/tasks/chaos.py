@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from aide_tpu_torch.core.registry import TASKS
 from aide_tpu_torch.data.io import dicom, png
 from aide_tpu_torch.data.tasks.base import (
     SliceSpec,
@@ -33,6 +34,7 @@ FOREGROUND_VALUE = 63  # liver class intensity in CHAOS ground-truth PNGs
 PALETTE = [0, 63, 126, 189, 252]
 
 
+@TASKS.register("chaos")
 class ChaosTask(Task):
     name = "chaos"
     two_modal = True

@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from aide_tpu_torch.core.registry import TASKS
 from aide_tpu_torch.data.io import nifti
 from aide_tpu_torch.data.tasks.base import SliceSpec, Task, gray_to_rgb, read_csv_rows
 
@@ -31,6 +32,7 @@ def _stem(path: str) -> str:
     return os.path.basename(path).split(".")[0]
 
 
+@TASKS.register("kidney")
 class KidneyTask(Task):
     name = "kidney"
     two_modal = False

@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from aide_tpu_torch.core.registry import TASKS
 from aide_tpu_torch.data.io import nifti, nrrd
 from aide_tpu_torch.data.tasks.base import (
     SliceSpec,
@@ -43,6 +44,7 @@ def write_volume(path: str, volume: np.ndarray) -> None:
         nifti.write_nifti(path, volume)
 
 
+@TASKS.register("prostate")
 class ProstateTask(Task):
     name = "prostate"
     two_modal = False

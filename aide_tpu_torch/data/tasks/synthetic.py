@@ -13,6 +13,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from aide_tpu_torch.core.registry import TASKS
 from aide_tpu_torch.data.io import png
 from aide_tpu_torch.data.tasks.base import SliceSpec, Task, gray_to_rgb
 
@@ -47,6 +48,7 @@ _DOMAIN_SEED_MULT = {"a": 1, "b": 2, "m": 3}
 assert set(_DOMAIN_SEED_MULT) == set(_DOMAINS)
 
 
+@TASKS.register("synthetic")
 class SyntheticTask(Task):
     name = "synthetic"
     two_modal = False

@@ -19,8 +19,10 @@ The ``_full`` files (and the trainer's ``_last_full`` one) hold
 ``state_tree``: ``{"step", "params", "batch_stats", "opt_state"}`` as
 ``flax.serialization.to_bytes`` writes the JAX package's ``state_tree``:
 the parameters and BN statistics under the Flax names with the Flax layouts
-(``interop.weights``), both nets stacked on a leading axis of 2 for the
-pair, and ``opt_state`` the optax chain of ``ops.schedules.make_optimizer``:
+(``interop.weights``; a network registered outside the zoo, which has no
+Flax counterpart, keeps its state-dict names and layouts), both nets
+stacked on a leading axis of 2 for the pair, and ``opt_state`` the optax
+chain of ``ops.schedules.make_optimizer``:
 
 * ``amsgrad_adam``: ``{"0": {count, mu, nu, nu_max}, "1": {count}}``;
 * ``adam``: ``{"0": {count, mu, nu}, "1": {count}}``;
@@ -93,7 +95,7 @@ def _local_snapshot(state: TrainState, take) -> Dict[str, Any]:
             for net in state.nets
         ],
         "count": int(opt.count),
-        "arch": dict(state.nets[0].arch),
+        "arch": dict(getattr(state.nets[0], "arch", {})),
         "chain": chain_of(opt),
     }
 
@@ -187,17 +189,27 @@ def _tree(snap: Dict[str, Any], host, stack) -> Dict[str, Any]:
     """``state_tree`` of a snapshot, each tensor taken to the host by
     ``host`` and the pair's leaves joined by ``stack``."""
     arch = snap["arch"]
-    table = weights.name_map(**arch)
-    per_net = [weights.state_dict_to_variables({k: host(v) for k, v in sd.items()}, **arch)
-               for sd in snap["nets"]]
-    moments = {
-        m: _stack([
-            weights.state_dict_to_tables(
-                {k: host(v[m]) for k, v in named.items()}, table, stats=False)["params"]
-            for named in snap["moments"]
-        ], stack)
-        for m in snap["chain"][1]
-    }
+    if arch:
+        table = weights.name_map(**arch)
+        per_net = [weights.state_dict_to_variables({k: host(v) for k, v in sd.items()}, **arch)
+                   for sd in snap["nets"]]
+        moments = {
+            m: _stack([
+                weights.state_dict_to_tables(
+                    {k: host(v[m]) for k, v in named.items()}, table, stats=False)["params"]
+                for named in snap["moments"]
+            ], stack)
+            for m in snap["chain"][1]
+        }
+    else:
+        # a registered network outside the zoo has no Flax layout: its
+        # parameters and buffers by their state-dict names
+        per_net = [{"params": {k: host(v) for k, v in sd.items() if k in named},
+                    "batch_stats": {k: host(v) for k, v in sd.items() if k not in named}}
+                   for sd, named in zip(snap["nets"], snap["moments"])]
+        moments = {m: _stack([{k: host(v[m]) for k, v in named.items()}
+                              for named in snap["moments"]], stack)
+                   for m in snap["chain"][1]}
     return _sorted({
         "step": np.asarray(snap["count"], np.int32),
         "params": _stack([v["params"] for v in per_net], stack),
@@ -250,7 +262,8 @@ def restore_state_tree(state: TrainState, tree: Dict[str, Any], what: str = "the
     mismatch raises naming the differing leaves."""
     opt = state.optimizer
     chain = chain_of(opt)
-    _mismatch(f"{what} does not fit this train state (model {state.nets[0].arch['model_name']!r}, "
+    model = getattr(state.nets[0], "arch", {}).get("model_name", type(state.nets[0]).__name__)
+    _mismatch(f"{what} does not fit this train state (model {model!r}, "
               f"optimizer {chain[0]!r} behind {chain[2]} transforms)",
               _leaf_specs(_spec_tree(state)), _leaf_specs(tree))
     count = int(tree["step"])
@@ -265,12 +278,20 @@ def restore_state_tree(state: TrainState, tree: Dict[str, Any], what: str = "the
     for pick, net in zip(picks, state.nets):
         variables = {"params": _unstack(tree["params"], pick),
                      "batch_stats": _unstack(tree["batch_stats"], pick)}
-        sd = weights.variables_to_state_dict(variables, **net.arch)
+        arch = getattr(net, "arch", None)
+        if arch:
+            sd = weights.variables_to_state_dict(variables, **arch)
+        else:  # the tree's own (read-only) arrays, copied
+            sd = {k: np.array(v) for k, v in {**variables["params"],
+                                              **variables["batch_stats"]}.items()}
         net.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
-        table = weights.name_map(**net.arch)
         for m in opt.MOMENTS:
-            named = weights.tables_to_state_dict(
-                {"params": _unstack(core["0"][m], pick)}, table, stats=False)
+            if arch:
+                named = weights.tables_to_state_dict(
+                    {"params": _unstack(core["0"][m], pick)}, weights.name_map(**arch),
+                    stats=False)
+            else:
+                named = {k: np.array(v) for k, v in _unstack(core["0"][m], pick).items()}
             for name, p in net.named_parameters():
                 opt.state[p][m].copy_(torch.from_numpy(named[name]))
     opt.count = count

@@ -201,10 +201,6 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, task=None, device=None, logger=None):
         self.world = check_mesh(cfg)
         self.device = resolve_device(device)
-        if cfg.checkpoint_flush not in ("best", "end"):
-            raise NotImplementedError(
-                f"checkpoint_flush must be 'best' or 'end', got {cfg.checkpoint_flush!r}"
-            )
         self.cfg = cfg
         self.dual = cfg.data.variant == "proposed" and cfg.coteach.enabled
         self.logger = logger or setup_logging(
@@ -310,7 +306,8 @@ class Trainer:
         )
 
         self.best_dice = 0.0
-        # checkpoint_flush == 'end': the best epoch's state (nets and
+        # checkpoint_flush other than 'best' (the JAX trainer reads every
+        # other value as 'end'): the best epoch's state (nets and
         # optimizer), cloned on the device, and its (meta, full_meta);
         # flush_checkpoints writes them
         self._best_snapshot: Optional[Dict] = None
@@ -842,7 +839,7 @@ class Trainer:
         # refresh and history row come after this save); _last_full is the
         # exact continuation
         full_meta = dict(meta, **self._bookkeeping_meta(epoch))
-        snap = self._file_snapshot(clone=cfg.checkpoint_flush == "end")
+        snap = self._file_snapshot(clone=cfg.checkpoint_flush != "best")
         if snap is None:
             # the primary rank writes the files; the others keep no snapshot
             return True
@@ -872,8 +869,9 @@ class Trainer:
         return snap if mesh.is_primary() else None
 
     def flush_checkpoints(self) -> None:
-        """Write the best epoch's snapshot (checkpoint_flush == 'end'); a
-        no-op when the files were written at once or no epoch was best."""
+        """Write the best epoch's snapshot (any checkpoint_flush but
+        'best'); a no-op when the files were written at once or no epoch
+        was best."""
         if self._best_snapshot is None:
             return
         ckpt.save_best(

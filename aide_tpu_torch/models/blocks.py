@@ -46,6 +46,20 @@ POOLS = 4
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
+def net_options(model_cfg) -> dict:
+    """The ModelConfig keys that every network of the zoo takes."""
+    return dict(
+        num_classes=model_cfg.num_classes,
+        compute_dtype=model_cfg.compute_dtype,
+        learned_bilinear=model_cfg.learned_bilinear,
+        attention_reduction=model_cfg.attention_reduction,
+        attention_dilation=model_cfg.attention_dilation,
+        norm=model_cfg.norm,
+        group_norm_groups=model_cfg.group_norm_groups,
+        remat=model_cfg.remat,
+    )
+
+
 def resolve_dtype(name: str) -> torch.dtype:
     """A ModelConfig.compute_dtype name as a torch dtype."""
     if name not in _DTYPES:

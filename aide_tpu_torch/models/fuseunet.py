@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from aide_tpu_torch.core.registry import MODELS
 from aide_tpu_torch.models.blocks import (
     POOLS,
     DownBlock,
@@ -28,6 +29,7 @@ from aide_tpu_torch.models.blocks import (
     UpBlock,
     autocast,
     max_pool_2x2,
+    net_options,
     resolve_dtype,
     run_block,
 )
@@ -105,3 +107,15 @@ class FuseUNet(nn.Module):
                                 fused[level], out, update_stats)
             logits = self.last_conv1(out)
         return logits.to(torch.float32).permute(0, 2, 3, 1)
+
+
+def _register() -> None:
+    for variant, name in VARIANTS.items():
+
+        @MODELS.register(name)
+        def factory(model_cfg, _variant=variant):
+            return FuseUNet(base_width=model_cfg.base_width or 32, variant=_variant,
+                            **net_options(model_cfg))
+
+
+_register()

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from aide_tpu_torch.core.registry import MODELS
 from aide_tpu_torch.models.blocks import (
     POOLS,
     DownBlock,
@@ -23,9 +24,14 @@ from aide_tpu_torch.models.blocks import (
     UpBlock,
     autocast,
     max_pool_2x2,
+    net_options,
     resolve_dtype,
     run_block,
 )
+
+# the UNet family by registry name, with its default base widths
+# (ModelConfig.base_width overrides them)
+UNET_WIDTHS = {"unet": 64, "unetsa": 64, **{f"unet{w}": w for w in (2, 4, 8, 16, 32, 128)}}
 
 
 class UNet(nn.Module):
@@ -80,3 +86,15 @@ class UNet(nn.Module):
                               skips[level], x, update_stats)
             logits = self.last_conv1(x)
         return logits.to(torch.float32).permute(0, 2, 3, 1)
+
+
+def _register() -> None:
+    for name, width in UNET_WIDTHS.items():
+
+        @MODELS.register(name)
+        def factory(model_cfg, _width=width, _sa=name == "unetsa"):
+            return UNet(base_width=model_cfg.base_width or _width, spatial_attention=_sa,
+                        **net_options(model_cfg))
+
+
+_register()

@@ -25,12 +25,18 @@ each output pixel in its own thread from 8 taps read straight from device
 memory; a warp's taps lie along the rotated direction of the source (down
 a source column when the rot90 is folded in), so its loads were scattered.
 The kernel now takes one block per 32 x 32 output tile: it reduces the
-exact box of source pixels that the tile's taps read (at most BOX_SIDE on a
-side, about 2.2x the tile at 45 degrees), copies that box into shared
-memory with cp.async (a box row is one contiguous run of the NHWC source
-whatever the rot90 and flip are, so the copy is coalesced), then gathers
-the taps from shared memory. A warp is one output row, so its stores are
-one contiguous run. Its time goes to the per-pixel index math, twice
+exact box of source pixels that the tile's taps read, and where that box
+is at most BOX_SIDE on a side (every tile at |degrees| <= 180; about 2.2x
+the tile's area at 45 degrees) it copies the box into shared memory with
+cp.async (a box row is one contiguous run of the NHWC source whatever the
+rot90 and flip are, so the copy is coalesced), then gathers the taps from
+shared memory. Past 180 degrees the residual angle passes 90 and a tile's
+box can grow to the whole image (about 243 px of 256 at 269.5 degrees,
+which no block's shared memory holds): such a tile takes the global-tap
+path, each thread reading its taps from device memory with the same index
+math, the first kernel's design (``global_tiles`` counts these tiles). A
+block takes one path as a whole. A warp is one output row, so its stores
+are one contiguous run. Its time goes to the per-pixel index math, twice
 (footprint and gather), and to the gather's shared-memory loads, whose
 addresses follow a rotated line of the box and so meet in the same banks;
 PERF.md has the measurements.
@@ -85,9 +91,10 @@ NVCC_FLAGS = (
     "-fmad=false",
 )
 
-# Output tile side of the kernel and the bound on the side of a tile's source
-# box (kTile and kBoxSide in the source; the tests read both there, and the
-# loaded library's shared-memory size is checked against smem_bytes).
+# Output tile side of the kernel and the largest side of a tile's source box
+# that the kernel stages in shared memory (kTile and kBoxSide in the source;
+# the tests read both there, and the loaded library's shared-memory size is
+# checked against smem_bytes). A larger box takes the global-tap path.
 TILE = 32
 # Dynamic shared memory a block may have on an H100 (227 KB).
 SMEM_LIMIT = 232448
@@ -98,7 +105,9 @@ MAX_IMAGES = 65535
 def box_side(tile: int = TILE) -> int:
     """Bound on the side, in source pixels, of the box that the read taps of
     a tile x tile output tile span, for residual angles |theta| <= 90 degrees
-    (|degrees| <= 180 before the rot90).
+    (|degrees| <= 180 before the rot90): the staged path's box (BOX_SIDE).
+    Past that the box is unbounded up to the image, and a tile whose box
+    passes BOX_SIDE takes the kernel's global-tap path.
 
     With u, v the output column and row less the centre, the three shears
     give the source column X1 = cos*u - sin*v + cos*e3 + lam_x*e2 + e1 and
@@ -272,8 +281,8 @@ def source_boxes(table: torch.Tensor, s: int, inverse: bool, tile: int = TILE,
     kernel reads: (N, T_r, T, 4) int64 [r0, r1, c0, c1] with T = ceil(S/tile)
     and T_r = ceil(R/tile) tile rows of the output window ``rows`` = (row0,
     R) (None: all S), r0 > r1 where the tile reads no tap (it lies wholly
-    in the fill). The same index math as warp_plain; the tests hold each
-    box to BOX_SIDE."""
+    in the fill). The same index math as warp_plain; a tile whose box
+    passes BOX_SIDE on a side takes the kernel's global-tap path."""
     n = table.shape[0]
     nr = _window(s, rows)[1]
     t, t_r = -(-s // tile), -(-nr // tile)
@@ -300,6 +309,17 @@ def source_boxes(table: torch.Tensor, s: int, inverse: bool, tile: int = TILE,
         per_tile(lo_r, big, torch.amin), per_tile(hi_r, -big, torch.amax),
         per_tile(lo_c, big, torch.amin), per_tile(hi_c, -big, torch.amax),
     ], dim=-1)
+
+
+def global_tiles(boxes: torch.Tensor) -> int:
+    """Tiles of a launch that take the kernel's global-tap path, from the
+    launch's ``source_boxes``: those whose box passes BOX_SIDE on a side. A
+    tile that reads no tap stages nothing and counts as staged. Plain
+    PyTorch; the kernel itself counts nothing."""
+    read = boxes[..., 0] <= boxes[..., 1]
+    big = ((boxes[..., 1] - boxes[..., 0] + 1 > BOX_SIDE)
+           | (boxes[..., 3] - boxes[..., 2] + 1 > BOX_SIDE))
+    return int((read & big).sum())
 
 
 # ----------------------------- the kernel -----------------------------
@@ -379,6 +399,8 @@ def launch(
         )
     if n > MAX_IMAGES:
         raise ValueError(f"warp kernel takes at most {MAX_IMAGES} images a launch, got {n}")
+    if s * s * c >= 1 << 31:
+        raise ValueError(f"warp kernel indexes an image in 32 bits, got {s}x{s}x{c}")
     for name, t, shape in (
         ("images", images, (n, s, s, c)),
         ("table", table, (n, 4)),
@@ -421,10 +443,8 @@ def warp_rotate_flip(
     images (B, H, W, C) with H == W, any float dtype (computed in f32 and
     cast back); degrees/hflip (B,); fill scalar | (C,) | (B, C); ``rows``
     = (row0, R) returns output rows [row0, row0 + R) alone, (B, R, W, C)
-    (None: all of them). A CUDA
-    tensor goes to the kernel, which takes |degrees| <= 180 (a larger
-    angle can need a source box over BOX_SIDE, and the kernel traps); a
-    CPU tensor goes to the plain version."""
+    (None: all of them). A CUDA tensor goes to the kernel, at any angle;
+    a CPU tensor goes to the plain version."""
     b, h, w, c = images.shape
     if h != w:
         raise ValueError(f"warp_rotate_flip needs a square image, got H={h}, W={w}")

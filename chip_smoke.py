@@ -7,14 +7,23 @@ Phases:
   3. hold the kernel against its plain PyTorch version on the card
      (33/64/100/256/512 px, C in {2, 3}, both directions, degrees over ±135
      plus the ±45, ±135 and ±180 boundaries, both flips, (B, C) fills, and
-     single images): max abs <= 1e-5;
+     single images): max abs <= 1e-5; then past ±180 degrees (±180, ±200,
+     ±217.5, ±230, ±250, ±265, ±269.5, ±269.99, ±270, ±300, ±360, ±540,
+     ±720 at the same sizes, both flips, both directions, and two
+     output-row windows at 256 px): exact (max abs 0), each launch's tiles
+     on the global-tap path printed (source_boxes in plain PyTorch), and at
+     least one launch with tiles on both paths;
   4. time the kernel at the co-teaching paths' shapes (CHAOS: forward
      (32, 256, 256, 3), inverse (64, 256, 256, 2); kidney: forward
      (16, 512, 512, 3), inverse (32, 512, 512, 2)) with a cold L2 (a 64 MB
      buffer written between runs, outside the events) and a warm one, and
      the plain version (CUDA events, medians) beside the bytes-over-bandwidth
-     bound; with --baseline FILE.cu (repeatable), other builds of the
-     kernel's entry point are timed the same way, in turns with this one;
+     bound; the CHAOS step's two shapes again with degrees drawn
+     seeded-uniform in ±360 and all at 265 (every image with tiles on the
+     global-tap path), exact against the plain version, their global tiles
+     printed; with --baseline FILE.cu (repeatable), other builds of the
+     kernel's entry point are timed the same way at the ±60 degree rows,
+     in turns with this one;
   5. the CHAOS path: Trainer.run(2) at the CHAOS point at full width
      (two-modal FuseUNet, base width 32, 256 px, batch 8, 4 TTA views, bf16
      autocast), cut in depth to 4 train cases x 16 slices (8 steps an
@@ -198,7 +207,10 @@ Phases:
      33), a warm-up epoch, 16 bare steps and the timed full epoch; (b) the
      same point's per-volume eval (--eval-volume); (c) the kidney point
      (UNet-64, 512 px, batch 8) with --steps-only; (d) the CHAOS point's
-     supervised comparison with --steps-only. Each JSON line must parse,
+     supervised comparison with --steps-only. (b) also times the host's
+     largest-CC a volume on its raw predicted volumes (33 x 256 x 256),
+     the native library against its plain twin, whose outputs must be
+     equal. Each JSON line must parse,
      its value be finite and above 0 with vs_baseline = baseline / value
      within 2%, the card's name and power limit beside it; warp launches a
      step 3 at (a), 2 at (c), 0 at (d); MFU in (0, 1) against 989.5 TFLOP/s
@@ -244,6 +256,13 @@ Phases:
      the CPU from the same nets and view parameters: the seeded labels
      equal voxel for voxel, the same refresh decisions each with a margin
      (or on equal case dice), history and label quality within 1e-3.
+ 18. full-circle rotation: phase 5's CHAOS point with data.rotation_degree
+     = 360 (TTA views in ±360 degrees, the setting for images without a
+     canonical orientation), Trainer.run(2) on the card: a finite history,
+     3 launches a train step and none elsewhere, 2 refresh decisions an
+     epoch read back as in phase 5, the best exports, the launches whose
+     tiles took the global-tap path counted (at least one), and a CUDA
+     operation after the run.
 Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's,
 phase 10's, phase 12's, phase 13's, phase 14's (with their output-row
 windows), phase 15 (c)'s and phase 16's launch shapes (phase 17 launches
@@ -254,10 +273,10 @@ Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 Run from the repository root:
   python3 chip_smoke.py [--profile] [--baseline FILE.cu] [--data-axis]
 (--data-axis runs phases 1-5 and 12-14 alone, for a machine with several
-cards, and skips phases 15-17; --profile adds, after phases 5, 7 and 12-14 and in phase 9 (a) and (b), a
+cards, and skips phases 15-18; --profile adds, after phases 5, 7 and 12-14 and in phase 9 (a) and (b), a
 torch.profiler breakdown of a few more co-teaching steps of each; --baseline times another version of csrc/warp_rotate_flip.cu, for
-instance an earlier commit's, beside this one in phase 4; it may be given
-more than once).
+instance an earlier commit's, beside this one in phase 4, at the rows of
+±60 degrees; it may be given more than once).
 It exits non-zero, printing no result, without a CUDA device, or when any
 check fails.
 """
@@ -335,6 +354,21 @@ KERNEL_LAUNCHES = (
     # then both nets' logits
     ("ladder_aide", (32, 128, 128, 3), False, 2),
     ("ladder_aide", (64, 128, 128, 2), True, 1),
+)
+# degrees past ±180 that phase 3 holds the kernel to its plain version at:
+# the global-tap path from ±217.5 at 256 px, a tile's box the whole image
+# near ±270, every box within BOX_SIDE again from ±300
+WIDE_DEGREES = (180.0, 200.0, 217.5, 230.0, 250.0, 265.0, 269.5, 269.99, 270.0, 300.0, 360.0,
+                540.0, 720.0)
+# phase 4's launches at the CHAOS step's shapes past ±180 degrees: (path,
+# shape, inverse, launches a step, degrees): drawn seeded-uniform in ±360
+# (phase 18's setting), and all at 265, where every image has tiles on the
+# global-tap path
+ANGLE_LAUNCHES = (
+    ("chaos_rot360", (32, 256, 256, 3), False, 2, "uniform360"),
+    ("chaos_rot360", (64, 256, 256, 2), True, 1, "uniform360"),
+    ("chaos_rot265", (32, 256, 256, 3), False, 2, "all265"),
+    ("chaos_rot265", (64, 256, 256, 2), True, 1, "all265"),
 )
 # phase 14's per-rank launches, each writing 1/k of the output rows from the
 # whole source (k = the space axis; rank 0's window, rows [0, 256/k), is
@@ -474,7 +508,46 @@ def check_kernel(cuda_warp, device):
     # window exactly, and to the whole launch's rows
     for shape, inverse, k in sorted({(sh, inv, k) for _, sh, inv, _, k in WINDOW_LAUNCHES}):
         worst = max(worst, window_vs_plain(cuda_warp, shape, inverse, k, device))
-    return worst
+    return max(worst, check_wide_angles(cuda_warp, device))
+
+
+def check_wide_angles(cuda_warp, device) -> float:
+    """Phase 3 past ±180 degrees: the kernel exact (max abs 0) against its
+    plain version at ±WIDE_DEGREES, both flips, in both directions, at
+    33-512 px and C in {2, 3}, and in two output-row windows at 256 px;
+    each launch's tiles on the global-tap path printed. Fails unless some
+    launch ran tiles on both paths. Returns 0.0."""
+    import torch
+
+    degs = [d for a in WIDE_DEGREES for d in (a, -a)]
+    degrees, hflip = degs * 2, [0.0] * len(degs) + [1.0] * len(degs)
+    mixed = 0
+    for s in (33, 64, 100, 256, 512):
+        for c in (2, 3):
+            for inverse in (False, True):
+                for rows in [None] + ([(0, 128), (96, 64)] if (s, c) == (256, 3) else []):
+                    images, degrees_t, hflip_t, fill = warp_inputs(degrees, hflip, s, c,
+                                                                   seed=3 * s + c, device=device)
+                    table = cuda_warp.coef_table(degrees_t, hflip_t, inverse)
+                    fills = cuda_warp.fill_table(fill, len(degrees), c, device)
+                    got = cuda_warp.warp_rotate_flip(images, degrees_t, hflip_t, fill,
+                                                     inverse=inverse, rows=rows)
+                    ref = cuda_warp.warp_plain(images, table, fills, inverse, rows)
+                    torch.cuda.synchronize()
+                    err = float((got - ref).abs().max())
+                    boxes = cuda_warp.source_boxes(table, s, inverse, rows=rows)
+                    n_global, n_tiles = cuda_warp.global_tiles(boxes), boxes[..., 0].numel()
+                    mixed += 0 < n_global < n_tiles
+                    print(f"kernel vs plain past 180 degrees N={len(degrees)} {s:3d}px C={c} "
+                          f"{'inverse' if inverse else 'forward'}"
+                          f"{f' rows {list(rows)}' if rows else ''}: max abs {err:.3e}, "
+                          f"{n_global} of {n_tiles} tiles on the global-tap path", flush=True)
+                    if not bool(torch.isfinite(got).all()) or err != 0.0:
+                        fail(f"kernel disagrees with its plain version past 180 degrees at "
+                             f"{s}px C={c} inverse={inverse} rows {rows}: max abs {err}")
+    if not mixed:
+        fail("no launch past 180 degrees ran tiles on both of the kernel's paths")
+    return 0.0
 
 
 def window_vs_plain(cuda_warp, shape, inverse, k, device, seed=0) -> float:
@@ -521,9 +594,23 @@ def raw_launch(lib, images, table, fills, inverse, out, rows=None):
         fail(f"baseline kernel launch failed: CUDA error {err}")
 
 
+def launch_degrees(angles: str, n: int) -> list:
+    """A timed launch's n degrees: "60" the main path's ±60 spread evenly,
+    "all265" n times 265, "uniform360" drawn seeded-uniform in ±360."""
+    import torch
+
+    if angles == "60":
+        return [60.0 * (2.0 * i / (n - 1) - 1.0) for i in range(n)]
+    if angles == "all265":
+        return [265.0] * n
+    g = torch.Generator(device="cpu").manual_seed(n)
+    return (torch.rand(n, generator=g, dtype=torch.float64) * 720.0 - 360.0).tolist()
+
+
 def time_kernel(cuda_warp, device, baselines=()):
     """Phase 4: kernel and plain-version times at the co-teaching paths'
-    shapes (KERNEL_LAUNCHES), cold (L2 flushed before each run) and warm.
+    shapes (KERNEL_LAUNCHES, WINDOW_LAUNCHES at ±60 degrees, and
+    ANGLE_LAUNCHES past ±180), cold (L2 flushed before each run) and warm.
     Baseline libraries, given as (name, ctypes library) pairs, are timed in
     turns with the kernel: b1, b2, ..., kernel, kernel, ..., b2, b1."""
     import torch
@@ -534,10 +621,16 @@ def time_kernel(cuda_warp, device, baselines=()):
         scratch.fill_(1.0)
 
     rows = []
-    for path, shape, inverse, per_step, *k in KERNEL_LAUNCHES + WINDOW_LAUNCHES:
+    launches = ([(path, shape, inverse, per_step, None, "60")
+                 for path, shape, inverse, per_step in KERNEL_LAUNCHES]
+                + [(path, shape, inverse, per_step, k, "60")
+                   for path, shape, inverse, per_step, k in WINDOW_LAUNCHES]
+                + [(path, shape, inverse, per_step, None, angles)
+                   for path, shape, inverse, per_step, angles in ANGLE_LAUNCHES])
+    for path, shape, inverse, per_step, k, angles in launches:
         n, s, _, c = shape
-        window = (0, s // k[0]) if k else None
-        degrees = [60.0 * (2.0 * i / (n - 1) - 1.0) for i in range(n)]  # the main path's ±60
+        window = (0, s // k) if k else None
+        degrees = launch_degrees(angles, n)
         images, degrees, hflip, fill = warp_inputs(degrees, [i % 2 for i in range(n)], s, c,
                                                    seed=7, device=device)
         table = cuda_warp.coef_table(degrees, hflip, inverse)
@@ -545,11 +638,13 @@ def time_kernel(cuda_warp, device, baselines=()):
         got = cuda_warp.launch(images, table, fills, inverse, window)
         ref = cuda_warp.warp_plain(images, table, fills, inverse, window)
         err = float((got - ref).abs().max())
-        if err > (0.0 if window else 1e-5):
+        if err > (1e-5 if window is None and angles == "60" else 0.0):
             fail(f"kernel disagrees at the main path shape {shape} rows {window}: {err}")
+        n_global = cuda_warp.global_tiles(cuda_warp.source_boxes(table, s, inverse, rows=window))
         versions = {"kernel": lambda: cuda_warp.launch(images, table, fills, inverse, window)}
         out = torch.empty((n, window[1] if window else s, s, c), device=device)
-        for name, lib in baselines:
+        # an older build may trap past ±180 degrees: baselines run at ±60 only
+        for name, lib in baselines if angles == "60" else ():
             versions[name] = (lambda lib=lib: raw_launch(lib, images, table, fills, inverse, out,
                                                          window))
             versions[name]()
@@ -557,7 +652,7 @@ def time_kernel(cuda_warp, device, baselines=()):
             base_err = float((out - ref).abs().max())
             if base_err > 1e-5:
                 fail(f"baseline {name} disagrees at the main path shape {shape}: {base_err}")
-        names = [name for name, _ in baselines]
+        names = [name for name in versions if name != "kernel"]
         order = names + ["kernel", "kernel"] + names[::-1]
         cold = {k: [] for k in versions}
         warm = {k: [] for k in versions}
@@ -574,14 +669,17 @@ def time_kernel(cuda_warp, device, baselines=()):
                   else cuda_warp.bytes_moved(shape))
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         label = ("inverse" if inverse else "forward") + (f" rows {list(window)}" if window else "")
+        if angles != "60":
+            label += f" at degrees {angles}"
         print(f"timing {label} {shape}: kernel cold {k_ms:.4f} ms, warm {k_warm:.4f} ms, "
               f"wrapper cold {w_ms:.4f} ms, plain {p_ms:.4f} ms, bytes {nbytes}, "
               f"bound {bound_ms * 1e3:.2f} us ({bound_ms / k_ms:.1%} of the bound cold, "
-              f"{bound_ms / k_warm:.1%} warm)", flush=True)
+              f"{bound_ms / k_warm:.1%} warm), {n_global} tiles on the global-tap path",
+              flush=True)
         row = dict(path=path, shape=shape, inverse=inverse, rows=window, per_step=per_step, ms=k_ms,
                    ms_warm=k_warm, wrapper_ms=w_ms, plain_ms=p_ms, bytes=nbytes,
-                   bound_ms=bound_ms, max_abs_err=err)
-        if baselines:
+                   bound_ms=bound_ms, max_abs_err=err, degrees=angles, global_tiles=n_global)
+        if names:
             row["baselines"] = {
                 name: {"ms": statistics.mean(cold[name]), "ms_warm": statistics.mean(warm[name])}
                 for name in names}
@@ -3158,6 +3256,13 @@ def check_bench_row(sub, argv, row, per_step, device_name) -> None:
         fail(f"phase 15 ({sub}): device {row['device_name']!r}, power limit "
              f"{row['power_limit_w']!r} (this card: {device_name!r})")
     if per_step is None:
+        print(f"phase 15 ({sub}): host largest-CC on {row['cc_volumes']} raw predicted volumes "
+              f"of {row['slices_per_volume']} x {row['img_size']} x {row['img_size']}: native "
+              f"{row['cc_native_ms_per_volume']:.3f} ms a volume, plain "
+              f"{row['cc_plain_ms_per_volume']:.3f} ms, outputs equal: "
+              f"{row['cc_outputs_equal']}", flush=True)
+        if row["cc_outputs_equal"] is not True:
+            fail(f"phase 15 ({sub}): the native largest-CC differs from its plain twin")
         return
     if row["warp_launches_timed"] != per_step * row["bare_steps"]:
         fail(f"phase 15 ({sub}): {row['warp_launches_timed']} warp launches in "
@@ -3810,6 +3915,59 @@ def real_ladder_vs_cpu(scratch) -> dict:
                 label_quality_difference=track, worst_metric_difference=worst)
 
 
+# ------------------------------- phase 18 -------------------------------
+
+
+def run_full_circle(cuda_warp, scratch):
+    """Phase 18: phase 5's CHAOS point with data.rotation_degree = 360,
+    Trainer.run(2) with case evaluation, the checkpoint gate and refresh;
+    every launch's angles kept, and the tiles that took the kernel's
+    global-tap path counted after the run."""
+    import torch
+
+    from aide_tpu_torch.engine.trainer import Trainer
+
+    cfg = chaos_config()
+    cfg.data.rotation_degree = 360.0
+    work = os.path.join(scratch, "rot360")
+    cfg.checkpoint_dir = fresh_dir(os.path.join(work, "ckpt"))
+    cfg.history_dir = fresh_dir(os.path.join(work, "hist"))
+    cfg.data.tempmask_folder = "tempmasks"
+    task = chaos_task(fresh_dir(os.path.join(work, "chaos")))
+    release_device_memory()
+    trainer = Trainer(cfg, task)
+    trainer.label_cases = set(task.clean_case_ids())
+    inner, seen = cuda_warp.launch, []
+
+    def recording(images, table, fill, inverse, rows=None):
+        seen.append((table.clone(), images.shape[1], inverse, rows))
+        return inner(images, table, fill, inverse, rows)
+
+    cuda_warp.launch = recording
+    try:
+        run = drive(trainer, cuda_warp)
+    finally:
+        cuda_warp.launch = inner
+    print_run("chaos_rot360", run)
+    if len(trainer.refresh_log) != 2 * 2:
+        fail(f"phase 18: expected 2 refresh decisions an epoch, got {trainer.refresh_log}")
+    check_refresh(trainer)
+    check_best_exports(trainer, run["best_epochs"])
+    check_launches("chaos_rot360", run, 3)
+    tiles = [cuda_warp.global_tiles(cuda_warp.source_boxes(table, s, inverse, rows=rows))
+             for table, s, inverse, rows in seen]
+    print(f"chaos_rot360: {len(seen)} launches, {sum(1 for n in tiles if n)} of them with tiles "
+          f"on the global-tap path, {sum(tiles)} such tiles in all", flush=True)
+    if len(seen) != run["launches"] or not any(tiles):
+        fail(f"phase 18: {len(seen)} launches seen of {run['launches']}, global tiles {tiles}")
+    ok = torch.ones(4, device="cuda").add_(1.0).sum().item()
+    torch.cuda.synchronize()
+    if ok != 8.0:
+        fail(f"phase 18: a CUDA operation after the run gave {ok}")
+    del trainer
+    return dict(run, global_tiles=sum(tiles), launches_with_global_tiles=sum(1 for n in tiles if n))
+
+
 def run_phases_6_to_11(cuda_warp, scratch, args, chaos, chaos_log):
     """Phases 6-11; returns their runs by path and the kernels line's extra
     entries."""
@@ -3961,6 +4119,10 @@ def main() -> int:
         real_small = real_ladder_vs_cpu(scratch)
         print(f"phase 17: {time.perf_counter() - t17:.2f} s", flush=True)
         stamp("phase 17")
+        t18 = time.perf_counter()
+        runs["chaos_rot360"] = run_full_circle(cuda_warp, scratch)
+        print(f"phase 18: {time.perf_counter() - t18:.2f} s", flush=True)
+        stamp("phase 18")
 
     by_path = {}
     for path, run in {**runs, "data_axis": data_axis, **net_runs, **space_runs}.items():
@@ -3976,6 +4138,8 @@ def main() -> int:
             "first_step_ms": run["step_ms"][0],
             "max_memory_allocated": run["peak"],
             **({"decode_s": run["decode_s"]} if "decode_s" in run else {}),
+            **({k: run[k] for k in ("global_tiles", "launches_with_global_tiles")}
+               if "global_tiles" in run else {}),
         }
     ranks = data_axis["ranks"]
     by_path["data_axis"].update({

@@ -200,6 +200,10 @@ def test_eval_volume_schema(points, workdir, capsys):
     assert row["volumes_timed"] == 2 and row["img_size"] == 32
     assert 0 < row["amortized_volume_seconds"] <= row["value"] * 1.5
     assert "uint8" in row["includes"] and "bit-packed" not in row["includes"]
+    # the host's largest-CC a volume: the native library and its plain twin
+    # on the 2 cases x 2 nets raw predictions, equal
+    assert row["cc_outputs_equal"] is True and row["cc_volumes"] == 4
+    assert row["cc_native_ms_per_volume"] > 0 and row["cc_plain_ms_per_volume"] > 0
 
 
 def _jax_keys(jbench) -> dict:

@@ -20,7 +20,7 @@ net, and epoch 3 ends the ramp, so the engagement verdict runs. The bars:
 
 Also: the run's ``_last_full`` file resumes a new trainer at its end (a
 missing ``_full`` file raises rather than warm-starting), the trainer
-refuses an unknown checkpoint flush, the net and space mesh axes and a
+takes any checkpoint flush, and refuses the net and space mesh axes and a
 data axis asked of a process that ``launch`` did not start, and
 a refresh runs and reads back its tempmasks where Pillow cannot be imported.
 """
@@ -298,10 +298,16 @@ def test_trainer_refuses_a_resume_file(runs, tmp_path):
 
 
 def test_trainer_refuses_an_unknown_checkpoint_flush(tmp_path):
+    """No checkpoint_flush is refused: the JAX trainer reads every value
+    but "best" as "end" (``aide_tpu/engine/trainer.py:824``), and so does
+    the port, which once refused them; a best epoch under "never" keeps
+    its snapshot for the flush, as under "end"
+    (tests/test_torch_registry_native.py holds the files to "end"'s)."""
     _, cfg = _cfgs(tmp_path)
     cfg.checkpoint_flush = "never"
-    with pytest.raises(NotImplementedError, match="checkpoint_flush"):
-        ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
+    tr = ttrainer.Trainer(cfg, SyntheticTask(root=str(tmp_path / "t"), **TASK_ARGS), device="cpu")
+    assert tr._maybe_checkpoint(0, 0.5, {}, {}) is True
+    assert tr._best_snapshot is not None
 
 
 @pytest.mark.parametrize("setting", [

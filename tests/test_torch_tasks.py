@@ -221,7 +221,7 @@ def test_build_task_matches(trees, tmp_path, task):
     else:
         cfg = trees[task]
     t, jt = build_task(cfg), jbuild_task(_jcfg(cfg))
-    assert type(t).__name__ == type(jt).__name__ and type(t) is TASKS[task]
+    assert type(t).__name__ == type(jt).__name__ and type(t) is TASKS.get(task)
     assert t.decode_fingerprint() == jt.decode_fingerprint()
     for attr in ("root", "tempmask_folder", "two_modal", "window", "mask_identity"):
         assert getattr(t, attr, None) == getattr(jt, attr, None), attr

@@ -5,12 +5,16 @@ The port's shear path and the CUDA kernel's plain version (what the kernel
 wrapper runs for a CPU tensor) against the JAX shear path over degrees
 {0, ±23, ±45, ±52, ±60, 90} with flips on and off, scalar / (C,) / (B, C)
 fills and C in {1, 2, 3}, in both directions; the plain version also
-against the Pallas kernel itself in interpret mode. The kernel stages each
-32 x 32 output tile's source box in shared memory, sized by BOX_SIDE: the
-CPU cases hold every tile's exact box (source_boxes, the plain version's
-index math) to that bound over ±180 degrees, and check that the box holds
-every tap the tile reads. Cuda-marked cases hold the CUDA kernel to its
-plain version on a card.
+against the Pallas kernel itself in interpret mode, and both the plain
+version and the shear path against it past ±180 degrees (the JAX package
+takes any angle), up to ±720. The kernel stages each 32 x 32 output
+tile's source box in shared memory where it is at most BOX_SIDE on a side,
+and reads a larger box's taps from device memory: the CPU cases hold every
+tile's exact box (source_boxes, the plain version's index math) to that
+bound over ±180 degrees, check that the box holds every tap the tile
+reads, and that over ±720 degrees global_tiles counts exactly the tiles
+whose box passes it. Cuda-marked cases hold the CUDA kernel to its plain
+version on a card, exactly past ±180 degrees.
 
 The JAX package is imported inside the tests that use it, so the file also
 runs where only PyTorch is installed: there the cuda-marked cases run and
@@ -41,6 +45,14 @@ DEGS = np.array([0.0, 23.0, -23.0, 45.0, -45.0, 52.0, -52.0, 60.0, -60.0, 90.0],
 # where the residual angle, the rot90 or the shear coefficients change regime
 BOUNDARY_DEGS = np.array([44.9, 45.0, 45.1, -44.9, -45.0, -45.1, 135.0, -135.0, 180.0, -180.0],
                          np.float32)
+
+
+# past ±180 degrees, the angles of chip_smoke.py's phase 3: the kernel's
+# global-tap path from ±217.5 degrees at 256 px, a tile's box the whole
+# image near ±270, every box within BOX_SIDE again from ±300
+WIDE_DEGS = np.array([180.0, 200.0, 217.5, 230.0, 250.0, 265.0, 269.5, 269.99, 270.0, 300.0,
+                      360.0, 540.0, 720.0], np.float32)
+WIDE_DEGS = np.concatenate([WIDE_DEGS, -WIDE_DEGS])
 
 
 def _inputs(c, fill_kind, size=32, seed=0):
@@ -107,6 +119,32 @@ def test_plain_kernel_matches_pallas_interpret(c, inverse):
         torch.from_numpy(fill), inverse=inverse,
     ).numpy()
     assert np.abs(out - ref).max() <= 1e-5
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("size", [32, 64])
+def test_port_warps_match_pallas_interpret_past_180(size, inverse):
+    """The angles the kernel's staged path does not cover alone: the plain
+    version and the port's shear path against the Pallas kernel in
+    interpret mode, both flips, (B, C) fills."""
+    rng = np.random.default_rng(size + inverse)
+    degrees = np.concatenate([WIDE_DEGS, WIDE_DEGS])
+    hflip = np.repeat(np.array([0.0, 1.0], np.float32), len(WIDE_DEGS))
+    images = rng.normal(size=(len(degrees), size, size, 3)).astype(np.float32)
+    fill = rng.normal(size=(len(degrees), 3)).astype(np.float32)
+    _jax_warp()
+    import jax.numpy as jnp
+    from aide_tpu.ops.pallas_warp import warp_rotate_flip as pallas_warp_rotate_flip
+
+    ref = np.asarray(pallas_warp_rotate_flip(
+        jnp.asarray(images), jnp.asarray(degrees), jnp.asarray(hflip), jnp.asarray(fill),
+        inverse=inverse, interpret=True,
+    ))
+    tfn = warp.invert if inverse else warp.augment
+    for method in ("shear", "cuda"):  # "cuda" on a CPU tensor = the kernel's plain version
+        out = _port(tfn, images, degrees, hflip, fill, method)
+        assert out.shape == ref.shape
+        assert np.abs(out - ref).max() <= 1e-5, method
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -211,6 +249,45 @@ def test_source_boxes_fit_box_side(size, inverse, hflip):
         assert worst > 1.4 * cuda_warp.TILE
 
 
+@pytest.mark.parametrize("hflip", [0.0, 1.0])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("size", [64, 100])
+def test_global_tiles_count_the_boxes_past_box_side(size, inverse, hflip):
+    """Over -720..720 degrees: a tile whose box is at most BOX_SIDE on a
+    side (or that reads no tap) takes the staged path, global_tiles counts
+    the others, none of them within ±180 degrees and some past it."""
+    degrees = torch.from_numpy(np.arange(-720.0, 720.01, 2.5, dtype=np.float32))
+    total = 0
+    for chunk in torch.split(degrees, 64):
+        table = cuda_warp.coef_table(chunk, torch.full_like(chunk, hflip), inverse)
+        boxes = cuda_warp.source_boxes(table, size, inverse)
+        read = boxes[..., 0] <= boxes[..., 1]
+        fits = ((boxes[..., 1] - boxes[..., 0] + 1 <= cuda_warp.BOX_SIDE)
+                & (boxes[..., 3] - boxes[..., 2] + 1 <= cuda_warp.BOX_SIDE))
+        staged = ~read | fits
+        assert cuda_warp.global_tiles(boxes) == int((~staged).sum())
+        assert bool(staged[chunk.abs() <= 180.0].all())
+        total += int((~staged).sum())
+    assert total > 0
+
+
+@pytest.mark.parametrize("deg,n_global,side", [
+    (217.25, 0, 50), (217.5, 4, 51), (250.0, 8, 51), (265.0, 24, 71), (269.5, 4, 243),
+    (300.0, 0, 50), (360.0, 0, 34), (540.0, 0, 34),
+])
+def test_global_tiles_at_256px(deg, n_global, side):
+    """The onset and the extremes at 256 px, ±deg in one launch of 2 x 64
+    tiles: the first box over BOX_SIDE at 217.5 degrees, the whole image
+    near 270, every box within BOX_SIDE again from 300."""
+    degrees = torch.tensor([deg, -deg])
+    table = cuda_warp.coef_table(degrees, torch.zeros(2), False)
+    boxes = cuda_warp.source_boxes(table, 256, False)
+    read = boxes[..., 0] <= boxes[..., 1]
+    sides = torch.maximum(boxes[..., 1] - boxes[..., 0], boxes[..., 3] - boxes[..., 2]) + 1
+    assert cuda_warp.global_tiles(boxes) == n_global
+    assert int(sides[read].max()) == side
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 def test_source_boxes_hold_every_read_tap(inverse):
     # the plain version over a source that is NaN outside one tile's box:
@@ -270,6 +347,31 @@ def test_cuda_kernel_matches_plain(cuda_device, size, c, inverse):
     fill = np.concatenate([fill, rng.normal(size=(2 * len(BOUNDARY_DEGS), c))])
     _cuda_matches_plain(cuda_device, images.astype(np.float32), degrees.astype(np.float32),
                         hflip.astype(np.float32), fill.astype(np.float32), inverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("size,c", [(33, 3), (64, 2), (100, 3), (256, 2), (512, 3)])
+def test_cuda_kernel_past_180(cuda_device, size, c, inverse):
+    """Both paths of the kernel: exact against the plain version at the
+    angles past ±180 degrees, both flips, one launch; at 64 px and up some
+    tiles take the global-tap path."""
+    rng = np.random.default_rng(size + c)
+    degrees = np.concatenate([WIDE_DEGS, WIDE_DEGS])
+    hflip = np.repeat(np.array([0.0, 1.0], np.float32), len(WIDE_DEGS))
+    x = torch.from_numpy(rng.normal(size=(len(degrees), size, size, c)).astype(np.float32))
+    f = torch.from_numpy(rng.normal(size=(len(degrees), c)).astype(np.float32))
+    x, f = x.to(cuda_device), f.to(cuda_device)
+    d, h = torch.from_numpy(degrees).to(cuda_device), torch.from_numpy(hflip).to(cuda_device)
+    before = cuda_warp.launches
+    got = cuda_warp.warp_rotate_flip(x, d, h, f, inverse=inverse)
+    assert cuda_warp.launches == before + 1
+    table = cuda_warp.coef_table(d, h, inverse)
+    ref = cuda_warp.warp_plain(x, table, cuda_warp.fill_table(f, len(x), c, cuda_device), inverse)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    n_global = cuda_warp.global_tiles(cuda_warp.source_boxes(table, size, inverse))
+    assert (n_global > 0) == (size >= 64)
 
 
 @pytest.mark.cuda
