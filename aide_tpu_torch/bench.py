@@ -55,11 +55,12 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from aide_tpu_torch.core import trace
 from aide_tpu_torch.core.config import ModelConfig, TrainConfig
 from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
 from aide_tpu_torch.engine.trainer import Trainer, resolve_device
 from aide_tpu_torch.evaluation.case_eval import evaluate_cases, infer_cases
-from aide_tpu_torch.ops import cc, cuda_warp
+from aide_tpu_torch.ops import cc
 
 EPOCH_SLICES = 984      # CHAOS proposed train set (the reference's README.md:45)
 BASELINE_EPOCH_S = 420.0
@@ -189,14 +190,14 @@ def time_bare_steps(trainer: Trainer, cfg: TrainConfig, iters: int = BARE_STEPS)
     # the warm step's index lies far outside the timed range
     float(step(1_000_000)[loss_key])
     _sync(device)
-    launched = cuda_warp.launches
+    launched = trace.totals()
     t0 = time.perf_counter()
     for i in range(iters):
         m = step(i)
     float(m[loss_key])
     _sync(device)
     dt = (time.perf_counter() - t0) / iters
-    launches = cuda_warp.launches - launched
+    launches = trace.delta(launched).get("warp.launches", 0)
     # FlopCounterMode dispatches every op through Python: never timed
     with FlopCounterMode(display=False) as counter:
         float(step(iters)[loss_key])
@@ -270,12 +271,15 @@ def step_throughput(dt: float, flops: int, device_name: str) -> Dict[str, Option
     }
 
 
-def profiled_epoch(trainer: Trainer, epoch: int, trace: str):
+def profiled_epoch(trainer: Trainer, epoch: int, path: str):
     """``run_epoch(epoch)`` with ``PROFILE_STEPS`` train steps from the
     middle of its train phase under torch.profiler, their Chrome trace
-    written to ``trace``. The profiler stays off for the other steps and
+    written to ``path``. The profiler stays off for the other steps and
     phases: a trace of the whole CHAOS epoch is 1 GB and slows every step
-    by 40%. Returns the epoch's row and what the trace cost."""
+    by 40%. Returns the epoch's row and what the trace cost and showed:
+    ``profile_spans``, the traced steps' device time by the program span
+    that launched it and their idle device time by the span open on the
+    host (``core.trace.by_span``)."""
     steps = trainer.train_pipe.steps_per_epoch(trainer.cfg.data.batch_size)
     wait = max((steps - PROFILE_STEPS) // 2 - 1, 0)
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -298,11 +302,12 @@ def profiled_epoch(trainer: Trainer, epoch: int, trace: str):
     finally:
         trainer.train_step = train_step
     t0 = time.perf_counter()
-    prof.export_chrome_trace(trace)
+    prof.export_chrome_trace(path)
     return row, {
         "profile_traced_steps": list(range(wait + 1, wait + 1 + PROFILE_STEPS)),
-        "profile_trace_bytes": os.path.getsize(trace),
+        "profile_trace_bytes": os.path.getsize(path),
         "profile_export_seconds": time.perf_counter() - t0,
+        "profile_spans": trace.by_span(prof.events()),
     }
 
 
@@ -502,7 +507,7 @@ def _run(args, device: torch.device, partial: Dict) -> int:
         extras["partial"] = "steps_only"
     else:
         log("timing full epoch 1...")
-        launched = cuda_warp.launches
+        launched = trace.totals()
         if args.profile:
             os.makedirs(args.profile, exist_ok=True)
             row, cost = profiled_epoch(trainer, 1, os.path.join(args.profile, "trace.json"))
@@ -511,7 +516,7 @@ def _run(args, device: torch.device, partial: Dict) -> int:
             row = trainer.run_epoch(1)
         value = float(row["time"])
         # every train step's launches, none in the test pass or case evaluation
-        extras["warp_launches_epoch"] = cuda_warp.launches - launched
+        extras["warp_launches_epoch"] = trace.delta(launched).get("warp.launches", 0)
         extras["full_epoch_includes"] = (
             "train+test_eval+case reinference+checkpoint"
             if args.supervised

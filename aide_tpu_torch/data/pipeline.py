@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from aide_tpu_torch.core import mesh
+from aide_tpu_torch.core import mesh, trace
 from aide_tpu_torch.data.tasks.base import SliceSpec, Task, resize_image, resize_mask
 
 
@@ -113,7 +113,8 @@ class LabelStore:
         self.dirty[net - 1].extend(int(i) for i in indices)
         if mirror and self.task.tempmask_folder:
             specs = [self.specs[i] for i in indices]
-            self.task.write_case_tempmask(specs, volume.astype(np.uint8), net)
+            with trace.span("refresh.write"):
+                self.task.write_case_tempmask(specs, volume.astype(np.uint8), net)
 
 
 def _widen_targets(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

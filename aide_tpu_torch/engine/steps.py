@@ -15,6 +15,11 @@ net exactly its own gradient.
 The view parameters come in as arguments (the trainer draws them), so a
 test can hand the step the JAX package's stream.
 
+Each train step opens the span ``train.step`` (``core.trace``) around
+``step.views`` (co-teaching), ``step.forward``, ``step.backward``,
+``step.optimizer`` and ``step.metrics``: inside any wrapper that a caller
+puts on ``Trainer.train_step``.
+
 ``make_supervised_train_step`` is the comparison trainer's step: one
 forward in train-mode BN that updates the running stats, the scalar
 criterion (``make_criterion``), one backward and one AMSGrad update.
@@ -74,7 +79,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from aide_tpu_torch.core import mesh
+from aide_tpu_torch.core import mesh, trace
 from aide_tpu_torch.core.config import TrainConfig
 from aide_tpu_torch.engine.state import DualTrainState, NetRankState, TrainState
 from aide_tpu_torch.models import blocks
@@ -207,21 +212,25 @@ def make_supervised_train_step(two_modal: bool, cfg: TrainConfig):
 
     def step(state: TrainState, batch, sharded: bool = False,
              spatial: bool = False) -> Dict[str, torch.Tensor]:
-        with blocks.global_batch_stats(sharded or spatial), blocks.space_partition(spatial):
-            images = batch_images(batch, two_modal)
-            target = batch["target"]
-            state.train(True)
-            logits = state.net(*images)
-            if spatial:
-                logits, target = mesh.gather_h(logits), mesh.fetch_h(target)
-            if sharded:
-                logits, target = mesh.gather_rows(logits), mesh.fetch(target)
-            loss = criterion(logits, target)
-            state.optimizer.zero_grad(set_to_none=True)
-            (loss / mesh.replicas(spatial)[1]).backward()
-            mesh.all_reduce_grads(state.optimizer.params(), spatial)
-            state.optimizer.step()
-            with torch.no_grad():
+        with trace.span("train.step"), blocks.global_batch_stats(sharded or spatial), \
+                blocks.space_partition(spatial):
+            with trace.span("step.forward"):
+                images = batch_images(batch, two_modal)
+                target = batch["target"]
+                state.train(True)
+                logits = state.net(*images)
+                if spatial:
+                    logits, target = mesh.gather_h(logits), mesh.fetch_h(target)
+                if sharded:
+                    logits, target = mesh.gather_rows(logits), mesh.fetch(target)
+                loss = criterion(logits, target)
+            with trace.span("step.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                (loss / mesh.replicas(spatial)[1]).backward()
+            with trace.span("step.optimizer"):
+                mesh.all_reduce_grads(state.optimizer.params(), spatial)
+                state.optimizer.step()
+            with trace.span("step.metrics"), torch.no_grad():
                 return {
                     "loss": loss.detach(),
                     "dice_sum": metrics.dice_fn(logits, target, threshold=thr),
@@ -308,43 +317,47 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
             b = t1.shape[0]
             check_views(degrees, b)
             net1, net2 = state.nets
-            pseudo, wmap = pseudo_labels(state, images, batch_fills(batch, two_modal),
-                                         degrees, hflip, b, spatial)
+            with trace.span("step.views"):
+                pseudo, wmap = pseudo_labels(state, images, batch_fills(batch, two_modal),
+                                             degrees, hflip, b, spatial)
 
             # ---- coupled main forwards, one backward over both nets ----
-            state.train(True)
-            out1 = net1(*images)
-            out2 = net2(*images)
-            if sharded or spatial:
-                # the global batch's whole images, in global row order: the
-                # ranking and its ties, the clean count and every mean are
-                # the global ones
-                out = torch.stack([out1, out2], dim=1)
-                c = pseudo.shape[-1]
-                pw = torch.cat([pseudo, wmap], dim=-1).transpose(0, 1)
-                tt = torch.stack([t1, t2], dim=1)
-                if spatial:
-                    out = mesh.gather_h(out, dim=2)
-                    pw, tt = mesh.fetch_h(pw, tt, dim=2)
-                if sharded:
-                    out = mesh.gather_rows(out)
-                    pw, tt = mesh.fetch(pw, tt)
-                out1, out2 = out[:, 0], out[:, 1]
-                pseudo, wmap = pw[..., :c].transpose(0, 1), pw[..., c:].transpose(0, 1)
-                t1, t2 = tt[:, 0], tt[:, 1]
-                b = t1.shape[0]
-            # net k scored against the OTHER net's working labels
-            pre1 = image_criterion(out1, t2)
-            pre2 = image_criterion(out2, t1)
-            order1 = torch.argsort(pre1.detach(), stable=True)
-            order2 = torch.argsort(pre2.detach(), stable=True)
-            loss1 = side(pre1, out1, order2, pseudo[1], wmap[1], rate)
-            loss2 = side(pre2, out2, order1, pseudo[0], wmap[0], rate)
-            state.optimizer.zero_grad(set_to_none=True)
-            ((loss1 + loss2) / mesh.replicas(spatial)[1]).backward()
-            mesh.all_reduce_grads(state.optimizer.params(), spatial)
-            state.optimizer.step()
-            with torch.no_grad():
+            with trace.span("step.forward"):
+                state.train(True)
+                out1 = net1(*images)
+                out2 = net2(*images)
+                if sharded or spatial:
+                    # the global batch's whole images, in global row order:
+                    # the ranking and its ties, the clean count and every
+                    # mean are the global ones
+                    out = torch.stack([out1, out2], dim=1)
+                    c = pseudo.shape[-1]
+                    pw = torch.cat([pseudo, wmap], dim=-1).transpose(0, 1)
+                    tt = torch.stack([t1, t2], dim=1)
+                    if spatial:
+                        out = mesh.gather_h(out, dim=2)
+                        pw, tt = mesh.fetch_h(pw, tt, dim=2)
+                    if sharded:
+                        out = mesh.gather_rows(out)
+                        pw, tt = mesh.fetch(pw, tt)
+                    out1, out2 = out[:, 0], out[:, 1]
+                    pseudo, wmap = pw[..., :c].transpose(0, 1), pw[..., c:].transpose(0, 1)
+                    t1, t2 = tt[:, 0], tt[:, 1]
+                    b = t1.shape[0]
+                # net k scored against the OTHER net's working labels
+                pre1 = image_criterion(out1, t2)
+                pre2 = image_criterion(out2, t1)
+                order1 = torch.argsort(pre1.detach(), stable=True)
+                order2 = torch.argsort(pre2.detach(), stable=True)
+                loss1 = side(pre1, out1, order2, pseudo[1], wmap[1], rate)
+                loss2 = side(pre2, out2, order1, pseudo[0], wmap[0], rate)
+            with trace.span("step.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                ((loss1 + loss2) / mesh.replicas(spatial)[1]).backward()
+            with trace.span("step.optimizer"):
+                mesh.all_reduce_grads(state.optimizer.params(), spatial)
+                state.optimizer.step()
+            with trace.span("step.metrics"), torch.no_grad():
                 return {
                     "loss1": loss1.detach(),
                     "loss2": loss2.detach(),
@@ -366,46 +379,53 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
             targets = (batch["target1"], batch["target2"])
             b = targets[0].shape[0]
             check_views(degrees, b)
-            pseudo, wmap = pseudo_labels(state, images, batch_fills(batch, two_modal),
-                                         degrees, hflip, b, spatial)
-            pw = torch.cat([pseudo[0], wmap[0]], dim=-1)
-            state.train(True)
-            out = state.net(*images)
-            if sharded or spatial:
-                tt = torch.stack(targets, dim=-1)
-                if spatial:
-                    out = mesh.gather_h(out)
-                    pw, tt = mesh.fetch_h(pw, tt)
-                if sharded:
-                    out = mesh.gather_rows(out)
-                    pw, tt = mesh.fetch(pw, tt)
-                targets = (tt[..., 0], tt[..., 1])
-                b = tt.shape[0]
-            # net k scored against the OTHER net's working labels
-            pre = image_criterion(out, targets[1 - k])
-            with torch.no_grad():
-                dice = metrics.dice_fn(out, targets[1 - k], threshold=thr)
-            pres, pws, dices = mesh.pair_exchange(pre, pw, dice)
-            order_other = torch.argsort(pres[1 - k], stable=True)
-            c = pseudo.shape[-1]
-            loss = side(pre, out, order_other, pws[1 - k][..., :c], pws[1 - k][..., c:], rate)
-            state.optimizer.zero_grad(set_to_none=True)
-            (loss / mesh.replicas(spatial)[1]).backward()
-            mesh.all_reduce_grads(state.optimizer.params(), spatial)
-            state.optimizer.step()
-            (both,) = mesh.pair_exchange(loss)
-            return {
-                "loss1": both[0],
-                "loss2": both[1],
-                "dice1_sum": dices[0],
-                "dice2_sum": dices[1],
-                "count": torch.tensor(float(b), device=both.device),
-            }
+            with trace.span("step.views"):
+                pseudo, wmap = pseudo_labels(state, images, batch_fills(batch, two_modal),
+                                             degrees, hflip, b, spatial)
+            with trace.span("step.forward"):
+                pw = torch.cat([pseudo[0], wmap[0]], dim=-1)
+                state.train(True)
+                out = state.net(*images)
+                if sharded or spatial:
+                    tt = torch.stack(targets, dim=-1)
+                    if spatial:
+                        out = mesh.gather_h(out)
+                        pw, tt = mesh.fetch_h(pw, tt)
+                    if sharded:
+                        out = mesh.gather_rows(out)
+                        pw, tt = mesh.fetch(pw, tt)
+                    targets = (tt[..., 0], tt[..., 1])
+                    b = tt.shape[0]
+                # net k scored against the OTHER net's working labels
+                pre = image_criterion(out, targets[1 - k])
+                with torch.no_grad():
+                    dice = metrics.dice_fn(out, targets[1 - k], threshold=thr)
+                pres, pws, dices = mesh.pair_exchange(pre, pw, dice)
+                order_other = torch.argsort(pres[1 - k], stable=True)
+                c = pseudo.shape[-1]
+                loss = side(pre, out, order_other, pws[1 - k][..., :c], pws[1 - k][..., c:],
+                            rate)
+            with trace.span("step.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                (loss / mesh.replicas(spatial)[1]).backward()
+            with trace.span("step.optimizer"):
+                mesh.all_reduce_grads(state.optimizer.params(), spatial)
+                state.optimizer.step()
+            with trace.span("step.metrics"):
+                (both,) = mesh.pair_exchange(loss)
+                return {
+                    "loss1": both[0],
+                    "loss2": both[1],
+                    "dice1_sum": dices[0],
+                    "dice2_sum": dices[1],
+                    "count": torch.tensor(float(b), device=both.device),
+                }
 
     def step(state, batch, degrees, hflip, rate, sharded: bool = False,
              spatial: bool = False) -> Dict[str, torch.Tensor]:
         run = net_rank_step if isinstance(state, NetRankState) else pair_step
-        return run(state, batch, degrees, hflip, rate, sharded, spatial)
+        with trace.span("train.step"):
+            return run(state, batch, degrees, hflip, rate, sharded, spatial)
 
     return step
 

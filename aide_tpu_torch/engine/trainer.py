@@ -37,7 +37,9 @@ net's weights.
 (``data.tasks.build_task``: CHAOS, prostate, kidney, breast or synthetic)
 and decodes its manifests once, through ``data.decode_cache_dir``'s npz
 cache when set; a task object passed in is used as it is.
-``log_every_steps`` logs the step losses every N steps.
+``log_every_steps`` logs the step losses every N steps. The set-up, each
+epoch's phases and the train feed open spans of ``core.trace``; the
+history row's ``time_*`` keys are their host seconds (``run_epoch``).
 
 ``run`` loops over the epochs and writes the history and the best-epoch
 files even when an epoch fails, and ``{experiment_name}_last_full.msgpack``
@@ -85,18 +87,18 @@ JAX trainer pins them to its 3-shear path instead, which GSPMD can split).
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
 import shutil
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from aide_tpu_torch.core import mesh, prng
+from aide_tpu_torch.core import mesh, prng, trace
 from aide_tpu_torch.core.config import TrainConfig
 from aide_tpu_torch.core.logging import record_params, setup_logging
 from aide_tpu_torch.data.pipeline import SlicePipeline
@@ -211,17 +213,18 @@ class Trainer:
 
         self.task = task = task if task is not None else build_task(cfg)
         self.two_modal = task.two_modal
-        train_specs = task.load_manifest(cfg.data.train_csv, train=True)
-        test_specs = task.load_manifest(cfg.data.test_csv, train=False)
         cache_dir = cfg.data.decode_cache_dir or None
-        self.train_pipe = SlicePipeline(
-            task, train_specs, cfg.data.img_size, cfg.data.data_mean,
-            cfg.data.data_std, working_labels=self.dual, cache_dir=cache_dir,
-        )
-        self.test_pipe = SlicePipeline(
-            task, test_specs, cfg.data.img_size, cfg.data.data_mean,
-            cfg.data.data_std, working_labels=False, cache_dir=cache_dir,
-        )
+        with trace.span("setup.decode"):
+            train_specs = task.load_manifest(cfg.data.train_csv, train=True)
+            test_specs = task.load_manifest(cfg.data.test_csv, train=False)
+            self.train_pipe = SlicePipeline(
+                task, train_specs, cfg.data.img_size, cfg.data.data_mean,
+                cfg.data.data_std, working_labels=self.dual, cache_dir=cache_dir,
+            )
+            self.test_pipe = SlicePipeline(
+                task, test_specs, cfg.data.img_size, cfg.data.data_mean,
+                cfg.data.data_std, working_labels=False, cache_dir=cache_dir,
+            )
         d = cfg.data
         self.train_cases = (
             task.load_case_list(d.traincase_csv) if d.traincase_csv else list(self.train_pipe.cases)
@@ -252,8 +255,9 @@ class Trainer:
 
         self.device_resident = cfg.data.device_cache in ("on", "auto")
         if self.device_resident:
-            self.train_pipe.to_device(self.device)
-            self.test_pipe.to_device(self.device)
+            with trace.span("setup.upload"):
+                self.train_pipe.to_device(self.device)
+                self.test_pipe.to_device(self.device)
 
         # what both packages read as an exact resume
         self.exact_resume = cfg.resume_file.endswith("_full.msgpack")
@@ -262,15 +266,16 @@ class Trainer:
         pair_rank = self.dual and mesh.net_size() > 1
         if pair_rank:
             seeds = (seeds[mesh.net_rank()],)
-        nets = [
-            # an exact resume overwrites every weight: no initialisation draw
-            (build_model(cfg.model) if self.exact_resume else init_net(cfg.model, seed)).to(
-                self.device, memory_format=torch.channels_last)
-            for seed in seeds
-        ]
-        spe = self.train_pipe.steps_per_epoch(cfg.data.batch_size)
-        params = [p for net in nets for p in net.parameters()]
-        optimizer = make_optimizer(params, cfg.optim, spe, cfg.num_epochs, pair=pair_rank)
+        with trace.span("setup.nets"):
+            nets = [
+                # an exact resume overwrites every weight: no initialisation draw
+                (build_model(cfg.model) if self.exact_resume else init_net(cfg.model, seed)).to(
+                    self.device, memory_format=torch.channels_last)
+                for seed in seeds
+            ]
+            spe = self.train_pipe.steps_per_epoch(cfg.data.batch_size)
+            params = [p for net in nets for p in net.parameters()]
+            optimizer = make_optimizer(params, cfg.optim, spe, cfg.num_epochs, pair=pair_rank)
         warm_start = cfg.resume_file and not self.exact_resume
         if self.dual:
             self.state = (NetRankState(nets[0], mesh.net_rank(), optimizer) if pair_rank
@@ -471,17 +476,24 @@ class Trainer:
         # its rows of it and takes its columns of the global view draws
         b = cfg.data.batch_size
         rows, sharded, spatial = mesh.local_rows(b), mesh.rows_sharded(b), mesh.h_sharded(b)
-        for i, batch in enumerate(self.train_pipe.batches(b, rng=shuffle_rng)):
-            batch = self._on_device(batch)
-            if self.augment_batch is not None:
-                degrees, hflip = self.augment_params(epoch, i, b)
-                batch = self.augment_batch(batch, degrees[rows], hflip[rows],
-                                           *((True,) if spatial else ()))
-            if self.dual:
-                degrees, hflip = self.view_params(epoch, i, b)
-                args = (batch, degrees[:, rows], hflip[:, rows], rate)
-            else:
-                args = (batch,)
+        batches = iter(self.train_pipe.batches(b, rng=shuffle_rng))
+        for i in itertools.count():
+            # the feed: the next batch (the last call finds none), its move
+            # to the device, the augment and view draws
+            with trace.span("train.data"):
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                batch = self._on_device(batch)
+                if self.augment_batch is not None:
+                    degrees, hflip = self.augment_params(epoch, i, b)
+                    batch = self.augment_batch(batch, degrees[rows], hflip[rows],
+                                               *((True,) if spatial else ()))
+                if self.dual:
+                    degrees, hflip = self.view_params(epoch, i, b)
+                    args = (batch, degrees[:, rows], hflip[:, rows], rate)
+                else:
+                    args = (batch,)
             # ``sharded`` (and ``spatial``) only over a data (space) axis: a
             # step wrapped with positional arguments sees the single-card call
             m = self.train_step(self.state, *args, *self._flags(sharded, spatial))
@@ -518,7 +530,7 @@ class Trainer:
             totals = self._accumulate(totals, self.eval_step(self.state, batch, *flags))
         return self._finalize(totals)
 
-    def _dispatch_fused_test(self, case_timing):
+    def _dispatch_fused_test(self):
         """Queue the fused test pass (metrics and test-case labels in one
         loop); return a closure giving (test_metrics, testcase_results), or
         None where it does not apply: data that is not on the device, or a
@@ -532,47 +544,39 @@ class Trainer:
         case_ids, counts, n, padded = pack_case_stream(pipe, self.test_cases, eb)
         if n != len(pipe) or len(set(padded[:n].tolist())) != n:
             return None
-        t0 = time.perf_counter()
-        idx_mat = padded.reshape(-1, eb)
-        valid = (np.arange(idx_mat.size) < n).astype(np.float32).reshape(idx_mat.shape)
-        totals, labels = self.eval_predict_all(self.state, pipe._device_data, idx_mat, valid)
-        keys = list(totals)
-        wait_totals = start_host_copy(torch.stack([totals[k].float() for k in keys]))
-        wait_labels = start_host_copy(labels)
-        dispatch_t = time.perf_counter() - t0
+        with trace.span("cases.dispatch"):
+            idx_mat = padded.reshape(-1, eb)
+            valid = (np.arange(idx_mat.size) < n).astype(np.float32).reshape(idx_mat.shape)
+            totals, labels = self.eval_predict_all(self.state, pipe._device_data, idx_mat, valid)
+            keys = list(totals)
+            wait_totals = start_host_copy(torch.stack([totals[k].float() for k in keys]))
+            wait_labels = start_host_copy(labels)
         keep_cc = self.cfg.eval.keep_largest_cc
 
         def finish():
-            t1 = time.perf_counter()
-            host = dict(zip(keys, wait_totals().tolist()))
-            out = wait_labels()  # (N, 2, B, H, W)
-            case_timing["fetch"] = (
-                case_timing.get("fetch", 0.0) + dispatch_t + time.perf_counter() - t1
-            )
-            t1 = time.perf_counter()
-            count = max(float(host.pop("count")), 1.0)
-            test_m = {k: float(v) / count for k, v in host.items()}
-            preds = np.moveaxis(out, 1, 0).reshape(2, -1, *out.shape[3:])[:, :n]
-            volumes, offset = [], 0
-            for cnt in counts:
-                volumes.append(_postprocess_case(preds[:, offset : offset + cnt], keep_cc))
-                offset += cnt
-            case_timing["host"] = case_timing.get("host", 0.0) + time.perf_counter() - t1
-            testcase = score_case_volumes(
-                pipe, case_ids, volumes, target_net=None, timing=case_timing,
-            )
+            with trace.span("cases.fetch"):
+                host = dict(zip(keys, wait_totals().tolist()))
+                out = wait_labels()  # (N, 2, B, H, W)
+            with trace.span("cases.cc"):
+                count = max(float(host.pop("count")), 1.0)
+                test_m = {k: float(v) / count for k, v in host.items()}
+                preds = np.moveaxis(out, 1, 0).reshape(2, -1, *out.shape[3:])[:, :n]
+                volumes, offset = [], 0
+                for cnt in counts:
+                    volumes.append(_postprocess_case(preds[:, offset : offset + cnt], keep_cc))
+                    offset += cnt
+            testcase = score_case_volumes(pipe, case_ids, volumes, target_net=None)
             return test_m, testcase
 
         return finish
 
-    def _start_cases(self, pipe, cases, target_net, case_timing, keep_volumes=False):
+    def _start_cases(self, pipe, cases, target_net, keep_volumes=False):
         """Queue the nets' case evaluation of ``cases`` of ``pipe``; return
         the closure that scores them (case_eval.start_case_evaluation)."""
         return start_case_evaluation(
             self._predict_batch, self.state, pipe, cases, self.cfg.data.eval_batch_size,
             target_net=target_net, keep_largest_cc=self.cfg.eval.keep_largest_cc,
-            keep_volumes=keep_volumes, predict_all=self.predict_all, timing=case_timing,
-            dual=self.dual,
+            keep_volumes=keep_volumes, predict_all=self.predict_all, dual=self.dual,
         )
 
     # ------------------------------ refresh ------------------------------
@@ -616,7 +620,8 @@ class Trainer:
                     "  (rewritten for net{}: {} — labeled/empty cases "
                     "skipped)".format(net_idx + 1, refreshed)
                 )
-        self.train_pipe.sync_labels_to_device()
+        with trace.span("refresh.sync"):
+            self.train_pipe.sync_labels_to_device()
         if self.on_refresh is not None:
             self.on_refresh(epoch)
 
@@ -854,7 +859,8 @@ class Trainer:
         if self.dual and self.task.tempmask_folder:
             src = os.path.join(self.task.root, self.task.tempmask_folder)
             if os.path.isdir(src):
-                shutil.copytree(src, src.rstrip("/") + "_best", dirs_exist_ok=True)
+                with trace.span("ckpt.backup"):
+                    shutil.copytree(src, src.rstrip("/") + "_best", dirs_exist_ok=True)
         return True
 
     def _file_snapshot(self, clone: bool) -> Optional[Dict]:
@@ -865,7 +871,8 @@ class Trainer:
                    and mesh.space_rank() == 0)
         if not (mesh.is_primary() or partner):
             return None
-        snap = ckpt.snapshot(self.state, clone=clone)
+        with trace.span("ckpt.snapshot"):
+            snap = ckpt.snapshot(self.state, clone=clone)
         return snap if mesh.is_primary() else None
 
     def flush_checkpoints(self) -> None:
@@ -882,77 +889,81 @@ class Trainer:
     # ------------------------------- run -------------------------------
 
     def run_epoch(self, epoch: int) -> Dict[str, float]:
+        """One epoch (the module's docstring); returns its history row, whose
+        keys are the JAX trainer's. Its ``time_*`` keys are host seconds of
+        the epoch's spans (``core.trace``), rounded to 10 ms: the phases
+        ``time_train``, ``time_test``, ``time_cases``, ``time_ckpt``,
+        ``time_refresh``, and within the case phases ``time_cases_fetch``
+        (case dispatch and the wait for the labels) and ``time_cases_host``
+        (largest component and scoring); ``time`` is the whole epoch. The
+        end of the epoch is marked ``("epoch", row["epoch"])`` for readers
+        of the other spans (``trace.mark``)."""
         cfg = self.cfg
-        ts = time.time()
+        before = trace.totals()
         rate = rate_schedule(epoch, cfg.coteach.warmup_epochs) if self.dual else 0.0
-        phases: Dict[str, float] = {}
+        with trace.span("epoch"):
+            with trace.span("epoch.train"):
+                train_m = self._train_epoch(epoch, rate)
+            with trace.span("epoch.test"):
+                fused_finish = self._dispatch_fused_test()
+                if fused_finish is None:
+                    test_m = self._test_epoch()
+                else:
+                    # the train-case re-inference is queued behind the fused
+                    # test pass, so the host's CC of the test cases overlaps it
+                    finish_traincase = self._start_cases(
+                        self.train_pipe, self.train_cases, "self", keep_volumes=True)
+                    test_m, testcase = fused_finish()
+            with trace.span("epoch.cases"):
+                if fused_finish is None:
+                    finish_testcase = self._start_cases(self.test_pipe, self.test_cases, None)
+                    finish_traincase = self._start_cases(
+                        self.train_pipe, self.train_cases, "self" if self.dual else None,
+                        keep_volumes=self.dual,
+                    )
+                    testcase = finish_testcase()
+                traincase = finish_traincase()
 
-        train_m = self._train_epoch(epoch, rate)
-        phases["time_train"] = time.time() - ts
+            with trace.span("epoch.ckpt"):
+                case_means = {
+                    f"traincase_dice{n + 1}": float(np.mean([r.dice for r in traincase[n]]))
+                    for n in traincase
+                }
+                case_means.update({
+                    f"testcase_dice{n + 1}": float(np.mean([r.dice for r in testcase[n]]))
+                    for n in testcase
+                })
+                if self.dual:
+                    avg_dice = (case_means["traincase_dice1"]
+                                + case_means["traincase_dice2"]) / 2.0
+                else:
+                    avg_dice = case_means["traincase_dice1"]
 
-        # the fetch/host split of the case phase (case_eval's timing)
-        case_timing: Dict[str, float] = {}
-        fused_finish = self._dispatch_fused_test(case_timing)
-        if fused_finish is None:
-            test_m = self._test_epoch()
-            phases["time_test"] = time.time() - ts - sum(phases.values())
-            finish_testcase = self._start_cases(self.test_pipe, self.test_cases, None, case_timing)
-            finish_traincase = self._start_cases(
-                self.train_pipe, self.train_cases, "self" if self.dual else None, case_timing,
-                keep_volumes=self.dual,
-            )
-            testcase = finish_testcase()
-            traincase = finish_traincase()
-        else:
-            # the train-case re-inference is queued behind the fused test
-            # pass, so the host's CC of the test cases overlaps it
-            finish_traincase = self._start_cases(
-                self.train_pipe, self.train_cases, "self", case_timing, keep_volumes=True
-            )
-            test_m, testcase = fused_finish()
-            phases["time_test"] = time.time() - ts - sum(phases.values())
-            traincase = finish_traincase()
-        phases["time_cases"] = time.time() - ts - sum(phases.values())
+                row_metrics = {
+                    "epoch": epoch + 1,
+                    **{f"train_{k}": v for k, v in train_m.items()},
+                    **{f"test_{k}": v for k, v in test_m.items()},
+                    **case_means,
+                }
+                if self.dual and cfg.coteach.engagement_check:
+                    eng = self._engagement_signals(traincase)
+                    row_metrics["crossnet_dice"] = eng["crossnet_dice"]
+                    if epoch + 1 == cfg.coteach.warmup_epochs:
+                        self._engagement_verdict(eng)
+                self._maybe_checkpoint(epoch, avg_dice, test_m, row_metrics)
+            with trace.span("epoch.refresh"):
+                if self.dual and self._is_refresh_epoch(epoch):
+                    self._refresh_labels(epoch, traincase)
 
-        case_means = {
-            f"traincase_dice{n + 1}": float(np.mean([r.dice for r in traincase[n]]))
-            for n in traincase
-        }
-        case_means.update({
-            f"testcase_dice{n + 1}": float(np.mean([r.dice for r in testcase[n]]))
-            for n in testcase
-        })
-        if self.dual:
-            avg_dice = (case_means["traincase_dice1"] + case_means["traincase_dice2"]) / 2.0
-        else:
-            avg_dice = case_means["traincase_dice1"]
-
-        row_metrics = {
-            "epoch": epoch + 1,
-            **{f"train_{k}": v for k, v in train_m.items()},
-            **{f"test_{k}": v for k, v in test_m.items()},
-            **case_means,
-        }
-        if self.dual and cfg.coteach.engagement_check:
-            eng = self._engagement_signals(traincase)
-            row_metrics["crossnet_dice"] = eng["crossnet_dice"]
-            if epoch + 1 == cfg.coteach.warmup_epochs:
-                self._engagement_verdict(eng)
-        self._maybe_checkpoint(epoch, avg_dice, test_m, row_metrics)
-        phases["time_ckpt"] = time.time() - ts - sum(phases.values())
-        if self.dual and self._is_refresh_epoch(epoch):
-            self._refresh_labels(epoch, traincase)
-        phases["time_refresh"] = time.time() - ts - sum(phases.values())
-
-        dt = time.time() - ts
+        trace.mark(("epoch", epoch + 1))
+        spent = trace.delta(before)
         row = {
             **row_metrics,
-            **{k: round(v, 2) for k, v in phases.items()},
-            # sub-phases of time_cases, kept out of ``phases``, whose
-            # running sum must see disjoint phases only
-            "time_cases_fetch": round(case_timing.get("fetch", 0.0), 2),
-            "time_cases_host": round(case_timing.get("host", 0.0), 2),
-            "time": dt,
+            **{f"time_{p}": round(trace.seconds(spent, f"epoch.{p}"), 2)
+               for p in ("train", "test", "cases", "ckpt", "refresh")},
+            "time_cases_fetch": round(trace.seconds(spent, "cases.dispatch", "cases.fetch"), 2),
+            "time_cases_host": round(trace.seconds(spent, "cases.cc", "cases.score"), 2),
+            "time": trace.seconds(spent, "epoch"),
         }
         self.history.append(row)
         self._log_epoch(row)

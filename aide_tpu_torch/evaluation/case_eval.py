@@ -17,13 +17,13 @@ them to their end: the CLI's ``predict`` and ``eval``.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from aide_tpu_torch.core import trace
 from aide_tpu_torch.data.pipeline import SlicePipeline
 from aide_tpu_torch.ops.cc import keep_largest_connected_components
 
@@ -128,7 +128,6 @@ def start_case_inference(
     batch_size: int,
     keep_largest_cc: bool = True,
     predict_all: Optional[Callable] = None,
-    timing: Optional[Dict[str, float]] = None,
     dual: bool = True,
 ) -> Callable[[], List[Dict[int, np.ndarray]]]:
     """Queue the nets' case inference now; return a closure that finishes it.
@@ -138,43 +137,38 @@ def start_case_inference(
     ``predict_step``. Either way one copy to the host is queued behind the
     forwards. The closure returns a list aligned with ``cases`` of
     {net_index: (S, H, W) uint8} volumes (net_index 0 for a single net).
-
-    ``timing``, when given, accumulates "fetch" (dispatch, device compute
-    and the device->host copy, one bucket) and "host" (largest-CC on the
-    host), so an epoch's time_cases can be split.
+    Spans (``core.trace``): ``cases.dispatch`` (queueing), ``cases.fetch``
+    (the wait for the labels on the host), ``cases.cc`` (the largest
+    component of each volume).
     """
     case_ids, counts, n, padded = pack_case_stream(pipe, cases, batch_size)
     if n == 0:
         return lambda: []
 
-    t0 = time.perf_counter()
-    if predict_all is not None and pipe.device_image_data is not None:
-        out = predict_all(state, pipe.device_image_data, padded.reshape(-1, batch_size))
-        if not dual:
-            out = out.unsqueeze(1)
-        out = out.transpose(0, 1).reshape(out.shape[1], -1, *out.shape[3:])  # (nets, N*B, ..)
-    else:
-        # per-batch dispatch (host-batch pipelines)
-        out = [
-            predict_step(state, pipe.batch_at(padded[s : s + batch_size], images_only=True))
-            for s in range(0, len(padded), batch_size)
-        ]  # each (2, B, H, W) of the pair or (B, H, W) of a single net
-        out = torch.cat(out, dim=1) if dual else torch.cat(out)[None]
-    wait = start_host_copy(out)
-    dispatch_t = time.perf_counter() - t0
+    with trace.span("cases.dispatch"):
+        if predict_all is not None and pipe.device_image_data is not None:
+            out = predict_all(state, pipe.device_image_data, padded.reshape(-1, batch_size))
+            if not dual:
+                out = out.unsqueeze(1)
+            out = out.transpose(0, 1).reshape(out.shape[1], -1, *out.shape[3:])  # (nets, N*B, ..)
+        else:
+            # per-batch dispatch (host-batch pipelines)
+            out = [
+                predict_step(state, pipe.batch_at(padded[s : s + batch_size], images_only=True))
+                for s in range(0, len(padded), batch_size)
+            ]  # each (2, B, H, W) of the pair or (B, H, W) of a single net
+            out = torch.cat(out, dim=1) if dual else torch.cat(out)[None]
+        wait = start_host_copy(out)
 
     def finish() -> List[Dict[int, np.ndarray]]:
-        t1 = time.perf_counter()
-        stream = wait()[:, :n]  # the final pad dropped
-        fetch_t = dispatch_t + time.perf_counter() - t1
-        t1 = time.perf_counter()
-        volumes, offset = [], 0
-        for cnt in counts:
-            volumes.append(_postprocess_case(stream[:, offset : offset + cnt], keep_largest_cc))
-            offset += cnt
-        if timing is not None:
-            timing["fetch"] = timing.get("fetch", 0.0) + fetch_t
-            timing["host"] = timing.get("host", 0.0) + time.perf_counter() - t1
+        with trace.span("cases.fetch"):
+            stream = wait()[:, :n]  # the final pad dropped
+        with trace.span("cases.cc"):
+            volumes, offset = [], 0
+            for cnt in counts:
+                volumes.append(
+                    _postprocess_case(stream[:, offset : offset + cnt], keep_largest_cc))
+                offset += cnt
         return volumes
 
     return finish
@@ -187,37 +181,34 @@ def score_case_volumes(
     target_net: Union[int, str, None] = None,
     full_metrics: bool = False,
     keep_volumes: bool = False,
-    timing: Optional[Dict[str, float]] = None,
     dual: bool = True,
 ) -> Dict[int, List[CaseResult]]:
     """Score the nets' predicted case volumes into per-net CaseResult lists
-    (both nets', or net 0's for a single net).
+    (both nets', or net 0's for a single net), in the span ``cases.score``.
 
     ``target_net``: None scores against ground truth, 1/2 against that
     net's working labels, "self" each net against its own working labels
     (ground truth when the pipe carries none)."""
-    t0 = time.perf_counter()
-    results: Dict[int, List[CaseResult]] = {}
-    for net in range(2 if dual else 1):
-        per_case = []
-        for case, vols in zip(cases, volumes):
-            pred = vols[net]
-            if target_net == "self":
-                net_sel = (net + 1) if pipe.labels is not None else None
-                target = pipe.case_targets(str(case), net=net_sel)
-            else:
-                target = pipe.case_targets(str(case), net=target_net)
-            r = CaseResult(case_id=str(case), dice=dice3d_np(pred, target))
-            if full_metrics:
-                r.iou = _iou3d_np(pred, target)
-                r.tp, r.tn, r.fp, r.fn = _tp_tn_fp_fn_3d_np(pred, target)
-            if keep_volumes:
-                r.pred_volume = pred
-            per_case.append(r)
-        results[net] = per_case
-    if timing is not None:
-        timing["host"] = timing.get("host", 0.0) + time.perf_counter() - t0
-    return results
+    with trace.span("cases.score"):
+        results: Dict[int, List[CaseResult]] = {}
+        for net in range(2 if dual else 1):
+            per_case = []
+            for case, vols in zip(cases, volumes):
+                pred = vols[net]
+                if target_net == "self":
+                    net_sel = (net + 1) if pipe.labels is not None else None
+                    target = pipe.case_targets(str(case), net=net_sel)
+                else:
+                    target = pipe.case_targets(str(case), net=target_net)
+                r = CaseResult(case_id=str(case), dice=dice3d_np(pred, target))
+                if full_metrics:
+                    r.iou = _iou3d_np(pred, target)
+                    r.tp, r.tn, r.fp, r.fn = _tp_tn_fp_fn_3d_np(pred, target)
+                if keep_volumes:
+                    r.pred_volume = pred
+                per_case.append(r)
+            results[net] = per_case
+        return results
 
 
 def start_case_evaluation(
@@ -231,7 +222,6 @@ def start_case_evaluation(
     full_metrics: bool = False,
     keep_volumes: bool = False,
     predict_all: Optional[Callable] = None,
-    timing: Optional[Dict[str, float]] = None,
     dual: bool = True,
 ) -> Callable[[], Dict[int, List[CaseResult]]]:
     """Queue the case inference now; return a closure that fetches,
@@ -240,13 +230,13 @@ def start_case_evaluation(
     ``score_case_volumes``."""
     finish_infer = start_case_inference(
         predict_step, state, pipe, cases, batch_size, keep_largest_cc,
-        predict_all=predict_all, timing=timing, dual=dual,
+        predict_all=predict_all, dual=dual,
     )
 
     def finish() -> Dict[int, List[CaseResult]]:
         return score_case_volumes(
             pipe, cases, finish_infer(), target_net=target_net,
-            full_metrics=full_metrics, keep_volumes=keep_volumes, timing=timing, dual=dual,
+            full_metrics=full_metrics, keep_volumes=keep_volumes, dual=dual,
         )
 
     return finish
@@ -261,14 +251,13 @@ def infer_cases(
     dual: bool,
     keep_largest_cc: bool = True,
     predict_all: Optional[Callable] = None,
-    timing: Optional[Dict[str, float]] = None,
 ) -> List[Dict[int, np.ndarray]]:
     """Predicted volumes per case, post-processed: a list aligned with
     ``cases`` of {net_index: (S, H, W) uint8} (net_index 0 for a single
     net). ``start_case_inference`` run to its end."""
     return start_case_inference(
         predict_step, state, pipe, cases, batch_size, keep_largest_cc,
-        predict_all=predict_all, timing=timing, dual=dual,
+        predict_all=predict_all, dual=dual,
     )()
 
 
@@ -284,7 +273,6 @@ def evaluate_cases(
     full_metrics: bool = False,
     keep_volumes: bool = False,
     predict_all: Optional[Callable] = None,
-    timing: Optional[Dict[str, float]] = None,
 ) -> Dict[int, List[CaseResult]]:
     """Per-case 3D Dice (with ``full_metrics`` also IoU and the confusion
     counts) for each net, the volumes kept on the results with
@@ -293,5 +281,5 @@ def evaluate_cases(
     return start_case_evaluation(
         predict_step, state, pipe, cases, batch_size, target_net=target_net,
         keep_largest_cc=keep_largest_cc, full_metrics=full_metrics,
-        keep_volumes=keep_volumes, predict_all=predict_all, timing=timing, dual=dual,
+        keep_volumes=keep_volumes, predict_all=predict_all, dual=dual,
     )()

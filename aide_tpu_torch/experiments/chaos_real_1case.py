@@ -32,11 +32,11 @@ import tempfile
 import time
 
 from aide_tpu_torch.bench import device_info
+from aide_tpu_torch.core import trace
 from aide_tpu_torch.core.config import ModelConfig, TrainConfig
 from aide_tpu_torch.engine import checkpoint as ckpt_mod
 from aide_tpu_torch.engine import trainer as trainer_mod
 from aide_tpu_torch.experiments import reference
-from aide_tpu_torch.ops import cuda_warp
 
 REF_ROOT, REF_SPLIT = reference.chaos_paths(reference.REFERENCE)
 # the device the run uses: None is the first CUDA card (and raises without
@@ -92,9 +92,9 @@ def run(workdir: str, epochs: int, prepare=None) -> dict:
     trainer = trainer_mod.Trainer(cfg, device=DEVICE)
     if prepare is not None:
         prepare(trainer)
-    launched = cuda_warp.launches
+    launched = trace.totals()
     history = trainer.run(epochs)
-    launches = cuda_warp.launches - launched
+    launches = trace.delta(launched).get("warp.launches", 0)
     best = max(r["testcase_dice1"] for r in history)
     seconds = time.time() - t0
     return {

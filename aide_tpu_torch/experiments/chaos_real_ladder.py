@@ -57,6 +57,7 @@ import time
 import numpy as np
 
 from aide_tpu_torch.bench import device_info
+from aide_tpu_torch.core import trace
 from aide_tpu_torch.core.config import ModelConfig, TrainConfig
 from aide_tpu_torch.data.io import png
 from aide_tpu_torch.data.tasks.base import resize_mask
@@ -65,7 +66,6 @@ from aide_tpu_torch.engine import checkpoint as ckpt_mod
 from aide_tpu_torch.engine import trainer as trainer_mod
 from aide_tpu_torch.evaluation.case_eval import dice3d_np
 from aide_tpu_torch.experiments import reference
-from aide_tpu_torch.ops import cuda_warp
 
 REF_ROOT, REF_SPLIT = reference.chaos_paths(reference.REFERENCE)
 PSEUDO_DIR = "generated_masks/pretrain_1case_fuseunet_r1"
@@ -210,9 +210,9 @@ def run_stage(stage: str, workdir: str, epochs: int, prepare=None, **cfg_kw) -> 
 
     if prepare is not None:
         prepare(trainer, stage)
-    launched = cuda_warp.launches
+    launched = trace.totals()
     history = trainer.run(epochs)
-    launches = cuda_warp.launches - launched
+    launches = trace.delta(launched).get("warp.launches", 0)
     best = max(
         max(r.get("testcase_dice1", 0.0), r.get("testcase_dice2", 0.0)) for r in history
     )

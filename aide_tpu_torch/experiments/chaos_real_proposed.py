@@ -50,12 +50,12 @@ import tempfile
 import time
 
 from aide_tpu_torch.bench import device_info
+from aide_tpu_torch.core import trace
 from aide_tpu_torch.core.config import ModelConfig, TrainConfig
 from aide_tpu_torch.engine import checkpoint as ckpt_mod
 from aide_tpu_torch.engine import trainer as trainer_mod
 from aide_tpu_torch.evaluation.case_eval import dice3d_np
 from aide_tpu_torch.experiments import reference
-from aide_tpu_torch.ops import cuda_warp
 
 REF_ROOT, REF_SPLIT = reference.chaos_paths(reference.REFERENCE)
 PSEUDO_REL = "generated_masks/pretrain_1case_fuseunet_r1"
@@ -166,9 +166,9 @@ def run(workdir: str, epochs: int, prepare=None) -> dict:
     trainer.on_refresh = on_refresh
     if prepare is not None:
         prepare(trainer)
-    launched = cuda_warp.launches
+    launched = trace.totals()
     history = trainer.run(epochs)
-    launches = cuda_warp.launches - launched
+    launches = trace.delta(launched).get("warp.launches", 0)
 
     best = {n: max(r[f"testcase_dice{n}"] for r in history) for n in (1, 2)}
     # the reference's deployment rule: the checkpoint saved at the best

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from aide_tpu_torch.bench import device_info
+from aide_tpu_torch.core import trace
 from aide_tpu_torch.core.config import ModelConfig, TrainConfig
 from aide_tpu_torch.data.pipeline import SlicePipeline
 from aide_tpu_torch.data.tasks.base import resize_mask
@@ -58,7 +59,6 @@ from aide_tpu_torch.engine.state import TrainState
 from aide_tpu_torch.engine.trainer import Trainer, resolve_device
 from aide_tpu_torch.evaluation.case_eval import dice3d_np, evaluate_cases, infer_cases
 from aide_tpu_torch.models import build_model
-from aide_tpu_torch.ops import cuda_warp
 
 NUM_CASES = 18
 CLEAN_CASES = 4
@@ -295,9 +295,9 @@ def run(stage: str, workdir: str, epochs: int, resume: str = "", pseudo_from: st
         trainer.on_refresh = on_refresh
     if prepare is not None:
         prepare(trainer, stage)
-    launched = cuda_warp.launches
+    launched = trace.totals()
     history = trainer.run(epochs)
-    launches = cuda_warp.launches - launched
+    launches = trace.delta(launched).get("warp.launches", 0)
     last = history[-1]
     best_test = max(
         max(r.get("testcase_dice1", 0.0), r.get("testcase_dice2", 0.0)) for r in history

@@ -72,6 +72,8 @@ from typing import Tuple
 
 import torch
 
+from aide_tpu_torch.core import trace
+
 SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "csrc",
@@ -136,15 +138,7 @@ def smem_bytes(c: int) -> int:
     return (BOX_SIDE * ((BOX_SIDE * c) | 1) + c) * 4
 
 
-# Kernel launches since the last reset; only the wrapper's launch adds to it.
-launches = 0
-
 _lib = None
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
 
 
 # ----------------------------- parameters -----------------------------
@@ -386,8 +380,8 @@ def launch(
 ) -> torch.Tensor:
     """Run the kernel on CUDA tensors: images (N, S, S, C) contiguous f32,
     table (N, 4) f32, fill (N, C) f32, all on one device; the (N, R, S, C)
-    output rows ``rows`` = (row0, R) (None: all S)."""
-    global launches
+    output rows ``rows`` = (row0, R) (None: all S). Each launch adds one
+    to the ``warp.launches`` counter (``core.trace``)."""
     n, s, s2, c = images.shape
     if s != s2:
         raise ValueError(f"warp kernel needs a square image, got {s}x{s2}")
@@ -423,7 +417,7 @@ def launch(
         )
     if err != 0:
         raise RuntimeError(f"warp_rotate_flip kernel launch failed: CUDA error {err}")
-    launches += 1
+    trace.add("warp.launches")
     return out
 
 

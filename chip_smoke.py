@@ -416,6 +416,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def warp_launches() -> int:
+    """The TTA warp kernel's launches so far in this process (the port's
+    ``warp.launches`` counter)."""
+    from aide_tpu_torch.core import trace
+
+    return trace.totals().get("warp.launches", 0)
+
+
 def time_cuda(fn, runs: int = 30, warmup: int = 5, flush=None) -> float:
     """Median ms of ``fn`` over ``runs`` calls, each between CUDA events;
     ``flush`` runs before each call, outside the events."""
@@ -826,7 +834,7 @@ def check_unfused_test(trainer, row) -> None:
 def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
     """Trainer.run(epochs) with the step times (host clock around a
     synchronised step), the warp launches of each train epoch and of the
-    whole run (the count set to 0 just before and read just after), the
+    whole run (the counter's increase over it), the
     epochs the best-checkpoint gate logged, each refresh's case dice
     {(epoch, net index): {case: dice}}, and the peak of
     max_memory_allocated. ``runner(epochs)`` runs the epochs instead of
@@ -847,9 +855,9 @@ def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
         return out
 
     def counted_epoch(*args):
-        before = cuda_warp.launches
+        before = warp_launches()
         out = inner_epoch(*args)
-        train_launches.append(cuda_warp.launches - before)
+        train_launches.append(warp_launches() - before)
         return out
 
     def gate(epoch, *args, **kw):
@@ -867,10 +875,10 @@ def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
         timed_step, counted_epoch, gate, refresh)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    cuda_warp.reset_launches()
+    launched = warp_launches()
     rows = (runner or trainer.run)(epochs)
     torch.cuda.synchronize()
-    launches = cuda_warp.launches
+    launches = warp_launches() - launched
     peak = torch.cuda.max_memory_allocated()
     trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint, trainer._refresh_labels = (
         inner_step, inner_epoch, inner_gate, inner_refresh)
@@ -1048,9 +1056,9 @@ def run_kidney(cuda_warp, scratch):
     inner_probe = trainer._bootstrap_skill_probe
 
     def probe():
-        before = cuda_warp.launches
+        before = warp_launches()
         inner_probe()
-        probes.append((trainer.state.step, cuda_warp.launches - before))
+        probes.append((trainer.state.step, warp_launches() - before))
 
     trainer._bootstrap_skill_probe = probe
     dual = drive(trainer, cuda_warp)
@@ -1247,13 +1255,13 @@ def cli_command(cuda_warp, argv) -> tuple:
     from aide_tpu_torch.cli.main import main as cli
 
     buf = io.StringIO()
-    cuda_warp.reset_launches()
+    launched = warp_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli(argv)
     seconds = time.perf_counter() - t0
-    if rc != 0 or cuda_warp.launches:
-        fail(f"{argv[0]} {argv[1:]}: rc {rc}, {cuda_warp.launches} warp launches")
+    if rc != 0 or warp_launches() != launched:
+        fail(f"{argv[0]} {argv[1:]}: rc {rc}, {warp_launches() - launched} warp launches")
     return json.loads(buf.getvalue()), seconds
 
 
@@ -1458,9 +1466,9 @@ def zoo_steps(cuda_warp, scratch, name, base_width, per_step) -> dict:
 
     trainer.train_step = timed_step
     torch.cuda.reset_peak_memory_stats()
-    cuda_warp.reset_launches()
+    launched = warp_launches()
     m = trainer._train_epoch(0, 0.5)
-    launches = cuda_warp.launches
+    launches = warp_launches() - launched
     trainer.train_step = inner
     run = dict(step_ms=step_ms, launches=launches, outside=0, peak=torch.cuda.max_memory_allocated(),
                steady=statistics.median(step_ms[1:]))
@@ -1723,9 +1731,9 @@ def run_augment_supervised(cuda_warp, scratch, kidney_sup):
     def augment(batch, degrees, hflip):
         out = inner(batch, degrees, hflip)
         if not checked:
-            before = cuda_warp.launches  # the comparison's own launches do not count
+            before = warp_launches()  # the comparison's own launches do not count
             check_augment_plain(cuda_warp, trainer, batch, degrees, hflip, out)
-            checked.append(cuda_warp.launches - before)
+            checked.append(warp_launches() - before)
         return out
 
     trainer.augment_batch = augment

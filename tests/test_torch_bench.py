@@ -271,6 +271,9 @@ def test_main_prints_the_bench_keys(jbench, points, workdir, capsys, mode):
         # warm-up step 0 and the steps around it untraced
         assert row["profile_traced_steps"] == [1, 2, 3]
         assert row["profile_trace_bytes"] == os.path.getsize(workdir / "prof" / "trace.json")
+        # the traced steps' device time by program span: none on the CPU
+        assert row["profile_spans"] == {"device_ms": {}, "idle_ms": {}, "kernel_ms": 0.0,
+                                        "busy_ms": 0.0}
         with open(workdir / "prof" / "trace.json") as fh:
             events = json.load(fh)["traceEvents"]
         assert {e["name"] for e in events if e.get("name", "").startswith("ProfilerStep#")} == {

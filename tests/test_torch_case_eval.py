@@ -35,6 +35,7 @@ from aide_tpu.engine.trainer import Trainer as JTrainer
 from aide_tpu.evaluation import case_eval as jce
 from aide_tpu.ops.cc import keep_largest_connected_components as jax_cc
 
+from aide_tpu_torch.core import trace
 from aide_tpu_torch.core.config import TrainConfig
 from aide_tpu_torch.data.io import png
 from aide_tpu_torch.data.pipeline import SlicePipeline
@@ -161,9 +162,10 @@ def test_score_case_volumes_equals_jax(pipes, target_net):
     ]
     kw = dict(target_net=target_net, full_metrics=True, keep_volumes=True)
     want = jce.score_case_volumes(jp, cases, volumes, dual=True, **kw)
-    timing = {}
-    got = tce.score_case_volumes(tp, cases, volumes, timing=timing, **kw)
-    assert set(got) == set(want) == {0, 1} and timing["host"] >= 0.0
+    before = trace.totals()
+    got = tce.score_case_volumes(tp, cases, volumes, **kw)
+    assert set(got) == set(want) == {0, 1}
+    assert {k: v[1] for k, v in trace.delta(before).items()} == {"cases.score": 1}
     for n in want:
         for g, w in zip(got[n], want[n]):
             assert (g.case_id, g.dice, g.iou, g.tp, g.tn, g.fp, g.fn) == (
@@ -231,16 +233,18 @@ def test_case_inference_paths_agree(predict_pair):
     _, tr = predict_pair
     cases = list(tr.train_pipe.cases)
     kw = dict(batch_size=5, keep_largest_cc=True)
-    timing = {}
+    before = trace.totals()
     whole = tce.start_case_inference(
-        tr.predict_step, tr.state, tr.train_pipe, cases, predict_all=tr.predict_all,
-        timing=timing, **kw)()
+        tr.predict_step, tr.state, tr.train_pipe, cases, predict_all=tr.predict_all, **kw)()
+    spans = trace.delta(before)
     per_batch = tce.start_case_inference(tr.predict_step, tr.state, tr.train_pipe, cases, **kw)()
     assert len(whole) == len(per_batch) == len(cases)
     for a, b in zip(whole, per_batch):
         for net in (0, 1):
             assert a[net].dtype == np.uint8 and np.array_equal(a[net], b[net])
-    assert set(timing) == {"fetch", "host"}
+    # the dispatch, the wait for the labels and the largest component, once each
+    assert {k: v[1] for k, v in spans.items()} == {"cases.dispatch": 1, "cases.fetch": 1,
+                                                   "cases.cc": 1}
 
 
 def test_bootstrap_skill_probe_matches_jax(predict_pair):

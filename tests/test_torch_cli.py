@@ -451,7 +451,11 @@ def test_cli_train_then_eval_own_export(tmp_path):
     rc, out = _run(main, ["train", *common, "--epochs", "1", "--device", "cpu",
                           "--profile", f"{work}/prof"])
     assert rc == 0 and json.loads(out)["profile_dir"] == f"{work}/prof"
-    assert any(f.endswith(".json") for f in os.listdir(f"{work}/prof"))
+    (trace,) = [f for f in os.listdir(f"{work}/prof") if f.endswith(".json")]
+    with open(f"{work}/prof/{trace}") as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    # the program's spans are in the written trace, beside the ops
+    assert {"train.step", "step.views", "train.data", "epoch.cases", "refresh.write"} <= names
     cfg = get_preset("synthetic_smoke")
     with open(f"{work}/hist/{cfg.experiment_name}_history.json") as fh:
         history = json.load(fh)

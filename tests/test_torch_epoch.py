@@ -263,7 +263,7 @@ def test_host_batches_take_the_unfused_path_to_the_same_epoch(tmp_path):
         cfg.history_dir = str(tmp_path / cache)
         task = SyntheticTask(root=str(tmp_path / cache), **TASK_ARGS)
         tr = ttrainer.Trainer(cfg, task, device="cpu")
-        assert (tr._dispatch_fused_test({}) is None) == (cache == "off")
+        assert (tr._dispatch_fused_test() is None) == (cache == "off")
         # both trainers initialise their nets from cfg.seed and draw their
         # views from (seed, epoch, step)
         out[cache] = (tr, [tr.run_epoch(e) for e in range(2)])

@@ -70,6 +70,7 @@ from aide_tpu_torch.evaluation.case_eval import dice3d_np  # noqa: E402
 from aide_tpu_torch.experiments import aide_sweep as SWEEP  # noqa: E402
 from aide_tpu_torch.experiments import synthetic_aide as SA  # noqa: E402
 from aide_tpu_torch.interop.weights import load_variables  # noqa: E402
+from aide_tpu_torch.core import trace  # noqa: E402
 from aide_tpu_torch.ops import cuda_warp  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -567,9 +568,9 @@ def test_cuda_kernel_at_the_flagship_shapes(cuda_device, shape, inverse):
     d = torch.from_numpy(rng.uniform(-45, 45, shape[0]).astype(np.float32)).to(cuda_device)
     h = torch.from_numpy((rng.random(shape[0]) < 0.5).astype(np.float32)).to(cuda_device)
     f = torch.from_numpy(rng.normal(size=(shape[0], shape[3])).astype(np.float32)).to(cuda_device)
-    before = cuda_warp.launches
+    before = trace.totals()
     got = cuda_warp.warp_rotate_flip(x, d, h, f, inverse=inverse)
-    assert cuda_warp.launches == before + 1
+    assert trace.delta(before) == {"warp.launches": 1}
     table = cuda_warp.coef_table(d, h, inverse)
     ref = cuda_warp.warp_plain(x, table, cuda_warp.fill_table(f, shape[0], shape[3], cuda_device),
                                inverse)

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from aide_tpu_torch.core import trace
 from aide_tpu_torch.ops import cuda_warp, warp
 
 
@@ -53,6 +54,11 @@ BOUNDARY_DEGS = np.array([44.9, 45.0, 45.1, -44.9, -45.0, -45.1, 135.0, -135.0, 
 WIDE_DEGS = np.array([180.0, 200.0, 217.5, 230.0, 250.0, 265.0, 269.5, 269.99, 270.0, 300.0,
                       360.0, 540.0, 720.0], np.float32)
 WIDE_DEGS = np.concatenate([WIDE_DEGS, -WIDE_DEGS])
+
+
+def launches() -> int:
+    """The warp kernel's launches so far (the port's ``warp.launches``)."""
+    return trace.totals().get("warp.launches", 0)
 
 
 def _inputs(c, fill_kind, size=32, seed=0):
@@ -191,11 +197,11 @@ def test_kernel_wrapper_rejects_non_square():
 
 def test_launch_counter_does_not_move_on_cpu_tensors():
     images, degrees, hflip, fill = _inputs(2, "image")
-    cuda_warp.reset_launches()
+    before = trace.totals()
     for inverse in (False, True):
         cuda_warp.warp_rotate_flip(torch.from_numpy(images), torch.from_numpy(degrees),
                                    torch.from_numpy(hflip), torch.from_numpy(fill), inverse)
-    assert cuda_warp.launches == 0
+    assert "warp.launches" not in trace.delta(before)
 
 
 def test_dtype_round_trip_computes_in_f32():
@@ -324,9 +330,9 @@ def _cuda_matches_plain(device, images, degrees, hflip, fill, inverse):
     d = torch.from_numpy(degrees).to(device)
     h = torch.from_numpy(hflip).to(device)
     f = torch.from_numpy(fill).to(device)
-    before = cuda_warp.launches
+    before = launches()
     got = cuda_warp.warp_rotate_flip(x, d, h, f, inverse=inverse)
-    assert cuda_warp.launches == before + 1
+    assert launches() == before + 1
     table = cuda_warp.coef_table(d, h, inverse)
     ref = cuda_warp.warp_plain(x, table, cuda_warp.fill_table(f, x.shape[0], x.shape[3], device),
                                inverse)
@@ -363,9 +369,9 @@ def test_cuda_kernel_past_180(cuda_device, size, c, inverse):
     f = torch.from_numpy(rng.normal(size=(len(degrees), c)).astype(np.float32))
     x, f = x.to(cuda_device), f.to(cuda_device)
     d, h = torch.from_numpy(degrees).to(cuda_device), torch.from_numpy(hflip).to(cuda_device)
-    before = cuda_warp.launches
+    before = launches()
     got = cuda_warp.warp_rotate_flip(x, d, h, f, inverse=inverse)
-    assert cuda_warp.launches == before + 1
+    assert launches() == before + 1
     table = cuda_warp.coef_table(d, h, inverse)
     ref = cuda_warp.warp_plain(x, table, cuda_warp.fill_table(f, len(x), c, cuda_device), inverse)
     torch.cuda.synchronize()
@@ -402,9 +408,9 @@ def test_cuda_kernel_row_window(cuda_device, size, rows, inverse):
     x = torch.from_numpy(images.astype(np.float32)).to(cuda_device)
     d, h = torch.from_numpy(degrees).to(cuda_device), torch.from_numpy(hflip).to(cuda_device)
     f = torch.from_numpy(fill.astype(np.float32)).to(cuda_device)
-    before = cuda_warp.launches
+    before = launches()
     got = cuda_warp.warp_rotate_flip(x, d, h, f, inverse=inverse, rows=rows)
-    assert cuda_warp.launches == before + 1 and tuple(got.shape) == (len(x), rows[1], size, 3)
+    assert launches() == before + 1 and tuple(got.shape) == (len(x), rows[1], size, 3)
     whole = cuda_warp.warp_rotate_flip(x, d, h, f, inverse=inverse)
     table = cuda_warp.coef_table(d, h, inverse)
     ref = cuda_warp.warp_plain(x, table, cuda_warp.fill_table(f, len(x), 3, cuda_device), inverse,
