@@ -58,6 +58,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from aide_tpu_torch.core import trace
 from aide_tpu_torch.core.config import ModelConfig, TrainConfig
 from aide_tpu_torch.data.tasks.synthetic import SyntheticTask
+from aide_tpu_torch.engine import graphs
 from aide_tpu_torch.engine.trainer import Trainer, resolve_device
 from aide_tpu_torch.evaluation.case_eval import evaluate_cases, infer_cases
 from aide_tpu_torch.ops import cc
@@ -167,12 +168,15 @@ def _sync(device: torch.device) -> None:
 
 def time_bare_steps(trainer: Trainer, cfg: TrainConfig, iters: int = BARE_STEPS):
     """The trainer's own train step on the first batch of the train set,
-    with the view parameters drawn as ``run_epoch`` draws them: one warm
-    step, then ``iters`` timed steps on the host clock after a synchronise.
-    Returns (mean step seconds, model FLOPs of one step, warp kernel
-    launches over the ``iters`` timed steps). The steps advance the state,
-    as an epoch's would, and so does the one extra step that the FLOP
-    counter watches."""
+    with the view parameters drawn as ``run_epoch`` draws them: warm steps
+    until the step replays its CUDA graph on a card (``engine.graphs``:
+    the eager steps and the capture), then ``iters`` timed steps on the
+    host clock after a synchronise.
+    Returns (mean step seconds, model FLOPs of one step, (the warp
+    kernel's host-called launches, the steps that replayed the graph,
+    whose warp kernels launched with it) over the ``iters`` timed steps).
+    The steps advance the state, as an epoch's would, and so does the one
+    extra step that the FLOP counter watches."""
     b = cfg.data.batch_size
     batch = trainer._on_device(trainer.train_pipe.batch_at(np.arange(b)))
     device = trainer.device
@@ -187,8 +191,9 @@ def time_bare_steps(trainer: Trainer, cfg: TrainConfig, iters: int = BARE_STEPS)
             return trainer.train_step(trainer.state, batch)
         loss_key = "loss"
 
-    # the warm step's index lies far outside the timed range
-    float(step(1_000_000)[loss_key])
+    # the warm steps' indices lie far outside the timed range
+    for w in range(graphs.WARM_STEPS + 1):
+        float(step(1_000_000 + w)[loss_key])
     _sync(device)
     launched = trace.totals()
     t0 = time.perf_counter()
@@ -197,11 +202,12 @@ def time_bare_steps(trainer: Trainer, cfg: TrainConfig, iters: int = BARE_STEPS)
     float(m[loss_key])
     _sync(device)
     dt = (time.perf_counter() - t0) / iters
-    launches = trace.delta(launched).get("warp.launches", 0)
+    spent = trace.delta(launched)
+    counted = (spent.get("warp.launches", 0), spent.get("train.graph_replays", 0))
     # FlopCounterMode dispatches every op through Python: never timed
     with FlopCounterMode(display=False) as counter:
         float(step(iters)[loss_key])
-    return dt, counter.get_total_flops(), launches
+    return dt, counter.get_total_flops(), counted
 
 
 def _card_ids(device: torch.device) -> set:
@@ -468,7 +474,7 @@ def _run(args, device: torch.device, partial: Dict) -> int:
     trainer.run_epoch(0)
     log("warm-up done; timing bare train steps...")
 
-    dt, flops, launches = time_bare_steps(trainer, cfg, BARE_STEPS)
+    dt, flops, (launches, replays) = time_bare_steps(trainer, cfg, BARE_STEPS)
     baseline = SUPERVISED_BASELINE_S if args.supervised else BASELINE_EPOCH_S
     epoch_slices = EPOCH_SLICES if args.task == "chaos" else len(trainer.train_pipe)
     step_epoch_s = epoch_slices * dt / args.batch
@@ -484,6 +490,7 @@ def _run(args, device: torch.device, partial: Dict) -> int:
         "bare_steps": BARE_STEPS,
         "warp_launches_timed": launches,
         "warp_launches_per_step": launches / BARE_STEPS,
+        "graph_replays_timed": replays,
     })
 
     metric_name = (
@@ -515,8 +522,11 @@ def _run(args, device: torch.device, partial: Dict) -> int:
         else:
             row = trainer.run_epoch(1)
         value = float(row["time"])
-        # every train step's launches, none in the test pass or case evaluation
-        extras["warp_launches_epoch"] = trace.delta(launched).get("warp.launches", 0)
+        # the eager train steps' launches, none in the test pass or case
+        # evaluation; the replayed steps' go with their graph
+        spent = trace.delta(launched)
+        extras["warp_launches_epoch"] = spent.get("warp.launches", 0)
+        extras["graph_replays_epoch"] = spent.get("train.graph_replays", 0)
         extras["full_epoch_includes"] = (
             "train+test_eval+case reinference+checkpoint"
             if args.supervised

@@ -33,7 +33,13 @@ The names, at the layer boundaries:
 * checkpoint and refresh: ``ckpt.snapshot``, ``ckpt.backup`` (the best
   epoch's tempmask copy), ``refresh.write`` (a case's tempmask files),
   ``refresh.sync`` (the changed labels to the card);
-* the counter ``warp.launches``: the TTA warp kernel's launches.
+* the counter ``warp.launches``: the TTA warp kernel's launches, counted
+  where ``ops.cuda_warp.launch`` is called (a replayed train step's graph
+  launches its warp kernels without that call: a device trace counts
+  them);
+* the counters ``train.graph_replays``, ``train.graph_captures`` and
+  ``train.graph_eager`` (``engine.graphs``): one a train step, as it ran.
+  A replayed step closes ``train.step`` and no ``step.*`` span.
 
 ``by_span(events)`` reads a finished profiler's events: each kernel's
 device time under the innermost span open when the host op that launched

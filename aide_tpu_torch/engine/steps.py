@@ -18,7 +18,12 @@ test can hand the step the JAX package's stream.
 Each train step opens the span ``train.step`` (``core.trace``) around
 ``step.views`` (co-teaching), ``step.forward``, ``step.backward``,
 ``step.optimizer`` and ``step.metrics``: inside any wrapper that a caller
-puts on ``Trainer.train_step``.
+puts on ``Trainer.train_step``. Inside ``train.step`` the step's device
+work runs through ``engine.graphs.StepGraphs``: on one card as a replayed
+CUDA graph, whose steps close no ``step.*`` span, elsewhere eagerly. The
+per-step host numbers (the co-teaching rate's ``1 - rate`` and
+``consistency_weight * rate``, the optimizer's ``hyper()``) reach the
+device work as one f32 vector, with the values the Python floats had.
 
 ``make_supervised_train_step`` is the comparison trainer's step: one
 forward in train-mode BN that updates the running stats, the scalar
@@ -73,6 +78,7 @@ net, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -81,6 +87,7 @@ import torch.nn.functional as F
 
 from aide_tpu_torch.core import mesh, trace
 from aide_tpu_torch.core.config import TrainConfig
+from aide_tpu_torch.engine.graphs import StepGraphs
 from aide_tpu_torch.engine.state import DualTrainState, NetRankState, TrainState
 from aide_tpu_torch.models import blocks
 from aide_tpu_torch.ops import losses, metrics, tta, warp
@@ -143,6 +150,14 @@ def make_image_criterion(cfg: TrainConfig):
 
 
 TARGETS = ("target", "target1", "target2")
+
+
+@functools.lru_cache(maxsize=None)
+def batch_count(b: int, device: torch.device) -> torch.Tensor:
+    """The ``count`` metric of a train step over b images: one f32
+    constant a batch size and device, filled on the device once (no copy
+    from the host, no wait). Read only: callers add it, never into it."""
+    return torch.full((), float(b), dtype=torch.float32, device=device)
 
 
 def _window(local: torch.Tensor):
@@ -209,11 +224,10 @@ def make_supervised_train_step(two_modal: bool, cfg: TrainConfig):
     stats, optimizer moments)."""
     criterion = make_criterion(cfg)
     thr = cfg.eval.threshold
+    graphs = StepGraphs()
 
-    def step(state: TrainState, batch, sharded: bool = False,
-             spatial: bool = False) -> Dict[str, torch.Tensor]:
-        with trace.span("train.step"), blocks.global_batch_stats(sharded or spatial), \
-                blocks.space_partition(spatial):
+    def body(state: TrainState, batch, hyper, sharded: bool, spatial: bool):
+        with blocks.global_batch_stats(sharded or spatial), blocks.space_partition(spatial):
             with trace.span("step.forward"):
                 images = batch_images(batch, two_modal)
                 target = batch["target"]
@@ -229,13 +243,20 @@ def make_supervised_train_step(two_modal: bool, cfg: TrainConfig):
                 (loss / mesh.replicas(spatial)[1]).backward()
             with trace.span("step.optimizer"):
                 mesh.all_reduce_grads(state.optimizer.params(), spatial)
+                state.optimizer.given = hyper
                 state.optimizer.step()
             with trace.span("step.metrics"), torch.no_grad():
                 return {
                     "loss": loss.detach(),
                     "dice_sum": metrics.dice_fn(logits, target, threshold=thr),
-                    "count": torch.tensor(float(target.shape[0]), device=loss.device),
+                    "count": batch_count(target.shape[0], loss.device),
                 }
+
+    def step(state: TrainState, batch, sharded: bool = False,
+             spatial: bool = False) -> Dict[str, torch.Tensor]:
+        with trace.span("train.step"):
+            return graphs(lambda st, bt, hyper: body(st, bt, hyper, sharded, spatial),
+                          state, batch, (), state.optimizer.hyper())
 
     return step
 
@@ -285,10 +306,13 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
         pseudo = tta.sharpen(avg, ct.temperature, ct.sharpen_mode)
         return pseudo, tta.confidence_weightmap(pseudo)
 
-    def side(pre, out, order_other, pseudo_other, wmap_other, rate):
+    def side(pre, out, order_other, pseudo_other, wmap_other, terms):
         """One net's loss: its seg loss on the partner's clean rows (and the
-        suspect ones down-weighted) plus the consistency with the partner's
-        pseudo-labels on the suspect rows."""
+        suspect ones down-weighted by ``1 - rate``) plus the consistency with
+        the partner's pseudo-labels on the suspect rows, weighted by
+        ``consistency_weight * rate``: ``terms`` holds the two 0-dim
+        factors."""
+        keep, weight = terms
         b = pre.shape[0]
         k_clean = max(1, min(b - 1, int(round(ct.clean_fraction * b))))
         clean = order_other[:k_clean]
@@ -297,20 +321,20 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
             # b and k_clean are fixed per batch size: with b == 1 there
             # is no suspect share (its mean would be NaN)
             suspect = order_other[k_clean:]
-            seg = seg + (1.0 - rate) * pre[suspect].mean()
+            seg = seg + keep * pre[suspect].mean()
             cons_map = wmap_other * losses.multiclass_mse_loss(
                 out, pseudo_other, reduction="none"
             )
             cons = cons_map.mean(dim=(1, 2, 3))[suspect].mean()
         else:
             cons = torch.zeros((), dtype=seg.dtype, device=seg.device)
-        return ct.seg_weight * seg + ct.consistency_weight * rate * cons
+        return ct.seg_weight * seg + weight * cons
 
     def check_views(degrees, b):
         if tuple(degrees.shape) != (num_views, b):
             raise ValueError(f"view params must be ({num_views}, {b}), got {tuple(degrees.shape)}")
 
-    def pair_step(state: DualTrainState, batch, degrees, hflip, rate, sharded, spatial):
+    def pair_step(state: DualTrainState, batch, degrees, hflip, scalars, sharded, spatial):
         with blocks.global_batch_stats(sharded or spatial), blocks.space_partition(spatial):
             images = batch_images(batch, two_modal)
             t1, t2 = batch["target1"], batch["target2"]
@@ -349,13 +373,14 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
                 pre2 = image_criterion(out2, t1)
                 order1 = torch.argsort(pre1.detach(), stable=True)
                 order2 = torch.argsort(pre2.detach(), stable=True)
-                loss1 = side(pre1, out1, order2, pseudo[1], wmap[1], rate)
-                loss2 = side(pre2, out2, order1, pseudo[0], wmap[0], rate)
+                loss1 = side(pre1, out1, order2, pseudo[1], wmap[1], scalars[:2])
+                loss2 = side(pre2, out2, order1, pseudo[0], wmap[0], scalars[:2])
             with trace.span("step.backward"):
                 state.optimizer.zero_grad(set_to_none=True)
                 ((loss1 + loss2) / mesh.replicas(spatial)[1]).backward()
             with trace.span("step.optimizer"):
                 mesh.all_reduce_grads(state.optimizer.params(), spatial)
+                state.optimizer.given = scalars[2:]
                 state.optimizer.step()
             with trace.span("step.metrics"), torch.no_grad():
                 return {
@@ -363,10 +388,10 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
                     "loss2": loss2.detach(),
                     "dice1_sum": metrics.dice_fn(out1, t2, threshold=thr),
                     "dice2_sum": metrics.dice_fn(out2, t1, threshold=thr),
-                    "count": torch.tensor(float(b), device=loss1.device),
+                    "count": batch_count(b, loss1.device),
                 }
 
-    def net_rank_step(state: NetRankState, batch, degrees, hflip, rate, sharded, spatial):
+    def net_rank_step(state: NetRankState, batch, degrees, hflip, scalars, sharded, spatial):
         """Net k = ``state.index`` of the pair on its rank: its own views'
         forwards and inverse warp, its main forward and its loss alone, its
         gradients summed over its data group. What crosses the pair needs no
@@ -404,12 +429,13 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
                 order_other = torch.argsort(pres[1 - k], stable=True)
                 c = pseudo.shape[-1]
                 loss = side(pre, out, order_other, pws[1 - k][..., :c], pws[1 - k][..., c:],
-                            rate)
+                            scalars[:2])
             with trace.span("step.backward"):
                 state.optimizer.zero_grad(set_to_none=True)
                 (loss / mesh.replicas(spatial)[1]).backward()
             with trace.span("step.optimizer"):
                 mesh.all_reduce_grads(state.optimizer.params(), spatial)
+                state.optimizer.given = scalars[2:]
                 state.optimizer.step()
             with trace.span("step.metrics"):
                 (both,) = mesh.pair_exchange(loss)
@@ -418,14 +444,21 @@ def make_coteach_train_step(two_modal: bool, cfg: TrainConfig):
                     "loss2": both[1],
                     "dice1_sum": dices[0],
                     "dice2_sum": dices[1],
-                    "count": torch.tensor(float(b), device=both.device),
+                    "count": batch_count(b, both.device),
                 }
+
+    graphs = StepGraphs()
 
     def step(state, batch, degrees, hflip, rate, sharded: bool = False,
              spatial: bool = False) -> Dict[str, torch.Tensor]:
         run = net_rank_step if isinstance(state, NetRankState) else pair_step
         with trace.span("train.step"):
-            return run(state, batch, degrees, hflip, rate, sharded, spatial)
+            # [1 - rate, consistency_weight * rate, *hyper()]: the floats
+            # the eager step multiplied by, rounded to f32 as it rounded them
+            host = (1.0 - rate, ct.consistency_weight * rate) + state.optimizer.hyper()
+            return graphs(
+                lambda st, bt, d, h, scalars: run(st, bt, d, h, scalars, sharded, spatial),
+                state, batch, (degrees, hflip), host)
 
     return step
 

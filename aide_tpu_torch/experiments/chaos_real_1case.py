@@ -12,8 +12,9 @@ it trains FuseUNet on case 37's 30 DICOM slice pairs, validates every epoch
 on case 10, and reports the final case-10 Dice.
 
 It prints one JSON line, the JAX program's keys plus ``seconds``,
-``train_steps``, ``warp_launches`` (the TTA warp kernel's launches in
-``Trainer.run``: 0, the run is supervised), ``checkpoint`` (the best
+``train_steps``, ``warp_launches`` (the TTA warp kernel's host-called
+launches in ``Trainer.run``: 0, the run is supervised), ``graph_replays``
+(the train steps replayed as a CUDA graph), ``checkpoint`` (the best
 epoch's export), ``device_name`` and ``power_limit_w``; ``--out`` writes it.
 
 Usage: python -m aide_tpu_torch.experiments.chaos_real_1case [--epochs N]
@@ -94,7 +95,8 @@ def run(workdir: str, epochs: int, prepare=None) -> dict:
         prepare(trainer)
     launched = trace.totals()
     history = trainer.run(epochs)
-    launches = trace.delta(launched).get("warp.launches", 0)
+    spent = trace.delta(launched)
+    launches, replays = spent.get("warp.launches", 0), spent.get("train.graph_replays", 0)
     best = max(r["testcase_dice1"] for r in history)
     seconds = time.time() - t0
     return {
@@ -109,6 +111,7 @@ def run(workdir: str, epochs: int, prepare=None) -> dict:
         "seconds": seconds,
         "train_steps": len(history) * trainer.train_pipe.steps_per_epoch(cfg.data.batch_size),
         "warp_launches": launches,
+        "graph_replays": replays,
         "checkpoint": ckpt_mod.best_net_path(cfg.checkpoint_dir, cfg.experiment_name),
         **device_info(trainer.device),
     }

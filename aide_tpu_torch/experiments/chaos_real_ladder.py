@@ -31,10 +31,12 @@ oracle improving, not the golden values.
 
 Each stage prints its initial pseudo-label quality, one line a refresh
 (aide) and its JSON line: the JAX program's keys plus ``seconds``,
-``train_steps``, ``warp_launches`` (the TTA warp kernel's launches in the
-stage's ``Trainer.run``: 3 a step in the aide rung, 0 in the naive one) and
-``checkpoint`` (the best epoch's export, net 1 of the pair in the aide
-rung); the last line adds the card's name and power limit.
+``train_steps``, ``warp_launches`` (the TTA warp kernel's host-called
+launches in the stage's ``Trainer.run``: 3 an eager or captured step in
+the aide rung, 0 in the naive one), ``graph_replays`` (the steps replayed
+as a CUDA graph, whose warp kernels launch with it) and ``checkpoint``
+(the best epoch's export, net 1 of the pair in the aide rung); the last
+line adds the card's name and power limit.
 ``model.packed`` and ``model.packed_block_barrier`` are set as the JAX
 program sets them and change nothing: the port runs the plain network.
 
@@ -212,7 +214,8 @@ def run_stage(stage: str, workdir: str, epochs: int, prepare=None, **cfg_kw) -> 
         prepare(trainer, stage)
     launched = trace.totals()
     history = trainer.run(epochs)
-    launches = trace.delta(launched).get("warp.launches", 0)
+    spent = trace.delta(launched)
+    launches, replays = spent.get("warp.launches", 0), spent.get("train.graph_replays", 0)
     best = max(
         max(r.get("testcase_dice1", 0.0), r.get("testcase_dice2", 0.0)) for r in history
     )
@@ -244,6 +247,7 @@ def run_stage(stage: str, workdir: str, epochs: int, prepare=None, **cfg_kw) -> 
         "seconds": seconds,
         "train_steps": len(history) * pipe.steps_per_epoch(cfg.data.batch_size),
         "warp_launches": launches,
+        "graph_replays": replays,
         "checkpoint": ckpt_mod.best_net_path(
             cfg.checkpoint_dir, cfg.experiment_name, 1 if stage == "aide" else None
         ),

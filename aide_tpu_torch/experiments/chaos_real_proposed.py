@@ -28,8 +28,10 @@ symlinks the case folders and the pseudo-masks, and the tempmasks,
 checkpoints and decode cache are written under the work directory.
 
 It prints one JSON line, the JAX program's keys plus ``seconds``,
-``train_steps``, ``warp_launches`` (the TTA warp kernel's launches in
-``Trainer.run``, 3 a step), ``checkpoint`` (net 1's best export),
+``train_steps``, ``warp_launches`` (the TTA warp kernel's host-called
+launches in ``Trainer.run``, 3 an eager or captured step),
+``graph_replays`` (the steps replayed as a CUDA graph, whose warp kernels
+launch with it), ``checkpoint`` (net 1's best export),
 ``device_name`` and ``power_limit_w``; ``--out`` writes it with the oracle
 rows and the history.
 
@@ -168,7 +170,8 @@ def run(workdir: str, epochs: int, prepare=None) -> dict:
         prepare(trainer)
     launched = trace.totals()
     history = trainer.run(epochs)
-    launches = trace.delta(launched).get("warp.launches", 0)
+    spent = trace.delta(launched)
+    launches, replays = spent.get("warp.launches", 0), spent.get("train.graph_replays", 0)
 
     best = {n: max(r[f"testcase_dice{n}"] for r in history) for n in (1, 2)}
     # the reference's deployment rule: the checkpoint saved at the best
@@ -201,6 +204,7 @@ def run(workdir: str, epochs: int, prepare=None) -> dict:
         "seconds": seconds,
         "train_steps": len(history) * trainer.train_pipe.steps_per_epoch(cfg.data.batch_size),
         "warp_launches": launches,
+        "graph_replays": replays,
         "checkpoint": ckpt_mod.best_net_path(cfg.checkpoint_dir, cfg.experiment_name, 1),
         **device_info(trainer.device),
     }

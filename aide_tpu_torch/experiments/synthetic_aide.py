@@ -23,9 +23,11 @@ ground truth after every refresh (``Trainer.on_refresh``) and the
 end-of-ramp engagement verdict.
 
 Each stage prints one JSON line (the JAX program's keys plus ``seconds``,
-``train_steps`` and ``warp_launches``: the TTA warp kernel's launches in
-the stage's ``Trainer.run``), then a summary line with the card's name and
-power limit; ``--out`` writes {"runs", "summary"}.
+``train_steps``, ``warp_launches``: the TTA warp kernel's host-called
+launches in the stage's ``Trainer.run``, and ``graph_replays``: its steps
+replayed as a CUDA graph, whose warp kernels launch with it), then a
+summary line with the card's name and power limit; ``--out`` writes
+{"runs", "summary"}.
 
 Usage: python -m aide_tpu_torch.experiments.synthetic_aide [--epochs N]
        [--style ellipse|hard|xhard] [--protocol shift|pseudo|transfer]
@@ -297,7 +299,8 @@ def run(stage: str, workdir: str, epochs: int, resume: str = "", pseudo_from: st
         prepare(trainer, stage)
     launched = trace.totals()
     history = trainer.run(epochs)
-    launches = trace.delta(launched).get("warp.launches", 0)
+    spent = trace.delta(launched)
+    launches, replays = spent.get("warp.launches", 0), spent.get("train.graph_replays", 0)
     last = history[-1]
     best_test = max(
         max(r.get("testcase_dice1", 0.0), r.get("testcase_dice2", 0.0)) for r in history
@@ -337,6 +340,7 @@ def run(stage: str, workdir: str, epochs: int, resume: str = "", pseudo_from: st
         "seconds": seconds,
         "train_steps": len(history) * trainer.train_pipe.steps_per_epoch(cfg.data.batch_size),
         "warp_launches": launches,
+        "graph_replays": replays,
         # the file the port writes: the best epoch's export (net 1 of the pair)
         "checkpoint": ckpt_mod.best_net_path(
             cfg.checkpoint_dir, cfg.experiment_name, 1 if stage == "aide" else None

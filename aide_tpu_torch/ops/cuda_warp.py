@@ -164,7 +164,10 @@ def coef_table(degrees: torch.Tensor, hflip: torch.Tensor, inverse: bool) -> tor
 
 
 def fill_table(fill, n: int, c: int, device) -> torch.Tensor:
-    """Scalar, (C,) or (N, C) fill -> contiguous (N, C) f32 on ``device``."""
+    """Scalar, (C,) or (N, C) fill -> contiguous (N, C) f32 on ``device``.
+    A Python number is filled in on the device, with no copy from the host."""
+    if isinstance(fill, (int, float)):
+        return torch.full((n, c), float(fill), dtype=torch.float32, device=device)
     f = torch.as_tensor(fill, dtype=torch.float32, device=device)
     if f.ndim == 1:
         f = f[None, :]

@@ -11,9 +11,18 @@ Reductions: ``mean`` over images (Dice) / weighted mean over pixels (CE),
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _class_weights(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """The (C,) f32 class weights on ``device``, built once per values and
+    device: a step copies nothing from the host, so it waits for nothing
+    and a CUDA graph can capture it."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def _as_class_indices(targets: torch.Tensor) -> torch.Tensor:
@@ -51,7 +60,7 @@ def cross_entropy_2d(
     safe_t = torch.where(ignored, torch.zeros_like(targets), targets)
     nll = -torch.gather(logp, -1, safe_t[..., None])[..., 0]
     if class_weight is not None:
-        cw = torch.as_tensor(class_weight, dtype=torch.float32, device=logp.device)
+        cw = _class_weights(tuple(float(w) for w in class_weight), logp.device)
         w = cw[safe_t]
     else:
         w = torch.ones_like(nll)

@@ -17,6 +17,13 @@ moment, ``torch.optim.SGD`` dampens differently, and
 tensors per parameter (``MOMENTS``: mu/nu/nu_max, mu/nu or trace), made
 when it is built, and one step count, which is what the exact-resume file
 (``engine.checkpoint``) stores.
+
+A step's scalars that change with the count (``hyper``: -lr(count) and
+AMSGrad's and Adam's bias corrections) are computed on the host; ``step``
+computes them itself, or takes them as ``given``: 0-dim tensors on the
+parameters' device with the same f32 values, which a replayed CUDA graph
+reads as inputs (``engine.graphs``). Both give the same update bit for
+bit.
 """
 
 from __future__ import annotations
@@ -88,6 +95,9 @@ class OptaxOptimizer(torch.optim.Optimizer):
         self.weight_decay = weight_decay
         self.pair = pair
         self.count = 0
+        # the next step's ``hyper()`` as the caller gives it (a (K,) tensor
+        # or K 0-dim ones); the step takes it and leaves None
+        self.given = None
         for p in self.params():
             for m in self.MOMENTS:
                 self.state[p][m] = torch.zeros_like(p, memory_format=torch.preserve_format)
@@ -113,15 +123,26 @@ class OptaxOptimizer(torch.optim.Optimizer):
         torch._foreach_mul_(out, mul)
         return out
 
-    def _direction(self, params, grads, t: int) -> List[torch.Tensor]:
+    def _direction(self, params, grads, *corrections) -> List[torch.Tensor]:
         raise NotImplementedError
+
+    def _corrections(self, t: int) -> Tuple[float, ...]:
+        """The direction's scalars at step t (1 at the first step)."""
+        return ()
+
+    def hyper(self) -> Tuple[float, ...]:
+        """The next step's scalars from the step count: -lr(count), then
+        the direction's (``_corrections(count + 1)``)."""
+        return (-self.schedule(self.count),) + self._corrections(self.count + 1)
 
     @torch.no_grad()
     def step(self, closure=None):
+        """One update, with the scalars ``given`` or else ``hyper()``'s."""
         if closure is not None:
             raise ValueError(f"{type(self).__name__}.step takes no closure")
         params = [p for p in self.params() if p.grad is not None]
-        lr = self.schedule(self.count)
+        hyper, self.given = self.given, None
+        neg_lr, *corrections = self.hyper() if hyper is None else hyper
         self.count += 1
         if not params:
             return None
@@ -130,8 +151,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
             grads = self._clip(grads)
         if self.weight_decay:
             grads = torch._foreach_add(grads, params, alpha=self.weight_decay)
-        upd = self._direction(params, grads, self.count)
-        torch._foreach_mul_(upd, -lr)
+        upd = self._direction(params, grads, *corrections)
+        torch._foreach_mul_(upd, neg_lr)
         torch._foreach_add_(params, upd)
         return None
 
@@ -164,15 +185,18 @@ class AMSGrad(OptaxOptimizer):
         torch._foreach_maximum_(nu_max, torch._foreach_div(nu, bc2))
         return nu_max
 
-    def _direction(self, params, grads, t):
+    def _corrections(self, t):
+        return _bias_correction(self.b1, t), _bias_correction(self.b2, t)
+
+    def _direction(self, params, grads, bc1, bc2):
         mu, nu = self.moments("mu", params), self.moments("nu", params)
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
-        denom = torch._foreach_sqrt(self._second_moment(nu, params, _bias_correction(self.b2, t)))
+        denom = torch._foreach_sqrt(self._second_moment(nu, params, bc2))
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu, _bias_correction(self.b1, t))
+        upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, denom)
         return upd
 
@@ -197,7 +221,7 @@ class SGD(OptaxOptimizer):
     MOMENTS = ("trace",)
     momentum = 0.9
 
-    def _direction(self, params, grads, t):
+    def _direction(self, params, grads):
         trace = self.moments("trace", params)
         torch._foreach_mul_(trace, self.momentum)
         torch._foreach_add_(trace, grads)

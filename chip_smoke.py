@@ -37,7 +37,21 @@ Phases:
      exactly 3 times per train step and never in case evaluation. After
      the run, the separate test pass (_test_epoch) and the per-batch
      test-case predictions must agree with the last row's fused test pass
-     within 5e-3;
+     within 5e-3. (b) the replayed step against eager at that point: from
+     the state phase 5 left, 8 steps on phase 5's first 8 batches and view
+     parameters, rate 0.2 for 4 steps and 0.9 for 4, run eagerly, then by
+     a fresh step function that replays its CUDA graph (2 eager steps, the
+     capture, 5 replays), then eagerly 3 times, the state restored in
+     place before each: the largest difference of every step's metrics,
+     and of the parameters, BN statistics and AMSGrad moments, between the
+     replayed run and the nearest eager one at most twice the largest
+     between two eager runs (0 where those agree bit for bit; at this
+     width they do not: kernels that add atomically, as the bilinear
+     upsample's backward, sum in another order each run), the same count,
+     3 host-called launches in each eager or captured step and none in a
+     replay; then 3 more replays
+     under torch.profiler: 3 warp kernels a replayed step in CUPTI's
+     kernel records;
   6. a small slice (32 px, base width 4, f32, TF32 off, 4 train cases) on
      the card, once with the data on the device (the fused test pass) and
      once with host batches (device_cache "off": the separate test pass and
@@ -212,11 +226,12 @@ Phases:
      the native library against its plain twin, whose outputs must be
      equal. Each JSON line must parse,
      its value be finite and above 0 with vs_baseline = baseline / value
-     within 2%, the card's name and power limit beside it; warp launches a
-     step 3 at (a), 2 at (c), 0 at (d); MFU in (0, 1) against 989.5 TFLOP/s
-     on an H100 80GB HBM3, null on a card the bench's table lacks; finite
-     epoch rows; (a) 123 train steps and 369 launches in the timed epoch,
-     with its phases. The model FLOPs a step must equal one image's
+     within 2%, the card's name and power limit beside it; every timed
+     bare step replayed with no host-called warp launch; MFU in (0, 1)
+     against 989.5 TFLOP/s on an H100 80GB HBM3, null on a card the bench's
+     table lacks; finite epoch rows; (a) 123 train steps in the timed
+     epoch, 3 host-called launches in each that did not replay, with its
+     phases. The model FLOPs a step must equal one image's
      forward and forward-and-backward counts on the card composed as the
      step runs them, and the card's count equal the CPU's at 64 px (cuDNN's
      convolutions counted once). It prints each line and its seconds;
@@ -258,11 +273,19 @@ Phases:
      (or on equal case dice), history and label quality within 1e-3.
  18. full-circle rotation: phase 5's CHAOS point with data.rotation_degree
      = 360 (TTA views in ±360 degrees, the setting for images without a
-     canonical orientation), Trainer.run(2) on the card: a finite history,
-     3 launches a train step and none elsewhere, 2 refresh decisions an
-     epoch read back as in phase 5, the best exports, the launches whose
-     tiles took the global-tap path counted (at least one), and a CUDA
-     operation after the run.
+     canonical orientation), Trainer.run(2) on the card, its steps replayed
+     as a CUDA graph after the first three: a finite history, 3 launches a
+     train step and none elsewhere, 2 refresh decisions an epoch read back
+     as in phase 5, the best exports, each step's view parameters (past
+     ±180 degrees) and the tiles of its three launches that take the
+     global-tap path counted (at least one), and a CUDA operation after
+     the run.
+A train step's launches are the kernel's host calls (the port's
+``warp.launches`` counter): on one card a step replays as a CUDA graph
+after 2 eager steps and a capture a shape, and a replay launches the
+graph's warp kernels with no host call, so "N launches a step" holds for
+the eager and captured steps, a replayed step must show none, and phase 5
+(b) counts the replayed steps' kernels from a device trace.
 Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's,
 phase 10's, phase 12's, phase 13's, phase 14's (with their output-row
 windows), phase 15 (c)'s and phase 16's launch shapes (phase 17 launches
@@ -831,28 +854,52 @@ def check_unfused_test(trainer, row) -> None:
         fail(f"the unfused test pass disagrees with the fused one: {diff}")
 
 
+def watched(inner, steps: list):
+    """``inner``, a train step, timed on the host clock around a
+    synchronised call; each call appends (ms, the warp kernel's host-called
+    launches in it, whether it replayed the step's CUDA graph) to
+    ``steps``."""
+    import torch
+
+    from aide_tpu_torch.core import trace
+
+    def step(*args):
+        torch.cuda.synchronize()
+        before = trace.totals()
+        t = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        spent = trace.delta(before)
+        steps.append((ms, spent.get("warp.launches", 0), spent.get("train.graph_replays", 0) == 1))
+        return out
+
+    return step
+
+
+def stepped(steps: list) -> dict:
+    """``watched``'s records as a run's step_ms, step_launches, replayed
+    and replays."""
+    return dict(step_ms=[ms for ms, _, _ in steps], step_launches=[n for _, n, _ in steps],
+                replayed=[r for _, _, r in steps], replays=sum(r for _, _, r in steps))
+
+
 def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
-    """Trainer.run(epochs) with the step times (host clock around a
-    synchronised step), the warp launches of each train epoch and of the
-    whole run (the counter's increase over it), the
+    """Trainer.run(epochs) with each step's time (host clock around a
+    synchronised step), host-called warp launches and whether it replayed
+    its graph (``watched``), the warp launches of each train epoch and of
+    the whole run (the counter's increase over it), the
     epochs the best-checkpoint gate logged, each refresh's case dice
     {(epoch, net index): {case: dice}}, and the peak of
     max_memory_allocated. ``runner(epochs)`` runs the epochs instead of
     ``trainer.run`` when given (a subclass's own run)."""
     import torch
 
-    step_ms, train_launches, best_epochs, case_dice = [], [], [], {}
+    steps, train_launches, best_epochs, case_dice = [], [], [], {}
     inner_step, inner_epoch, inner_gate, inner_refresh = (
         trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint,
         trainer._refresh_labels)
-
-    def timed_step(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = inner_step(*args)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        return out
+    timed_step = watched(inner_step, steps)
 
     def counted_epoch(*args):
         before = warp_launches()
@@ -883,6 +930,7 @@ def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
     trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint, trainer._refresh_labels = (
         inner_step, inner_epoch, inner_gate, inner_refresh)
     spe = trainer.train_pipe.steps_per_epoch(trainer.cfg.data.batch_size)
+    step_ms = [ms for ms, _, _ in steps]
     values = [v for row in rows for v in row.values()]
     ran = epochs - trainer.start_epoch  # a resumed run goes on from start_epoch
     if len(rows) != epochs or len(step_ms) != ran * spe or not all(
@@ -890,7 +938,7 @@ def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
         fail(f"run({epochs}) gave non-finite or missing history "
              f"({len(rows)} rows, {len(step_ms)} steps)")
     # the median after the first epoch; of a single epoch, after its first step
-    return dict(rows=rows, step_ms=step_ms, spe=spe, train_launches=train_launches,
+    return dict(rows=rows, **stepped(steps), spe=spe, train_launches=train_launches,
                 launches=launches, outside=launches - sum(train_launches),
                 best_epochs=best_epochs, peak=peak, case_dice=case_dice,
                 steady=statistics.median(step_ms[spe:] or step_ms[1:]))
@@ -906,17 +954,30 @@ def print_run(name, run) -> None:
     n = len(run["step_ms"])
     print(f"{name}: {n} steps, first step {run['step_ms'][0]:.1f} ms, median step after the "
           f"first epoch {run['steady']:.3f} ms, max_memory_allocated {run['peak']} bytes, "
-          f"warp launches {run['launches']} ({run['launches'] / n:g} per step, "
-          f"{run['outside']} outside the train steps), best epochs {run['best_epochs']}",
-          flush=True)
+          f"{run['replays']} replayed as a CUDA graph, host-called warp launches "
+          f"{run['launches']} ({run['outside']} outside the train epochs), best epochs "
+          f"{run['best_epochs']}", flush=True)
 
 
-def check_launches(name, run, per_step) -> None:
-    """The kernel ran ``per_step`` times a train step and nowhere else."""
+def launch_fault(run, per_step, augment: int = 0):
+    """None where the host called the kernel ``per_step`` times in each
+    train step that did not replay its graph and in none that did,
+    ``augment`` times a step in the train epochs outside the step
+    (``data.augment_main``), and nowhere else; else what differs."""
     n = len(run["step_ms"])
-    if run["launches"] != per_step * n or run["outside"] != 0:
-        fail(f"{name}: warp kernel launched {run['launches']} times over {n} steps "
-             f"({run['outside']} outside the train steps), expected {per_step * n} and 0")
+    want = [0 if r else per_step for r in run["replayed"]]
+    around = sum(run.get("train_launches", [run["launches"]])) - sum(run["step_launches"])
+    if run["step_launches"] == want and around == augment * n and run["outside"] == 0:
+        return None
+    return (f"warp kernel launched {run['step_launches']} times in {n} steps "
+            f"({run['replays']} replayed), {around} times around them and {run['outside']} "
+            f"outside the train epochs; expected {want}, {augment * n} and 0")
+
+
+def check_launches(name, run, per_step, augment: int = 0) -> None:
+    fault = launch_fault(run, per_step, augment)
+    if fault:
+        fail(f"{name}: {fault}")
 
 
 def run_slice(cuda_warp, scratch):
@@ -949,6 +1010,121 @@ def run_slice(cuda_warp, scratch):
     check_unfused_test(trainer, run["rows"][-1])
     print(f"chaos: setup {setup_s:.2f} s", flush=True)
     return trainer, run
+
+
+def state_leaves(state) -> dict:
+    """Every tensor a train step updates, by name, as copies on the card:
+    the nets' parameters and BN statistics and the optimizer's moments."""
+    out = {}
+    for k, net in enumerate(state.nets):
+        for name, t in net.state_dict().items():
+            out[f"net{k}.{name}"] = t.detach().clone()
+        for name, p in net.named_parameters():
+            for m in state.optimizer.MOMENTS:
+                out[f"net{k}.{name}.{m}"] = state.optimizer.state[p][m].clone()
+    return out
+
+
+def largest_gap(a: dict, b: dict) -> dict:
+    """Max abs difference of each tensor of ``a`` and ``b`` (same keys)."""
+    return {k: float((a[k].double() - b[k].double()).abs().max()) if a[k].numel() else 0.0
+            for k in a}
+
+
+def run_graph_vs_eager(trainer) -> dict:
+    """Phase 5 (b): the CHAOS co-teaching step at full width replayed as a
+    CUDA graph against eager, from the state phase 5 left (module
+    docstring)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aide_tpu_torch.core import trace
+    from aide_tpu_torch.engine import checkpoint as ckpt
+    from aide_tpu_torch.engine import graphs, steps
+
+    cfg, state = trainer.cfg, trainer.state
+    b, n = cfg.data.batch_size, 8
+    tree = ckpt.state_tree(state)
+    batches = [trainer._on_device(trainer.train_pipe.batch_at(np.arange(k * b, (k + 1) * b)))
+               for k in range(n)]
+    views = [trainer.view_params(0, k, b) for k in range(n)]
+    rates = [0.2] * (n // 2) + [0.9] * (n - n // 2)
+
+    def arm(replay: bool):
+        ckpt.restore_state_tree(state, tree)
+        step = steps.make_coteach_train_step(trainer.two_modal, cfg)
+        replayable, log, metrics = graphs.replayable, [], []
+        if not replay:
+            graphs.replayable = lambda state, device: False
+        try:
+            timed = watched(step, log)
+            for k in range(n):
+                out = timed(state, batches[k], *views[k], rates[k])
+                metrics.append({name: v.clone() for name, v in out.items()})
+        finally:
+            graphs.replayable = replayable
+        torch.cuda.synchronize()
+        flat = {f"step{k}.{name}": v for k, m in enumerate(metrics) for name, v in m.items()}
+        return dict(stepped(log), values={**flat, **state_leaves(state)},
+                    count=state.optimizer.count, step=step)
+
+    replayed, eagers = arm(True), [arm(False) for _ in range(3)]
+    groups = {"metrics": lambda k: k.startswith("step"), "state": lambda k: not k.startswith("step")}
+
+    def spread(a, b) -> dict:
+        gaps = largest_gap(a["values"], b["values"])
+        return {g: max(v for k, v in gaps.items() if inside(k)) for g, inside in groups.items()}
+
+    pairs = [spread(a, b) for i, a in enumerate(eagers) for b in eagers[i + 1:]]
+    twin = {g: max(p[g] for p in pairs) for g in groups}
+    near = [spread(replayed, e) for e in eagers]
+    gap = {g: min(p[g] for p in near) for g in groups}
+    exact = not any(twin.values())
+    over = {g: (gap[g], twin[g]) for g in groups if gap[g] > (0.0 if exact else 2 * twin[g])}
+    counts = [replayed["count"]] + [e["count"] for e in eagers]
+    print(f"phase 5 (b): {n} steps at the CHAOS point, rate {rates[0]} then {rates[-1]}, "
+          f"largest difference by group (metrics of every step; parameters, BN statistics, "
+          f"moments): eager runs among themselves {twin}, the replayed run "
+          f"({replayed['replays']} replays) from the nearest eager one {gap}; counts {counts}; "
+          f"step ms eager {statistics.median(eagers[0]['step_ms'][3:]):.3f}, replayed "
+          f"{statistics.median(replayed['step_ms'][3:]):.3f}", flush=True)
+    if over or len(set(counts)) != 1:
+        fail(f"phase 5 (b): the replayed step differs from eager past twice the eager runs' own "
+             f"difference: {over}, counts {counts}")
+    for name, run in (("replayed", replayed), *(("eager", e) for e in eagers)):
+        fault = launch_fault(dict(run, launches=sum(run["step_launches"]), outside=0), 3)
+        if fault:
+            fail(f"phase 5 (b) {name}: {fault}")
+    if replayed["replays"] != n - graphs.WARM_STEPS - 1:
+        fail(f"phase 5 (b): {replayed['replays']} of {n} steps replayed")
+
+    # the warp kernels the card runs in replayed steps, from CUPTI's records
+    step, k = replayed["step"], 3
+    torch.cuda.synchronize()
+    before = trace.totals()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(k):
+            step(state, batches[i], *views[i], rates[-1])
+        torch.cuda.synchronize()
+    spent = trace.delta(before)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = sum(1 for name in names if "warp_rotate_flip_kernel" in name)
+    print(f"phase 5 (b): {k} more replayed steps under torch.profiler: "
+          f"{spent.get('train.graph_replays', 0)} replays, {kernels} warp kernels in CUPTI's "
+          f"records ({kernels / k:g} a step), {spent.get('warp.launches', 0)} host-called "
+          "launches", flush=True)
+    if (spent.get("train.graph_replays", 0) != k or spent.get("warp.launches", 0) != 0
+            or kernels != 3 * k):
+        fail(f"phase 5 (b): replayed steps ran {kernels} warp kernels in {k} steps, expected "
+             f"{3 * k}; counters {spent}; {len(names)} device records, the first "
+             f"{sorted(set(names))[:8]}")
+    del step, replayed, eagers
+    release_device_memory()
+    return {"steps": n, "eager_vs_eager": twin, "replayed_vs_eager": gap,
+            "bit_for_bit": not any(gap.values()), "profiled_replays": k,
+            "replayed_warp_kernels": kernels, "replayed_warp_kernels_per_step": kernels / k}
 
 
 def kidney_config(preset: str, scratch: str, name: str):
@@ -1454,28 +1630,22 @@ def zoo_steps(cuda_warp, scratch, name, base_width, per_step) -> dict:
     )
     release_device_memory()
     trainer = Trainer(cfg, task)
-    step_ms, inner = [], trainer.train_step
-
-    def timed_step(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = inner(*args)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    trainer.train_step = timed_step
+    steps, inner = [], trainer.train_step
+    trainer.train_step = watched(inner, steps)
     torch.cuda.reset_peak_memory_stats()
     launched = warp_launches()
     m = trainer._train_epoch(0, 0.5)
     launches = warp_launches() - launched
     trainer.train_step = inner
-    run = dict(step_ms=step_ms, launches=launches, outside=0, peak=torch.cuda.max_memory_allocated(),
-               steady=statistics.median(step_ms[1:]))
+    run = dict(**stepped(steps), launches=launches, outside=0,
+               peak=torch.cuda.max_memory_allocated())
+    step_ms = run["step_ms"]
+    run["steady"] = statistics.median(step_ms[1:])
     print(f"zoo_{name}: {len(step_ms)} co-teaching steps ({name}, base width {base_width}, 256 px, "
           f"batch 4, 4 views, bf16): losses {m['loss1']:.4f}/{m['loss2']:.4f}, first step "
           f"{step_ms[0]:.1f} ms, median of the rest {run['steady']:.3f} ms, max_memory_allocated "
-          f"{run['peak']} bytes, warp launches {launches}", flush=True)
+          f"{run['peak']} bytes, {run['replays']} steps replayed, host-called warp launches "
+          f"{launches}", flush=True)
     if len(step_ms) != 6 or not all(math.isfinite(v) for v in m.values()):
         fail(f"zoo_{name}: {len(step_ms)} steps, metrics {m}")
     check_launches(f"zoo_{name}", run, per_step)
@@ -1740,7 +1910,7 @@ def run_augment_supervised(cuda_warp, scratch, kidney_sup):
     run = drive(trainer, cuda_warp)
     trainer.augment_batch = inner
     print_run("kidney_augment", run)
-    check_launches("kidney_augment", run, 2)
+    check_launches("kidney_augment", run, 0, augment=2)
     print(f"kidney_augment: median step {run['steady']:.3f} ms with augment_main against phase 7 "
           f"(a)'s {kidney_sup['steady']:.3f} ms without ({run['steady'] / kidney_sup['steady']:.3f}x)",
           flush=True)
@@ -1777,12 +1947,12 @@ def run_cli_resume(cuda_warp, scratch):
     trainer, first = cli_train(cuda_warp, argv + ["--epochs", "1"])
     cfg = trainer.cfg
     print_run("cli_resume epoch 1", first)
-    check_launches("cli_resume epoch 1", first, 5)
+    check_launches("cli_resume epoch 1", first, 3, augment=2)
     last = ckpt.full_path(cfg.checkpoint_dir, cfg.experiment_name, last=True)
     del trainer
     trainer, run = cli_train(cuda_warp, argv + ["--epochs", "2", "--set", f"resume_file={last}"])
     print_run("cli_resume", run)
-    check_launches("cli_resume", run, 5)
+    check_launches("cli_resume", run, 3, augment=2)
     with open(os.path.join(cfg.history_dir, f"{cfg.experiment_name}.log")) as fh:
         logged = "Resuming at epoch 2" in fh.read()
     opt = trainer.state.optimizer
@@ -1798,7 +1968,7 @@ def run_cli_resume(cuda_warp, scratch):
                 f"history_dir={work}/hist_sgd"]
     trainer, sgd = cli_train(cuda_warp, sgd_argv + ["--epochs", "1"])
     print_run("cli_sgd", sgd)
-    check_launches("cli_sgd", sgd, 5)
+    check_launches("cli_sgd", sgd, 3, augment=2)
     path = ckpt.full_path(trainer.cfg.checkpoint_dir, trainer.cfg.experiment_name, last=True)
     with open(path, "rb") as fh:
         written = ckpt.msgpack_restore(fh.read())
@@ -2568,6 +2738,7 @@ def data_axis_rank(rank, device, scratch, world, profile=False):
         rows=run["rows"], case_dice=run["case_dice"], refresh_log=list(trainer.refresh_log),
         steady=run["steady"], step_ms=run["step_ms"], spe=run["spe"], peak=run["peak"],
         launches=run["launches"], outside=run["outside"], best_epochs=run["best_epochs"],
+        step_launches=run["step_launches"], replayed=run["replayed"], replays=run["replays"],
         collectives_per_step=per_step, state=digest(state), labels=digest(labels),
         blocks_ok=blocks_ok, tempmasks_ok=tempmasks_ok, warp_err=warp_err, bn_err=bn_err,
         allreduce_ms=allreduce_ms, allreduce_bytes=flat.numel() * 4, sync_ms=sync_ms,
@@ -2641,11 +2812,9 @@ def run_data_axis(scratch, chaos, chaos_log, profile=False):
             fail(f"phase 12: rank {r} ends with other parameters, labels or history than rank 0")
         if other["files"]:
             fail(f"phase 12: rank {r} wrote files: {other['files'][:5]}")
-    per_step = len(r0["step_ms"])
     for r, res in ranks.items():
-        if res["launches"] != 3 * per_step or res["outside"] != 0:
-            fail(f"phase 12: rank {r} launched the warp {res['launches']} times over {per_step} "
-                 f"steps ({res['outside']} outside the train steps)")
+        if launch_fault(res, 3):
+            fail(f"phase 12: rank {r}: {launch_fault(res, 3)}")
         if (not (res["blocks_ok"] and res["tempmasks_ok"]) or res["warp_err"] > 1e-5
                 or not res["bn_err"] <= 1e-4):
             fail(f"phase 12: rank {r}: device labels {res['blocks_ok']}, tempmasks "
@@ -2773,6 +2942,7 @@ def net_axis_rank(rank, device, scratch, world, profile=False):
         rows=run["rows"], case_dice=run["case_dice"], refresh_log=list(trainer.refresh_log),
         steady=run["steady"], step_ms=run["step_ms"], spe=run["spe"], peak=run["peak"],
         launches=run["launches"], outside=run["outside"], best_epochs=run["best_epochs"],
+        step_launches=run["step_launches"], replayed=run["replayed"], replays=run["replays"],
         collectives_per_step=per_step, collective_bytes_per_step=bytes_per_step,
         state=net_state, labels=digest(labels), blocks_ok=blocks_ok,
         tempmasks_ok=tempmasks_ok, warp_err=warp_err, exchange_bytes=exchange_bytes,
@@ -2846,11 +3016,9 @@ def run_net_layout(scratch, world, chaos, chaos_log, data_axis, profile=False):
                  f"{r % 2 + 1})")
         if other["files"]:
             fail(f"phase 13: rank {r} wrote files: {other['files'][:5]}")
-    per_step = len(r0["step_ms"])
     for r, res in ranks.items():
-        if res["launches"] != 3 * per_step or res["outside"] != 0:
-            fail(f"phase 13: rank {r} launched the warp {res['launches']} times over {per_step} "
-                 f"steps ({res['outside']} outside the train steps)")
+        if launch_fault(res, 3):
+            fail(f"phase 13: rank {r}: {launch_fault(res, 3)}")
         if not (res["blocks_ok"] and res["tempmasks_ok"]) or res["warp_err"] > 1e-5:
             fail(f"phase 13: rank {r}: device labels {res['blocks_ok']}, tempmasks "
                  f"{res['tempmasks_ok']}, warp max abs {res['warp_err']}")
@@ -2975,6 +3143,7 @@ def space_axis_rank(rank, device, scratch, world, profile=False):
         rows=run["rows"], case_dice=run["case_dice"], refresh_log=list(trainer.refresh_log),
         steady=run["steady"], step_ms=run["step_ms"], spe=run["spe"], peak=run["peak"],
         launches=run["launches"], outside=run["outside"], best_epochs=run["best_epochs"],
+        step_launches=run["step_launches"], replayed=run["replayed"], replays=run["replays"],
         by_kind=per_step[-1], halo_ms=halo, nets=nets,
         labels=digest(labels), blocks_ok=blocks_ok, tempmasks_ok=tempmasks_ok, warp_err=0.0,
         files=sorted(os.path.relpath(os.path.join(d, f), work)
@@ -3046,11 +3215,9 @@ def run_space_layout(scratch, world, chaos, chaos_log, profile=False):
             fail(f"phase 14: rank {r} ends with other parameters than rank {r - r % 2}")
         if other["files"]:
             fail(f"phase 14: rank {r} wrote files: {other['files'][:5]}")
-    per_step = len(r0["step_ms"])
     for r, res in ranks.items():
-        if res["launches"] != 3 * per_step or res["outside"] != 0:
-            fail(f"phase 14: rank {r} launched the warp {res['launches']} times over {per_step} "
-                 f"steps ({res['outside']} outside the train steps)")
+        if launch_fault(res, 3):
+            fail(f"phase 14: rank {r}: {launch_fault(res, 3)}")
         if not (res["blocks_ok"] and res["tempmasks_ok"]):
             fail(f"phase 14: rank {r}: device labels {res['blocks_ok']}, tempmasks "
                  f"{res['tempmasks_ok']}")
@@ -3272,9 +3439,11 @@ def check_bench_row(sub, argv, row, per_step, device_name) -> None:
         if row["cc_outputs_equal"] is not True:
             fail(f"phase 15 ({sub}): the native largest-CC differs from its plain twin")
         return
-    if row["warp_launches_timed"] != per_step * row["bare_steps"]:
-        fail(f"phase 15 ({sub}): {row['warp_launches_timed']} warp launches in "
-             f"{row['bare_steps']} timed steps, expected {per_step} a step")
+    # the bench warms the step until it replays its graph: every timed
+    # step replays, and the host calls no kernel in them
+    if row["graph_replays_timed"] != row["bare_steps"] or row["warp_launches_timed"] != 0:
+        fail(f"phase 15 ({sub}): {row['graph_replays_timed']} of {row['bare_steps']} timed steps "
+             f"replayed, {row['warp_launches_timed']} host-called warp launches in them")
     mfu = row["train_step_mfu"]
     if device_name == "NVIDIA H100 80GB HBM3":
         if row["peak_tflops"] != H100_BF16_TFLOPS or not (isinstance(mfu, float) and 0 < mfu < 1):
@@ -3292,9 +3461,10 @@ def check_bench_row(sub, argv, row, per_step, device_name) -> None:
         if row["train_steps_per_epoch"] != BENCH_CHAOS_STEPS or "partial" in row:
             fail(f"phase 15 (a): {row['train_steps_per_epoch']} train steps, partial "
                  f"{row.get('partial')!r}; expected the full epoch's {BENCH_CHAOS_STEPS}")
-        if row["warp_launches_epoch"] != per_step * BENCH_CHAOS_STEPS:
-            fail(f"phase 15 (a): {row['warp_launches_epoch']} warp launches in the epoch, "
-                 f"expected {per_step * BENCH_CHAOS_STEPS}")
+        eager = BENCH_CHAOS_STEPS - row["graph_replays_epoch"]
+        if row["warp_launches_epoch"] != per_step * eager:
+            fail(f"phase 15 (a): {row['warp_launches_epoch']} host-called warp launches in the "
+                 f"epoch, expected {per_step} in each of its {eager} steps that did not replay")
         missing = {"time_train", "time_test", "time_cases", "time_ckpt", "time_refresh"} - set(row)
         if missing or len(row["history"]) != 2:
             fail(f"phase 15 (a): phases {sorted(missing)} missing, {len(row['history'])} epochs")
@@ -3431,14 +3601,17 @@ def run_ladder(root, scratch) -> dict:
             fail(f"phase 16 {stage}: {len(history)} epochs of {r['epochs']}, non-finite {bad}")
         epoch_s[stage] = [row["time"] for row in history]
         per_step = 3 if stage == "aide" else 0
-        if r["train_steps"] <= 0 or r["warp_launches"] != per_step * r["train_steps"]:
-            fail(f"phase 16 {stage}: {r['warp_launches']} warp launches in {r['train_steps']} "
-                 f"train steps, expected {per_step} a step")
+        eager = r["train_steps"] - r["graph_replays"]
+        if r["train_steps"] <= 0 or r["warp_launches"] != per_step * eager:
+            fail(f"phase 16 {stage}: {r['warp_launches']} host-called warp launches in "
+                 f"{r['train_steps']} train steps, {r['graph_replays']} of them replayed; "
+                 f"expected {per_step} in each of the other {eager}")
         if not os.path.exists(r["checkpoint"]):
             fail(f"phase 16 {stage}: no export at {r['checkpoint']}")
         print(f"phase 16 (a) {stage}: {r['seconds']:.2f} s, epochs {epoch_s[stage]} s, best "
               f"test-case dice {r['best_testcase_dice']:.4f}, {r['train_steps']} steps, "
-              f"{r['warp_launches']} warp launches", flush=True)
+              f"{r['graph_replays']} replayed, {r['warp_launches']} host-called warp launches",
+              flush=True)
     aide = runs["aide"]
     # the refresh epochs by the trainer's rule at the AIDE stage's config
     SA.PROTOCOL = "pseudo"
@@ -3615,7 +3788,7 @@ REAL_KEYS = {
         "label_oracle_peak", "golden_reference_case10_dice_supervised1case",
         "our_comparison_run_case10", "minutes", "label_oracle", "history"},
 }
-REAL_ADDED = {"seconds", "train_steps", "warp_launches", "checkpoint"}
+REAL_ADDED = {"seconds", "train_steps", "warp_launches", "graph_replays", "checkpoint"}
 HALF_LIFE_WARNING = "STRUCTURAL REFRESH CHECK FAILED"
 
 
@@ -3686,15 +3859,18 @@ def real_history(name, hist_dir, epochs) -> list:
 
 def check_real_run(name, r, want_keys, per_step, steps_per_epoch) -> None:
     """A run's keys (the JAX program's and the port's additions), its warp
-    launches (``per_step`` a train step) and its export."""
+    launches (``per_step`` a train step that did not replay its graph, by
+    the host) and its export."""
     missing = (want_keys | REAL_ADDED) - set(r)
     if missing:
         fail(f"phase 17 {name}: the result lacks {sorted(missing)}")
     if r["train_steps"] != REAL_EPOCHS * steps_per_epoch:
         fail(f"phase 17 {name}: {r['train_steps']} train steps in {REAL_EPOCHS} epochs")
-    if r["warp_launches"] != per_step * r["train_steps"]:
-        fail(f"phase 17 {name}: {r['warp_launches']} warp launches in {r['train_steps']} train "
-             f"steps, expected {per_step} a step")
+    eager = r["train_steps"] - r["graph_replays"]
+    if r["warp_launches"] != per_step * eager:
+        fail(f"phase 17 {name}: {r['warp_launches']} host-called warp launches in "
+             f"{r['train_steps']} train steps, {r['graph_replays']} of them replayed; expected "
+             f"{per_step} in each of the other {eager}")
     if not os.path.exists(r["checkpoint"]):
         fail(f"phase 17 {name}: no export at {r['checkpoint']}")
 
@@ -3710,7 +3886,8 @@ def print_real(tag, secs, r, history) -> None:
     best = r["best_case10_dice"]
     print(f"phase 17 {tag}: {secs:.2f} s of command ({r['seconds']:.2f} s in the program), "
           f"{r['epochs']} epochs of {[row['time'] for row in history]} s, {r['train_steps']} "
-          f"train steps, {r['warp_launches']} warp launches, best case-10 dice "
+          f"train steps, {r['graph_replays']} replayed, {r['warp_launches']} host-called warp "
+          f"launches, best case-10 dice "
           f"{json.dumps(best)}", flush=True)
 
 
@@ -3928,9 +4105,13 @@ def real_ladder_vs_cpu(scratch) -> dict:
 
 def run_full_circle(cuda_warp, scratch):
     """Phase 18: phase 5's CHAOS point with data.rotation_degree = 360,
-    Trainer.run(2) with case evaluation, the checkpoint gate and refresh;
-    every launch's angles kept, and the tiles that took the kernel's
-    global-tap path counted after the run."""
+    Trainer.run(2) with case evaluation, the checkpoint gate and refresh,
+    its steps replayed as a CUDA graph after the first; every step's view
+    parameters kept (the step's arguments, which a replay copies into its
+    graph), and the tiles of the step's three launches that take the
+    kernel's global-tap path counted after the run from the tables the
+    step builds of them: the forward table of each modality's views and
+    the inverse table of both nets' views."""
     import torch
 
     from aide_tpu_torch.engine.trainer import Trainer
@@ -3945,29 +4126,37 @@ def run_full_circle(cuda_warp, scratch):
     release_device_memory()
     trainer = Trainer(cfg, task)
     trainer.label_cases = set(task.clean_case_ids())
-    inner, seen = cuda_warp.launch, []
+    inner, seen = trainer.train_step, []
 
-    def recording(images, table, fill, inverse, rows=None):
-        seen.append((table.clone(), images.shape[1], inverse, rows))
-        return inner(images, table, fill, inverse, rows)
+    def recording(state, batch, degrees, hflip, *rest):
+        seen.append((degrees.reshape(-1).clone(), hflip.reshape(-1).clone()))
+        return inner(state, batch, degrees, hflip, *rest)
 
-    cuda_warp.launch = recording
+    trainer.train_step = recording
     try:
         run = drive(trainer, cuda_warp)
     finally:
-        cuda_warp.launch = inner
+        trainer.train_step = inner
     print_run("chaos_rot360", run)
     if len(trainer.refresh_log) != 2 * 2:
         fail(f"phase 18: expected 2 refresh decisions an epoch, got {trainer.refresh_log}")
     check_refresh(trainer)
     check_best_exports(trainer, run["best_epochs"])
     check_launches("chaos_rot360", run, 3)
-    tiles = [cuda_warp.global_tiles(cuda_warp.source_boxes(table, s, inverse, rows=rows))
-             for table, s, inverse, rows in seen]
-    print(f"chaos_rot360: {len(seen)} launches, {sum(1 for n in tiles if n)} of them with tiles "
-          f"on the global-tap path, {sum(tiles)} such tiles in all", flush=True)
-    if len(seen) != run["launches"] or not any(tiles):
-        fail(f"phase 18: {len(seen)} launches seen of {run['launches']}, global tiles {tiles}")
+    s = cfg.data.img_size
+    tiles = []
+    for degrees, hflip in seen:
+        forward = cuda_warp.coef_table(degrees, hflip, False)
+        inverse = cuda_warp.coef_table(degrees.repeat(2), hflip.repeat(2), True)
+        n = cuda_warp.global_tiles(cuda_warp.source_boxes(forward, s, False))
+        tiles += [n, n, cuda_warp.global_tiles(cuda_warp.source_boxes(inverse, s, True))]
+    turns = float(torch.cat([d for d, _ in seen]).abs().max())
+    print(f"chaos_rot360: {len(seen)} steps ({run['replays']} replayed), views up to {turns:.1f} "
+          f"degrees, {sum(1 for n in tiles if n)} of their {len(tiles)} launches with tiles on "
+          f"the global-tap path, {sum(tiles)} such tiles in all", flush=True)
+    if len(seen) != len(run["step_ms"]) or not run["replays"] or turns <= 180 or not any(tiles):
+        fail(f"phase 18: {len(seen)} steps seen of {len(run['step_ms'])}, {run['replays']} "
+             f"replayed, views up to {turns} degrees, global tiles {tiles}")
     ok = torch.ones(4, device="cuda").add_(1.0).sum().item()
     torch.cuda.synchronize()
     if ok != 8.0:
@@ -4087,6 +4276,7 @@ def main() -> int:
     chaos_log = list(trainer.refresh_log)
     if args.profile:
         profile_steps("chaos co-teaching", trainer)
+    replay = run_graph_vs_eager(trainer)
     del trainer
 
     stamp("phase 5")
@@ -4136,8 +4326,10 @@ def main() -> int:
     for path, run in {**runs, "data_axis": data_axis, **net_runs, **space_runs}.items():
         launched = [r for r in rows if r["path"] in SAME_SHAPES.get(path, (path,))]
         by_path[path] = {
+            # the host's calls; a replayed step's kernels launch with its graph
             "launches": run["launches"],
-            "launches_per_step": run["launches"] / len(run["step_ms"]),
+            "steps": len(run["step_ms"]),
+            "replayed_steps": run["replays"],
             # one step's launches, each timed with a cold L2
             "kernel_ms_per_step": sum(r["per_step"] * r["ms"] for r in launched),
             "plain_ms_per_step": sum(r["per_step"] * r["plain_ms"] for r in launched),
@@ -4195,8 +4387,10 @@ def main() -> int:
         launched = [r for r in rows if r["path"] in SAME_SHAPES.get(row["path"], (row["path"],))]
         by_path[row["path"]] = {
             "launches_per_step": row["warp_launches_per_step"],
-            **({"launches_epoch": row["warp_launches_epoch"]} if "warp_launches_epoch" in row
-               else {}),
+            "replayed_steps": row["graph_replays_timed"],
+            **({"launches_epoch": row["warp_launches_epoch"],
+                "replayed_steps_epoch": row["graph_replays_epoch"]}
+               if "warp_launches_epoch" in row else {}),
             "kernel_ms_per_step": sum(r["per_step"] * r["ms"] for r in launched),
             "plain_ms_per_step": sum(r["per_step"] * r["plain_ms"] for r in launched),
             "bound_ms_per_step": sum(r["per_step"] * r["bound_ms"] for r in launched),
@@ -4211,7 +4405,8 @@ def main() -> int:
         launched = [r for r in rows if r["path"] == "ladder_aide"]
         by_path["ladder_aide"] = {
             "launches": aide["warp_launches"],
-            "launches_per_step": aide["warp_launches"] / aide["train_steps"],
+            "steps": aide["train_steps"],
+            "replayed_steps": aide["graph_replays"],
             "kernel_ms_per_step": sum(r["per_step"] * r["ms"] for r in launched),
             "plain_ms_per_step": sum(r["per_step"] * r["plain_ms"] for r in launched),
             "bound_ms_per_step": sum(r["per_step"] * r["bound_ms"] for r in launched),
@@ -4220,7 +4415,7 @@ def main() -> int:
         extra["ladder"] = {
             "seconds": ladder["seconds"], "summary": ladder["summary"],
             "stages": {stage: {k: r[k] for k in ("seconds", "train_steps", "warp_launches",
-                                                 "best_testcase_dice")}
+                                                 "graph_replays", "best_testcase_dice")}
                        for stage, r in ladder["runs"].items()},
             "epoch_s": ladder["epoch_s"], "card_vs_cpu": ladder_small}
     for path, run in real.items():
@@ -4228,7 +4423,8 @@ def main() -> int:
         launched = [r for r in rows if run["warp_launches"] and r["path"] in SAME_SHAPES[path]]
         by_path[path] = {
             "launches": run["warp_launches"],
-            "launches_per_step": run["warp_launches"] / run["train_steps"],
+            "steps": run["train_steps"],
+            "replayed_steps": run["graph_replays"],
             "kernel_ms_per_step": sum(r["per_step"] * r["ms"] for r in launched),
             "plain_ms_per_step": sum(r["per_step"] * r["plain_ms"] for r in launched),
             "bound_ms_per_step": sum(r["per_step"] * r["bound_ms"] for r in launched),
@@ -4237,7 +4433,7 @@ def main() -> int:
     if real:
         extra["real_programs"] = {
             path: {k: run[k] for k in ("command_s", "seconds", "epoch_s", "train_steps",
-                                       "warp_launches", "best_case10_dice")}
+                                       "warp_launches", "graph_replays", "best_case10_dice")}
             for path, run in real.items()}
         extra["real_programs"]["card_vs_cpu"] = real_small
     if kidney_space is not None:
@@ -4265,8 +4461,16 @@ def main() -> int:
         "route": "cuda",
         "source": "aide_tpu_torch/csrc/warp_rotate_flip.cu",
         "replaces": "aide_tpu/ops/pallas_warp.py:77",
+        # the host's calls of the kernel, counted where it is launched; the
+        # steps replayed as a CUDA graph launch theirs with the graph:
+        # replayed_steps by path, and phase 5 (b) counts their kernels in
+        # a device trace (replay_vs_eager)
         "launches": sum(launches.values()),
         "launches_by_path": launches,
+        "replayed_steps_by_path": {path: entry["replayed_steps"]
+                                   for path, entry in by_path.items() if "replayed_steps" in entry},
+        "replayed_warp_kernels_per_step": replay["replayed_warp_kernels_per_step"],
+        "replay_vs_eager": replay,
         "max_abs_err": max([worst] + [r["max_abs_err"] for r in rows]
                            + [ranks[r]["warp_err"] for r in ranks]
                            + [n["warp_err"] for run in net_runs.values()

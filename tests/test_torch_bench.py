@@ -255,6 +255,7 @@ def test_main_prints_the_bench_keys(jbench, points, workdir, capsys, mode):
     assert row["peak_tflops"] is None and row["train_step_mfu"] is None
     assert row["train_step_mfu_executed"] is None and row["peak_memory_bytes"] is None
     assert row["warp_launches_per_step"] == row["warp_launches_timed"] == 0
+    assert row["graph_replays_timed"] == 0
     assert row["bare_steps"] == tbench.BARE_STEPS
     assert row["setup_seconds"] > 0 and row["block_barrier"] is True
     assert [r["epoch"] for r in row["history"]] == ([1] if mode == "steps_only" else [1, 2])
@@ -339,9 +340,9 @@ def test_step_flops_match_the_jax_lowering(jbench, points, workdir, variant):
     cfg = tbench.make_config(2, variant, "tinyfuse")
     cfg.model.base_width = 8
     trainer = tbench.build_trainer(cfg, "tinyfuse", "cpu")
-    dt, flops, launches = tbench.time_bare_steps(trainer, cfg, iters=1)
+    dt, flops, (launches, replays) = tbench.time_bare_steps(trainer, cfg, iters=1)
     want = _jax_step_flops(jbench, variant)
-    assert dt > 0 and launches == 0
+    assert dt > 0 and launches == replays == 0
     # measured: 12,775,849,984 against 12,352,904,192 (1.034x) co-teaching
     assert flops == pytest.approx(want, rel=0.05), (flops, want, flops / want)
 

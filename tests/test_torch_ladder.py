@@ -388,11 +388,13 @@ def _hold_runs(pair):
     for key in ("best_testcase_dice", "final_testcase_dice"):
         assert abs(tres[key] - jres[key]) <= 1e-3, key
     # the JAX stage dict's keys, and the port's additions
-    assert set(tres) == set(jres) | {"seconds", "train_steps", "warp_launches"}
+    assert set(tres) == set(jres) | {"seconds", "train_steps", "warp_launches",
+                                     "graph_replays"}
     assert tres["checkpoint"].endswith("_net1_besttraincasedice.pkl")
     assert os.path.exists(tres["checkpoint"])
     # no kernel on the CPU: the plain warp, never a launch
-    assert tres["warp_launches"] == 0 and tres["train_steps"] == EPOCHS * 3
+    assert tres["warp_launches"] == tres["graph_replays"] == 0
+    assert tres["train_steps"] == EPOCHS * 3
 
 
 def test_aide_run_pseudo_matches_jax(aide_pseudo):

@@ -413,10 +413,10 @@ def test_1case_main_and_build_cfg(ref, tmp_path, capsys):
     with open(out) as fh:
         saved = json.load(fh)
     assert line == saved
-    assert set(saved) == jkeys | {"seconds", "train_steps", "warp_launches", "checkpoint",
-                                  "device_name", "power_limit_w"}
+    assert set(saved) == jkeys | {"seconds", "train_steps", "warp_launches", "graph_replays",
+                                  "checkpoint", "device_name", "power_limit_w"}
     assert saved["train_slices"] == 30 and saved["val_slices"] == 50
-    assert saved["train_steps"] == 7 and saved["warp_launches"] == 0
+    assert saved["train_steps"] == 7 and saved["warp_launches"] == saved["graph_replays"] == 0
     assert saved["device_name"] == "cpu" and os.path.exists(saved["checkpoint"])
     assert ref["digest"] == _digest(ref["dir"])
 
@@ -504,9 +504,11 @@ def test_aide_rung_matches_jax(aide_pair, ref):
     assert "bootstrap skill probe" not in _log_text(tr)
     for key in ("best_case10_dice", "final_case10_dice"):
         assert abs(tres[key] - jres[key]) <= 1e-3, key
-    assert set(tres) == set(jres) | {"seconds", "train_steps", "warp_launches", "checkpoint"}
+    assert set(tres) == set(jres) | {"seconds", "train_steps", "warp_launches", "graph_replays",
+                                     "checkpoint"}
     assert tres["warm_start"] is False and tres["train_steps"] == EPOCHS * 20
-    assert tres["warp_launches"] == 0  # no kernel on the CPU: the plain warp
+    # no kernel on the CPU: the plain warp, and no graph
+    assert tres["warp_launches"] == tres["graph_replays"] == 0
     assert tres["checkpoint"].endswith("_net1_besttraincasedice.pkl")
     assert os.path.exists(tres["checkpoint"])
     # k = 2 of the 2 cases selects both a net and epoch; case 37 is exempt
@@ -614,10 +616,11 @@ def test_proposed_matches_jax(proposed_pair, ref):
             assert abs(saved[key][n] - jres[key][n]) <= 1e-3, (key, n)
     assert saved["gate_epoch"] == jres["gate_epoch"]
     assert saved["bootstrap_label_dice_case10"] == round(ref["pseudo_dice"], 4)
-    assert set(saved) == set(jres) | {"seconds", "train_steps", "warp_launches", "checkpoint",
-                                      "device_name", "power_limit_w"}
+    assert set(saved) == set(jres) | {"seconds", "train_steps", "warp_launches", "graph_replays",
+                                      "checkpoint", "device_name", "power_limit_w"}
     assert saved["train_slices"] == 80 and saved["train_steps"] == EPOCHS * 20
-    assert saved["warp_launches"] == 0 and os.path.exists(saved["checkpoint"])
+    assert saved["warp_launches"] == saved["graph_replays"] == 0
+    assert os.path.exists(saved["checkpoint"])
     # the tempmasks lie in a folder of the work root, not in a linked case
     temp = os.path.join(proposed_pair["work"], "root", "tempmasks_real_proposed")
     assert os.path.isdir(temp) and not os.path.islink(temp)
@@ -636,7 +639,8 @@ def test_proposed_main_tiny(ref, tmp_path, capsys, proposed_pair):
     summary = json.loads(lines[-1])
     assert summary == {k: v for k, v in saved.items() if k not in ("label_oracle", "history")}
     assert set(saved) == set(proposed_pair["jax"]) | {
-        "seconds", "train_steps", "warp_launches", "checkpoint", "device_name", "power_limit_w"}
+        "seconds", "train_steps", "warp_launches", "graph_replays", "checkpoint", "device_name",
+        "power_limit_w"}
     assert len(saved["history"]) == 1 and len(saved["label_oracle"]) == 1
     assert ref["digest"] == _digest(ref["dir"])
 
@@ -671,14 +675,15 @@ def test_ladder_main_tiny_and_warm_start(ref, tmp_path, capsys, aide_pair):
         {"stage": s, "initial_pseudo_quality": saved[s]["initial_pseudo_quality"]}
         for s in ("naive", "aide")]
     assert set(saved["naive"]) == set(jnaive) | {"seconds", "train_steps", "warp_launches",
-                                                 "checkpoint"}
+                                                 "graph_replays", "checkpoint"}
     assert set(saved["aide"]) == set(aide_pair["jax"]) - {"engagement"} | {
-        "seconds", "train_steps", "warp_launches", "checkpoint"}
+        "seconds", "train_steps", "warp_launches", "graph_replays", "checkpoint"}
     assert saved["aide_over_naive"] == round(
         saved["aide"]["best_case10_dice"] - saved["naive"]["best_case10_dice"], 4)
     assert [t["epoch"] for t in saved["aide"]["label_quality_track"]] == [1]
     for stage in ("naive", "aide"):
-        assert os.path.exists(saved[stage]["checkpoint"]) and saved[stage]["warp_launches"] == 0
+        assert os.path.exists(saved[stage]["checkpoint"])
+        assert saved[stage]["warp_launches"] == saved[stage]["graph_replays"] == 0
     # the AIDE rung warm-started from the 1-case program's export
     one = tmp_path / "one.json"
     with programs(ref):
