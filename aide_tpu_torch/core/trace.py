@@ -40,6 +40,12 @@ The names, at the layer boundaries:
 * the counters ``train.graph_replays``, ``train.graph_captures`` and
   ``train.graph_eager`` (``engine.graphs``): one a train step, as it ran.
   A replayed step closes ``train.step`` and no ``step.*`` span.
+* the counters ``refresh.images`` and ``refresh.skipped_empty``
+  (``Trainer._refresh_labels``, over both nets): the images whose working
+  labels a refresh rewrote, and those it left alone because their case's
+  prediction was empty (``coteach.refresh_skip_empty``); and
+  ``ckpt.gate_closed``: one an epoch that the ascending checkpoint gate
+  held closed (``Trainer._maybe_checkpoint``).
 
 ``by_span(events)`` reads a finished profiler's events: each kernel's
 device time under the innermost span open when the host op that launched

@@ -605,8 +605,10 @@ class Trainer:
                     continue  # labeled cases are never rewritten
                 vol = r.pred_volume
                 if cfg.coteach.refresh_skip_empty and vol.sum() == 0:
+                    trace.add("refresh.skipped_empty", len(vol))
                     continue  # the kidney convention
                 idxs = self.train_pipe.case_indices(r.case_id)
+                trace.add("refresh.images", len(idxs))
                 # every rank updates its labels, the primary writes the files
                 self.train_pipe.labels.refresh_case(net_idx + 1, idxs, vol,
                                                     mirror=mesh.is_primary())
@@ -827,6 +829,7 @@ class Trainer:
                 self.best_dice = self.changepoint_dice
             else:
                 self.changepoint_dice = avg_dice
+                trace.add("ckpt.gate_closed")
                 return False
         if avg_dice <= self.best_dice:
             return False

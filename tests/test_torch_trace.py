@@ -260,3 +260,61 @@ def test_epoch_spans_under_a_profiler(trainer):
     # on the CPU no kernel reaches the device: no device time to attribute
     got = trace.by_span(prof.events())
     assert got["device_ms"] == {} and got["busy_ms"] == 0.0
+
+
+# ------------------ the refresh's and the gate's counters ------------------
+
+
+def test_refresh_and_gate_counters(tmp_path):
+    """A single-modal UNet pair under the kidney knobs (the refresh that
+    skips an empty prediction, the ascending gate) on 6 cases of 2 slices,
+    case00 labeled and case03 predicted background by both nets: over 3
+    epochs ``refresh.images`` and ``refresh.skipped_empty`` add up to the
+    selected, non-labeled images, the latter to those of the empty
+    predictions, and ``ckpt.gate_closed`` counts the epochs the gate held
+    closed."""
+    import numpy as np
+
+    cfg = TrainConfig()
+    cfg.model = ModelConfig(name="unet", base_width=4, compute_dtype="float32")
+    d = cfg.data
+    d.task, d.variant, d.root, d.tempmask_folder = "synthetic", "proposed", str(tmp_path), "tm"
+    d.img_size, d.batch_size, d.eval_batch_size, d.num_tta_views = 32, 4, 4, 2
+    cfg.coteach.update_percent = 0.5  # the worst 3 of 6 cases a net
+    cfg.coteach.refresh_skip_empty = True
+    cfg.ascending_checkpoint_gate = True
+    cfg.checkpoint_dir, cfg.history_dir = str(tmp_path / "ckpt"), str(tmp_path / "hist")
+    task = SyntheticTask(root=str(tmp_path), tempmask_folder="tm", two_modal=False, num_cases=6,
+                         slices_per_case=2, size=32, clean_cases=1, num_test_cases=1, seed=5)
+    tr = Trainer(cfg, task=task, device="cpu")
+    tr.label_cases = {"case00"}
+    rows = tr.train_pipe.case_indices("case03")
+    predict_all = tr.predict_all
+
+    def planted(state, data, idx):
+        out = predict_all(state, data, idx)
+        hit = torch.from_numpy(np.isin(np.asarray(idx), rows))
+        return out.masked_fill(hit[:, None, :, None, None], 0)
+
+    tr.predict_all = planted
+    closed = 0
+    for epoch in range(3):
+        before = trace.totals()
+        tr.run_epoch(epoch)
+        spent = trace.delta(before)
+        owed = {"refresh.images": 0, "refresh.skipped_empty": 0}
+        for e, net, selected, rewritten in tr.refresh_log:
+            if e != epoch:
+                continue
+            assert "case03" in selected and "case03" not in rewritten
+            for case in selected:
+                if case in tr.label_cases:
+                    continue
+                n = len(tr.train_pipe.case_indices(case))
+                owed["refresh.images" if case in rewritten else "refresh.skipped_empty"] += n
+        assert owed["refresh.skipped_empty"] >= 4  # case03's 2 slices, both nets
+        assert {k: spent.get(k, 0) for k in owed} == owed
+        # the gate opens once and stays open: an epoch it leaves closed counts
+        closed += not tr.ascending
+        assert spent.get("ckpt.gate_closed", 0) == (0 if tr.ascending else 1)
+    assert closed >= 1  # epoch 0 never opens it
