@@ -37,6 +37,11 @@ The names, at the layer boundaries:
   where ``ops.cuda_warp.launch`` is called (a replayed train step's graph
   launches its warp kernels without that call: a device trace counts
   them);
+* the counter ``upsample.launches``: the decoders' 2x upsample kernels'
+  launches, forward and backward, counted where
+  ``ops.cuda_upsample`` launches them. Under a replayed train step that
+  counts the host's calls, that is the capture's: a replay launches the
+  graph's upsample kernels without a call (a device trace counts them);
 * the counters ``train.graph_replays``, ``train.graph_captures`` and
   ``train.graph_eager`` (``engine.graphs``): one a train step, as it ran.
   A replayed step closes ``train.step`` and no ``step.*`` span.

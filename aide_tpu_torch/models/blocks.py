@@ -38,6 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from aide_tpu_torch.core import mesh
+from aide_tpu_torch.ops import cuda_upsample
 
 # the UNet family and the FuseUNet pool 2x2 before each of their levels
 # after the first: POOLS + 1 levels
@@ -422,16 +423,20 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
-    """2x bilinear upsample with half-pixel centres (jax.image.resize).
-    Under ``space_partition``: one halo row of each neighbour, the edge row
-    copied at the image's top and bottom (where the resize clamps), then
-    the resize and rows [2, 2h + 2) of it."""
-    if not _partitioned():
+    """2x bilinear upsample with half-pixel centres (jax.image.resize):
+    ``ops.cuda_upsample.upsample2x``, the CUDA kernels on a card and their
+    plain versions on the CPU, in the autocast dtype inside the model's
+    autocast region. Under ``space_partition``: one halo row of each
+    neighbour, the edge row copied at the image's top and bottom (where the
+    resize clamps), then the resize and rows [2, 2h + 2) of it. While
+    ``torch.export`` traces (the serving artifact, which must hold no call
+    into this package), ``F.interpolate``."""
+    if torch.compiler.is_exporting():
         return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    if not _partitioned():
+        return cuda_upsample.upsample2x(x)
     h = x.shape[2]
-    up = F.interpolate(mesh.halo_rows(x, 1, edge=True), scale_factor=2, mode="bilinear",
-                       align_corners=False)
-    return up[:, :, 2:2 * h + 2]
+    return cuda_upsample.upsample2x(mesh.halo_rows(x, 1, edge=True))[:, :, 2:2 * h + 2]
 
 
 class Upsample2x(nn.Module):

@@ -62,28 +62,19 @@ a different function).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import Tuple
 
 import torch
 
 from aide_tpu_torch.core import trace
+from aide_tpu_torch.ops import nvcc
 
 SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "csrc",
     "warp_rotate_flip.cu",
-)
-# build output lives beside the package, in a directory .gitignore lists
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "build",
-    "kernels",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -325,30 +316,7 @@ def global_tiles(boxes: torch.Tensor) -> int:
 def build(verbose: bool = False, source: str = SOURCE) -> str:
     """Compile ``source`` (csrc/warp_rotate_flip.cu) with nvcc, once per
     source hash, and return the shared library's path."""
-    with open(source, "rb") as fh:
-        src = fh.read()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libwarp_rotate_flip_{key}.so")
-    if os.path.exists(out):
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA warp kernel cannot be built")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, source]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.remove(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, out)
-    return out
+    return nvcc.build(source, "warp_rotate_flip", NVCC_FLAGS, verbose)
 
 
 def load(path: str):

@@ -280,12 +280,32 @@ Phases:
      ±180 degrees) and the tiles of its three launches that take the
      global-tap path counted (at least one), and a CUDA operation after
      the run.
+ 19. the decoders' 2x bilinear upsample (csrc/upsample2x.cu, built with
+     nvcc): (a) both kernels bit for bit against their plain versions on
+     the card, at C in {1, 3, 4, 6, 64}, H != W, H = 1, W = 1, every
+     input/output dtype pair the models meet and a base address that takes
+     no vector, and at the cells' launch shapes (UPSAMPLE_STEPS) in bf16
+     and, at batch 8, f32; (b) each launch shape timed alone in bf16 with
+     a cold L2: forward, backward, the plain versions, and ATen's kernels
+     (F.interpolate and its backward) in bf16 with autocast off (the
+     library yardstick) and in f32 (as autocast ran them), beside the byte
+     bound, summed to the kidney and CHAOS co-teaching and CHAOS
+     supervised steps; at batch 8 each bf16 backward's largest error
+     against the exact gradient and the bf16 library forward's elements
+     unlike the kernel's; (c) the kidney cell's step (UNet-64 pair,
+     512 px, batch 8, 4 eval-mode views) replayed as a CUDA graph runs the
+     eager step's upsample2x kernels a step and no ATen upsample kernel.
+     It runs alone too: python3 -c "import chip_smoke;
+     chip_smoke.run_upsample(None)".
 A train step's launches are the kernel's host calls (the port's
 ``warp.launches`` counter): on one card a step replays as a CUDA graph
 after 2 eager steps and a capture a shape, and a replay launches the
 graph's warp kernels with no host call, so "N launches a step" holds for
 the eager and captured steps, a replayed step must show none, and phase 5
-(b) counts the replayed steps' kernels from a device trace.
+(b) counts the replayed steps' kernels from a device trace. The decoders'
+upsample kernels (``upsample.launches``) are held alike in every watched
+train step, to what the step's nets imply (``upsample_per_step``: 24 a
+co-teaching step of two four-level nets, 8 a supervised step).
 Phases 3 and 4 also check and time the kernel at phase 8's, phase 9's,
 phase 10's, phase 12's, phase 13's, phase 14's (with their output-row
 windows), phase 15 (c)'s and phase 16's launch shapes (phase 17 launches
@@ -296,7 +316,7 @@ Then the {"kernels": [...]} JSON line and, last, {"ok": true, "device":
 Run from the repository root:
   python3 chip_smoke.py [--profile] [--baseline FILE.cu] [--data-axis]
 (--data-axis runs phases 1-5 and 12-14 alone, for a machine with several
-cards, and skips phases 15-18; --profile adds, after phases 5, 7 and 12-14 and in phase 9 (a) and (b), a
+cards, and skips phases 15-19; --profile adds, after phases 5, 7 and 12-14 and in phase 9 (a) and (b), a
 torch.profiler breakdown of a few more co-teaching steps of each; --baseline times another version of csrc/warp_rotate_flip.cu, for
 instance an earlier commit's, beside this one in phase 4, at the rows of
 ±60 degrees; it may be given more than once).
@@ -425,6 +445,33 @@ PRESET_RUNS = (
     ("prostate_preset", "prostate_proposed_isbi3t_transfer_isbidx", 320, 2),
     ("breast_preset", "breast_proposed_272cases25labeled", 512, 2),
 )
+
+
+def _decoder_inputs(size: int):
+    """The four decoder levels' upsample inputs (S, C), deepest first: the
+    UNet-64's maps at ``size`` px, and equally the FuseUNet-32's fused ones
+    (1024 channels at size/16, halving as the side doubles)."""
+    return [((size // 16) << level, 1024 >> level) for level in range(4)]
+
+
+# phase 19: the decoders' 2x upsample launches of one step, by path: (input
+# (N, H, W, C), forward launches a step, backward launches a step). Each net
+# of a co-teaching pair upsamples at its four levels in the train forward
+# (batch 8) and its backward, and in the views' forward (4 views x 8
+# images, no gradient); the supervised step is one net's train forward and
+# backward. Kidney: the UNet-64 pair at 512 px; CHAOS: the FuseUNet-32 pair
+# at 256 px
+UPSAMPLE_STEPS = {
+    "kidney_coteach": [((n, s, s, c), 2, 2 if n == 8 else 0)
+                       for s, c in _decoder_inputs(512) for n in (8, 32)],
+    "chaos_coteach": [((n, s, s, c), 2, 2 if n == 8 else 0)
+                      for s, c in _decoder_inputs(256) for n in (8, 32)],
+    "chaos_supervised": [((8, s, s, c), 1, 1) for s, c in _decoder_inputs(256)],
+}
+# phase 19's edge cases, kernel against plain version: (N, H, W, C) with C in
+# {1, 3, 4, 6, 64}, H != W, H = 1 and W = 1
+UPSAMPLE_EDGE_SHAPES = ((2, 5, 7, 1), (2, 5, 7, 3), (2, 1, 6, 4), (1, 6, 1, 6), (2, 4, 4, 64),
+                        (3, 9, 5, 6), (1, 1, 1, 8))
 
 
 START = time.perf_counter()
@@ -857,8 +904,8 @@ def check_unfused_test(trainer, row) -> None:
 def watched(inner, steps: list):
     """``inner``, a train step, timed on the host clock around a
     synchronised call; each call appends (ms, the warp kernel's host-called
-    launches in it, whether it replayed the step's CUDA graph) to
-    ``steps``."""
+    launches in it, whether it replayed the step's CUDA graph, the upsample
+    kernels' host-called launches in it) to ``steps``."""
     import torch
 
     from aide_tpu_torch.core import trace
@@ -871,17 +918,42 @@ def watched(inner, steps: list):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
         spent = trace.delta(before)
-        steps.append((ms, spent.get("warp.launches", 0), spent.get("train.graph_replays", 0) == 1))
+        steps.append((ms, spent.get("warp.launches", 0), spent.get("train.graph_replays", 0) == 1,
+                      spent.get("upsample.launches", 0)))
         return out
 
     return step
 
 
 def stepped(steps: list) -> dict:
-    """``watched``'s records as a run's step_ms, step_launches, replayed
-    and replays."""
-    return dict(step_ms=[ms for ms, _, _ in steps], step_launches=[n for _, n, _ in steps],
-                replayed=[r for _, _, r in steps], replays=sum(r for _, _, r in steps))
+    """``watched``'s records as a run's step_ms, step_launches, replayed,
+    replays and step_upsample."""
+    return dict(step_ms=[s[0] for s in steps], step_launches=[s[1] for s in steps],
+                replayed=[s[2] for s in steps], replays=sum(s[2] for s in steps),
+                step_upsample=[s[3] for s in steps])
+
+
+def upsample_per_step(trainer) -> int:
+    """The decoders' upsample kernels the host calls in one eager train
+    step of ``trainer``, from its nets' modules: each bilinear
+    ``blocks.Upsample2x`` of a net on this rank runs once in the net's
+    train forward and once in its backward, once more in the backward
+    where remat recomputes its up block, and in a co-teaching step once in
+    the views' forward (24 a step of a co-teaching pair of four-level
+    nets, 8 a supervised step of one)."""
+    from aide_tpu_torch.engine.state import DualTrainState, NetRankState
+    from aide_tpu_torch.models.blocks import Upsample2x
+
+    state = trainer.state
+    passes = (2 + bool(trainer.cfg.model.remat)
+              + isinstance(state, (DualTrainState, NetRankState)))
+    return passes * sum(isinstance(m, Upsample2x) for net in state.nets for m in net.modules())
+
+
+def upsample_step_launches(path: str) -> int:
+    """Forward and backward upsample launches of one step of an
+    UPSAMPLE_STEPS path."""
+    return sum(f + b for _, f, b in UPSAMPLE_STEPS[path])
 
 
 def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
@@ -930,7 +1002,7 @@ def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
     trainer.train_step, trainer._train_epoch, trainer._maybe_checkpoint, trainer._refresh_labels = (
         inner_step, inner_epoch, inner_gate, inner_refresh)
     spe = trainer.train_pipe.steps_per_epoch(trainer.cfg.data.batch_size)
-    step_ms = [ms for ms, _, _ in steps]
+    step_ms = [s[0] for s in steps]
     values = [v for row in rows for v in row.values()]
     ran = epochs - trainer.start_epoch  # a resumed run goes on from start_epoch
     if len(rows) != epochs or len(step_ms) != ran * spe or not all(
@@ -938,7 +1010,8 @@ def drive(trainer, cuda_warp, epochs: int = 2, runner=None) -> dict:
         fail(f"run({epochs}) gave non-finite or missing history "
              f"({len(rows)} rows, {len(step_ms)} steps)")
     # the median after the first epoch; of a single epoch, after its first step
-    return dict(rows=rows, **stepped(steps), spe=spe, train_launches=train_launches,
+    return dict(rows=rows, **stepped(steps), upsample_per_step=upsample_per_step(trainer),
+                spe=spe, train_launches=train_launches,
                 launches=launches, outside=launches - sum(train_launches),
                 best_epochs=best_epochs, peak=peak, case_dice=case_dice,
                 steady=statistics.median(step_ms[spe:] or step_ms[1:]))
@@ -960,18 +1033,23 @@ def print_run(name, run) -> None:
 
 
 def launch_fault(run, per_step, augment: int = 0):
-    """None where the host called the kernel ``per_step`` times in each
-    train step that did not replay its graph and in none that did,
+    """None where the host called the warp kernel ``per_step`` times in
+    each train step that did not replay its graph and in none that did,
     ``augment`` times a step in the train epochs outside the step
-    (``data.augment_main``), and nowhere else; else what differs."""
+    (``data.augment_main``), and nowhere else, and the upsample kernels
+    ``run["upsample_per_step"]`` times in each step that did not replay
+    and in none that did; else what differs."""
     n = len(run["step_ms"])
     want = [0 if r else per_step for r in run["replayed"]]
     around = sum(run.get("train_launches", [run["launches"]])) - sum(run["step_launches"])
-    if run["step_launches"] == want and around == augment * n and run["outside"] == 0:
+    want_up = [0 if r else run["upsample_per_step"] for r in run["replayed"]]
+    if (run["step_launches"] == want and around == augment * n and run["outside"] == 0
+            and run["step_upsample"] == want_up):
         return None
     return (f"warp kernel launched {run['step_launches']} times in {n} steps "
             f"({run['replays']} replayed), {around} times around them and {run['outside']} "
-            f"outside the train epochs; expected {want}, {augment * n} and 0")
+            f"outside the train epochs; expected {want}, {augment * n} and 0; upsample "
+            f"kernels launched {run['step_upsample']} times in the steps, expected {want_up}")
 
 
 def check_launches(name, run, per_step, augment: int = 0) -> None:
@@ -1007,6 +1085,9 @@ def run_slice(cuda_warp, scratch):
     check_refresh(trainer)
     check_best_exports(trainer, run["best_epochs"])
     check_launches("chaos", run, 3)
+    if run["upsample_per_step"] != upsample_step_launches("chaos_coteach"):
+        fail(f"chaos: {run['upsample_per_step']} upsample launches a step from the nets, "
+             f"{upsample_step_launches('chaos_coteach')} in UPSAMPLE_STEPS")
     check_unfused_test(trainer, run["rows"][-1])
     print(f"chaos: setup {setup_s:.2f} s", flush=True)
     return trainer, run
@@ -1067,7 +1148,8 @@ def run_graph_vs_eager(trainer) -> dict:
             graphs.replayable = replayable
         torch.cuda.synchronize()
         flat = {f"step{k}.{name}": v for k, m in enumerate(metrics) for name, v in m.items()}
-        return dict(stepped(log), values={**flat, **state_leaves(state)},
+        return dict(stepped(log), upsample_per_step=upsample_per_step(trainer),
+                    values={**flat, **state_leaves(state)},
                     count=state.optimizer.count, step=step)
 
     replayed, eagers = arm(True), [arm(False) for _ in range(3)]
@@ -1637,8 +1719,8 @@ def zoo_steps(cuda_warp, scratch, name, base_width, per_step) -> dict:
     m = trainer._train_epoch(0, 0.5)
     launches = warp_launches() - launched
     trainer.train_step = inner
-    run = dict(**stepped(steps), launches=launches, outside=0,
-               peak=torch.cuda.max_memory_allocated())
+    run = dict(**stepped(steps), upsample_per_step=upsample_per_step(trainer), launches=launches,
+               outside=0, peak=torch.cuda.max_memory_allocated())
     step_ms = run["step_ms"]
     run["steady"] = statistics.median(step_ms[1:])
     print(f"zoo_{name}: {len(step_ms)} co-teaching steps ({name}, base width {base_width}, 256 px, "
@@ -2739,6 +2821,7 @@ def data_axis_rank(rank, device, scratch, world, profile=False):
         steady=run["steady"], step_ms=run["step_ms"], spe=run["spe"], peak=run["peak"],
         launches=run["launches"], outside=run["outside"], best_epochs=run["best_epochs"],
         step_launches=run["step_launches"], replayed=run["replayed"], replays=run["replays"],
+        step_upsample=run["step_upsample"], upsample_per_step=run["upsample_per_step"],
         collectives_per_step=per_step, state=digest(state), labels=digest(labels),
         blocks_ok=blocks_ok, tempmasks_ok=tempmasks_ok, warp_err=warp_err, bn_err=bn_err,
         allreduce_ms=allreduce_ms, allreduce_bytes=flat.numel() * 4, sync_ms=sync_ms,
@@ -2943,6 +3026,7 @@ def net_axis_rank(rank, device, scratch, world, profile=False):
         steady=run["steady"], step_ms=run["step_ms"], spe=run["spe"], peak=run["peak"],
         launches=run["launches"], outside=run["outside"], best_epochs=run["best_epochs"],
         step_launches=run["step_launches"], replayed=run["replayed"], replays=run["replays"],
+        step_upsample=run["step_upsample"], upsample_per_step=run["upsample_per_step"],
         collectives_per_step=per_step, collective_bytes_per_step=bytes_per_step,
         state=net_state, labels=digest(labels), blocks_ok=blocks_ok,
         tempmasks_ok=tempmasks_ok, warp_err=warp_err, exchange_bytes=exchange_bytes,
@@ -3144,6 +3228,7 @@ def space_axis_rank(rank, device, scratch, world, profile=False):
         steady=run["steady"], step_ms=run["step_ms"], spe=run["spe"], peak=run["peak"],
         launches=run["launches"], outside=run["outside"], best_epochs=run["best_epochs"],
         step_launches=run["step_launches"], replayed=run["replayed"], replays=run["replays"],
+        step_upsample=run["step_upsample"], upsample_per_step=run["upsample_per_step"],
         by_kind=per_step[-1], halo_ms=halo, nets=nets,
         labels=digest(labels), blocks_ok=blocks_ok, tempmasks_ok=tempmasks_ok, warp_err=0.0,
         files=sorted(os.path.relpath(os.path.join(d, f), work)
@@ -4229,6 +4314,288 @@ def run_phases_6_to_11(cuda_warp, scratch, args, chaos, chaos_log):
     return runs, extra
 
 
+def _upsample_pair(cuda_upsample, x, out_dtype, grad) -> float:
+    """The kernels' and the plain versions' forward on NHWC ``x`` and
+    backward of ``grad``: the largest absolute difference of the two
+    directions; fails unless both are bit for bit equal."""
+    import torch
+
+    got = cuda_upsample.launch_forward(x, out_dtype)
+    ref = cuda_upsample.upsample2x_plain(x, out_dtype)
+    g_got = cuda_upsample.launch_backward(grad, x.dtype)
+    g_ref = cuda_upsample.upsample2x_grad_plain(grad, x.dtype)
+    torch.cuda.synchronize()
+    gaps = []
+    for what, a, b in (("forward", got, ref), ("backward", g_got, g_ref)):
+        gaps.append(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"upsample {what} {tuple(x.shape)} {x.dtype} -> {out_dtype}: kernel differs "
+                 f"from its plain version by {gaps[-1]}")
+    return max(gaps)
+
+
+def check_upsample(cuda_upsample, device) -> float:
+    """Phase 19 (a): the kernels bit for bit against their plain versions
+    on the card: the edge cases at every pair of input and output dtypes
+    the models meet, a base address that allows no vector, and the cells'
+    launch shapes in bf16 (and in f32 at batch 8). Returns the largest
+    difference measured (0 where all are equal)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(19)
+    worst = 0.0
+    pairs = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.float16, torch.float16), (torch.float32, torch.bfloat16),
+             (torch.float32, torch.float16)]
+    for shape in UPSAMPLE_EDGE_SHAPES:
+        n, h, w, c = shape
+        for din, dout in pairs:
+            x = torch.randn(shape, generator=g).to(device, din)
+            grad = torch.randn((n, 2 * h, 2 * w, c), generator=g).to(device, dout)
+            worst = max(worst, _upsample_pair(cuda_upsample, x, dout, grad))
+            # one element past an aligned base: every vector width falls to 1
+            off = torch.empty(x.numel() + 1, dtype=din, device=device)[1:].view(shape)
+            off.copy_(x)
+            if cuda_upsample.vector_width(c, off) != 1 and c > 1:
+                fail(f"upsample: an offset base still takes vectors at C={c}")
+            worst = max(worst, _upsample_pair(cuda_upsample, off, dout, grad))
+    checked = 0
+    for path, launches in UPSAMPLE_STEPS.items():
+        for shape, _, _ in launches:
+            n, s, _, c = shape
+            for dtype in (torch.bfloat16,) + ((torch.float32,) if n == 8 else ()):
+                x = torch.randn(shape, generator=g).to(device, dtype)
+                grad = torch.randn((n, 2 * s, 2 * s, c), generator=g).to(device, dtype)
+                worst = max(worst, _upsample_pair(cuda_upsample, x, dtype, grad))
+                checked += 1
+                del x, grad
+            torch.cuda.empty_cache()
+    print(f"phase 19 (a): upsample kernels equal their plain versions bit for bit: "
+          f"{len(UPSAMPLE_EDGE_SHAPES) * len(pairs) * 2} edge cases, {checked} launch shapes, "
+          f"largest difference {worst}", flush=True)
+    return worst
+
+
+def time_upsample(cuda_upsample, device) -> list:
+    """Phase 19 (b): each launch shape of UPSAMPLE_STEPS in bf16, cold L2
+    (a 64 MB buffer written before each run, outside the events): the
+    forward and backward kernels, their plain versions, and ATen's NHWC
+    kernels (``F.interpolate`` and its backward on channels_last tensors)
+    in bf16 with autocast off, the library yardstick, and in f32, as
+    autocast ran them; beside the bytes-over-bandwidth bound of the bf16
+    kernels. At batch 8, where a step runs the backward, each bf16
+    backward's largest difference from the exact (f64) gradient, and the
+    bf16 library forward's elements that differ from the kernel's."""
+    import torch
+    import torch.nn.functional as F
+
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+
+    def flush():
+        scratch.fill_(1.0)
+
+    shapes = sorted({shape for launches in UPSAMPLE_STEPS.values() for shape, _, _ in launches},
+                    key=lambda t: (t[1], t[0]))
+    g = torch.Generator(device="cpu").manual_seed(23)
+    rows = []
+    for shape in shapes:
+        n, s, _, c = shape
+        x = torch.randn(shape, generator=g).to(device, torch.bfloat16)
+        grad = torch.randn((n, 2 * s, 2 * s, c), generator=g).to(device, torch.bfloat16)
+        bf = torch.bfloat16
+        fwd = time_cuda(lambda: cuda_upsample.launch_forward(x, bf), flush=flush)
+        bwd = time_cuda(lambda: cuda_upsample.launch_backward(grad, bf), flush=flush)
+        p_fwd = time_cuda(lambda: cuda_upsample.upsample2x_plain(x, bf), runs=10, warmup=2)
+        p_bwd = time_cuda(lambda: cuda_upsample.upsample2x_grad_plain(grad, bf), runs=10,
+                          warmup=2)
+        # ATen's kernels on the NCHW channels_last views: bf16, then f32 copies
+        xb, gb = x.permute(0, 3, 1, 2), grad.permute(0, 3, 1, 2)
+        xf, gf = xb.float(), gb.float()
+
+        def lib_fwd(t):
+            return F.interpolate(t, scale_factor=2, mode="bilinear", align_corners=False)
+
+        def lib_bwd(t):
+            return torch.ops.aten.upsample_bilinear2d_backward(
+                t, [2 * s, 2 * s], [n, c, s, s], False, 2.0, 2.0)
+
+        lib = {f"library{tag}_{d}ms": time_cuda(lambda: fn(t), flush=flush)
+               for tag, a, b in (("", xb, gb), ("_f32", xf, gf))
+               for d, fn, t in (("", lib_fwd, a), ("bwd_", lib_bwd, b))}
+        nbytes = cuda_upsample.bytes_moved(shape, 2, 2)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        f32_bytes = cuda_upsample.bytes_moved(shape, 4, 4)
+        row = dict(shape=shape, dtype="bfloat16", bytes=nbytes, bound_ms=bound,
+                   ms=fwd, bwd_ms=bwd, plain_ms=p_fwd, plain_bwd_ms=p_bwd, **lib,
+                   library_f32_bytes=f32_bytes, vector=cuda_upsample.vector_width(c, x))
+        if n == 8:
+            exact = cuda_upsample.upsample2x_grad_plain(grad.double(), torch.float64)
+            row["bwd_err"] = float((cuda_upsample.launch_backward(grad, bf).double()
+                                    - exact).abs().max())
+            row["library_bwd_err"] = float((lib_bwd(gb).permute(0, 2, 3, 1).double()
+                                            - exact).abs().max())
+            row["library_fwd_mismatches"] = int(
+                (lib_fwd(xb).permute(0, 2, 3, 1) != cuda_upsample.launch_forward(x, bf)).sum())
+            del exact
+        print(f"phase 19 (b) upsample {shape} bf16: forward {fwd:.4f} ms ({bound / fwd:.1%} of "
+              f"the {bound * 1e3:.1f} us bound), backward {bwd:.4f} ms ({bound / bwd:.1%}); "
+              f"plain {p_fwd:.4f} / {p_bwd:.4f} ms; library bf16 {lib['library_ms']:.4f} / "
+              f"{lib['library_bwd_ms']:.4f} ms, f32 {lib['library_f32_ms']:.4f} / "
+              f"{lib['library_f32_bwd_ms']:.4f} ms ({f32_bytes / HBM_BYTES_PER_S * 1e3 / lib['library_f32_ms']:.1%} "
+              f"of its own f32 bound forward)"
+              + (f"; backward's largest error against f64: kernel {row['bwd_err']:.3g}, library "
+                 f"bf16 {row['library_bwd_err']:.3g}; library bf16 forward elements unlike the "
+                 f"kernel's {row['library_fwd_mismatches']}" if n == 8 else ""), flush=True)
+        rows.append(row)
+        del x, grad, xb, gb, xf, gf
+        torch.cuda.empty_cache()
+    del scratch
+    return rows
+
+
+def upsample_in_replayed_step(device) -> dict:
+    """Phase 19 (c): the kidney cell's co-teaching step (a UNet-64 pair,
+    512 px, batch 8, 4 eval-mode views, bf16) replayed as a CUDA graph: the
+    upsample kernels the host called in an eager step, and under
+    torch.profiler the kernels the card ran in 2 replayed steps: as many
+    upsample2x kernels a step, and no ATen upsample_bilinear2d kernel."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aide_tpu_torch.core import trace
+    from aide_tpu_torch.core.config import TrainConfig
+    from aide_tpu_torch.engine import steps
+    from aide_tpu_torch.engine.state import DualTrainState
+    from aide_tpu_torch.engine.trainer import init_net
+    from aide_tpu_torch.ops import tta
+    from aide_tpu_torch.ops.schedules import make_optimizer
+
+    size, b, views = 512, 8, 4
+    cfg = TrainConfig()
+    cfg.model.name, cfg.model.base_width, cfg.model.compute_dtype = "unet", 64, "bfloat16"
+    cfg.data.img_size, cfg.data.batch_size, cfg.data.num_tta_views = size, b, views
+    cfg.coteach.tta_bn, cfg.coteach.sharpen_mode = "running", "pow_inv_t"
+    nets = [init_net(cfg.model, seed).to(device, memory_format=torch.channels_last)
+            for seed in (0, 1)]
+    opt = make_optimizer([p for net in nets for p in net.parameters()], cfg.optim, 1, 20)
+    state = DualTrainState(*nets, opt)
+    step = steps.make_coteach_train_step(False, cfg)
+    rng = np.random.default_rng(19)
+    yy, xx = np.mgrid[0:size, 0:size]
+    batch = {"image": rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8),
+             "scale": rng.uniform(0.01, 0.03, (b, 3)).astype(np.float32),
+             "fill": rng.uniform(-2.5, -0.5, (b, 3)).astype(np.float32)}
+    for t in ("target1", "target2"):
+        cy, cx = rng.uniform(0.25, 0.75, 2) * size
+        r = rng.uniform(0.1, 0.3) * size
+        batch[t] = np.broadcast_to(((yy - cy) ** 2 + (xx - cx) ** 2 <= r * r).astype(np.int64),
+                                   (b, size, size)).copy()
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    degrees, hflip = tta.sample_view_params(torch.Generator().manual_seed(19), views, b, 60.0,
+                                            0.5)
+    degrees, hflip = degrees.to(device), hflip.to(device)
+    per_eager = []
+    for _ in range(3):  # 2 eager steps and the capture
+        before = trace.totals()
+        step(state, batch, degrees, hflip, 0.25)
+        torch.cuda.synchronize()
+        per_eager.append(trace.delta(before).get("upsample.launches", 0))
+    before = trace.totals()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(state, batch, degrees, hflip, 0.25)
+        torch.cuda.synchronize()
+    spent = trace.delta(before)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ran = sum("upsample2x_" in name for name in names)
+    aten = sum("upsample_bilinear2d" in name for name in names)
+    out = dict(host_launches_eager_step=per_eager[0], host_launches_capture=per_eager[2],
+               replays=spent.get("train.graph_replays", 0),
+               host_launches_replayed=spent.get("upsample.launches", 0),
+               upsample2x_kernels_replayed=ran, aten_upsample_kernels_replayed=aten)
+    print("phase 19 (c): the kidney step replayed: " + json.dumps(out), flush=True)
+    if out["replays"] != 2 or out["host_launches_replayed"] != 0:
+        fail(f"phase 19 (c): expected 2 replays and no host-called launch: {out}")
+    want = upsample_step_launches("kidney_coteach")
+    if per_eager != [want] * 3 or ran != 2 * want or aten:
+        fail(f"phase 19 (c): the eager steps and the capture must each call {want} upsample2x "
+             f"launches, and a replayed kidney step run as many and no ATen upsample: {out}")
+    return out
+
+
+def run_upsample(device) -> dict:
+    """Phase 19: the decoders' upsample kernels, built, checked and timed
+    alone (UPSAMPLE_STEPS), and counted in a replayed kidney step. Returns
+    the kernel's entry of the {"kernels": [...]} line. Runs alone too, and
+    then prints that line: python3 -c "import chip_smoke;
+    chip_smoke.run_upsample(None)"."""
+    import torch
+
+    alone = device is None
+    if alone:
+        if not torch.cuda.is_available():
+            fail("phase 19 needs a CUDA device")
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        device = torch.device("cuda")
+        print(smi_line(), flush=True)
+    from aide_tpu_torch.ops import cuda_upsample
+
+    t0 = time.perf_counter()
+    cuda_upsample.build(verbose=True)
+    print(f"phase 19: upsample build {time.perf_counter() - t0:.2f} s", flush=True)
+    worst = check_upsample(cuda_upsample, device)
+    rows = time_upsample(cuda_upsample, device)
+    by_shape = {r["shape"]: r for r in rows}
+    by_path = {}
+    for path, launches in UPSAMPLE_STEPS.items():
+        fwd_keys = ("ms", "plain_ms", "library_ms", "library_f32_ms")
+        bwd_keys = ("bwd_ms", "plain_bwd_ms", "library_bwd_ms", "library_f32_bwd_ms")
+        entry = {k: 0.0 for k in fwd_keys + bwd_keys + ("bound_ms", "bwd_bound_ms")}
+        for shape, fwd_n, bwd_n in launches:
+            r = by_shape[shape]
+            for k in fwd_keys:
+                entry[k] += fwd_n * r[k]
+            for k in bwd_keys:
+                entry[k] += bwd_n * r[k]
+            entry["bound_ms"] += fwd_n * r["bound_ms"]
+            entry["bwd_bound_ms"] += bwd_n * r["bound_ms"]
+        entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+        entry["bwd_share_of_bound"] = (entry["bwd_bound_ms"] / entry["bwd_ms"]
+                                       if entry["bwd_ms"] else None)
+        by_path[path] = entry
+        print(f"phase 19 (b) {path}, a step: forward {entry['ms']:.3f} ms "
+              f"({entry['share_of_bound']:.1%} of {entry['bound_ms']:.3f}), backward "
+              f"{entry['bwd_ms']:.3f} ms, plain {entry['plain_ms']:.3f} / "
+              f"{entry['plain_bwd_ms']:.3f}, library bf16 {entry['library_ms']:.3f} / "
+              f"{entry['library_bwd_ms']:.3f}, library f32 {entry['library_f32_ms']:.3f} / "
+              f"{entry['library_f32_bwd_ms']:.3f}", flush=True)
+    replay = upsample_in_replayed_step(device)
+    kidney = by_path["kidney_coteach"]
+    entry = {
+        "name": "upsample2x",
+        "route": "cuda",
+        "source": "aide_tpu_torch/csrc/upsample2x.cu",
+        "replaces": None,  # jax.image.resize is a library call, no Pallas kernel
+        "max_abs_err": worst,
+        # one kidney co-teaching step's forward launches, each timed cold
+        "ms": kidney["ms"],
+        "plain_ms": kidney["plain_ms"],
+        "bound_ms": kidney["bound_ms"],
+        "bound_by": "bytes",
+        # ATen's kernels in bf16 with autocast off; in f32 as autocast ran them
+        "library_ms": kidney["library_ms"],
+        "library_f32_ms": kidney["library_f32_ms"],
+        "by_path": by_path,
+        "per_launch": rows,
+        "replayed_kidney_step": replay,
+    }
+    if alone:
+        print(json.dumps({"kernels": [entry]}), flush=True)
+    return entry
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4301,7 +4668,7 @@ def main() -> int:
     print(f"phase 14: {time.perf_counter() - t14:.2f} s", flush=True)
     stamp("phase 14")
     space_runs = {f"space_axis_{w}": run for w, run in space_axis.items()}
-    bench, ladder, real = {}, None, {}
+    bench, ladder, real, upsample = {}, None, {}, None
     if not args.data_axis:
         t15 = time.perf_counter()
         bench = run_bench(root, scratch)
@@ -4321,6 +4688,8 @@ def main() -> int:
         runs["chaos_rot360"] = run_full_circle(cuda_warp, scratch)
         print(f"phase 18: {time.perf_counter() - t18:.2f} s", flush=True)
         stamp("phase 18")
+        upsample = run_upsample(device)
+        stamp("phase 19")
 
     by_path = {}
     for path, run in {**runs, "data_axis": data_axis, **net_runs, **space_runs}.items():
@@ -4456,6 +4825,17 @@ def main() -> int:
     # the real-data programs' processes: each run's launches (0 in the
     # supervised ones)
     launches.update({path: run["warp_launches"] for path, run in real.items()})
+    if upsample is not None:
+        # the upsample kernels' host calls in the train steps ``watched``
+        # saw, which check_launches held to upsample_per_step in each eager
+        # or captured step and to 0 in each replay
+        up = {path: run["step_upsample"] for path, run in runs.items()}
+        up.update({f"data_axis_rank{r}": ranks[r]["step_upsample"] for r in sorted(ranks)})
+        for path, run in {**net_runs, **space_runs}.items():
+            up.update({f"{path}_rank{r}": n["step_upsample"] for r, n in sorted(run["ranks"].items())})
+        upsample.update(launches=sum(sum(v) for v in up.values()),
+                        launches_by_path={path: sum(v) for path, v in up.items()},
+                        launches_per_step_by_path={path: sorted(set(v)) for path, v in up.items()})
     kernels = [{
         "name": "warp_rotate_flip",
         "route": "cuda",
@@ -4489,7 +4869,7 @@ def main() -> int:
         "step_ms": chaos["steady"],
         "max_memory_allocated": chaos["peak"],
         **extra,
-    }]
+    }] + ([upsample] if upsample is not None else [])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)
