@@ -8,7 +8,10 @@ JAX package's variables (``interop.weights``) load by name.
 
 Every block's ``forward`` takes ``update_stats``: the TTA forwards run in
 train-mode BatchNorm (batch statistics) without touching the running ones.
-GroupNorm has no running statistics and ignores it.
+GroupNorm has no running statistics and ignores it. Train-mode BatchNorm
+has one path at every world size: torch's per-channel statistics and
+normalise kernels (plain versions on the CPU), folding the running
+statistics from the mean and inverse std it normalised with.
 
 ``remat`` is ``torch.utils.checkpoint`` (non-reentrant) around a block, as
 the JAX package wraps its blocks in ``nn.remat``. The recompute in the
@@ -139,9 +142,10 @@ def _memory_format(x: torch.Tensor) -> torch.memory_format:
     return torch.contiguous_format
 
 
-# torch's fused per-channel batch-norm kernels (``nn.SyncBatchNorm``'s) on
-# a card, and their plain versions on the CPU, which has none: statistics
-# and sums in float32, outputs in the input's dtype
+# torch's fused per-channel batch-norm kernels (``nn.SyncBatchNorm``'s;
+# ``F.batch_norm`` runs the same on channels_last maps, its statistics as
+# a variance) on a card, and their plain versions on the CPU, which has
+# none: statistics and sums in float32, outputs in the input's dtype
 
 
 def _stats(x, eps):
@@ -207,30 +211,32 @@ def _row_counts(world: int, count: int, device: torch.device):
     return counts, counts.to(torch.int32)
 
 
-class _GlobalBatchNorm(torch.autograd.Function):
-    """Train-mode batch norm over the global batch of the data axis. The
-    forward all-gathers each rank's per-channel mean and inverse std over
-    ``group`` of ``world`` ranks, each holding an equal block (its net's
-    data group, or its replica group under ``space_partition``; on a net
-    axis the pair's other net normalises its own activations in its own
-    group) and combines them; the backward all-reduces the
-    per-channel sum(dy) and sum(dy * (x - mean)) (one collective). The
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode batch norm over ``group`` of ``world`` ranks, each holding
+    an equal block of the batch's rows: this rank alone (``world`` 1), its
+    net's data group, or its replica group under ``space_partition`` (on a
+    net axis the pair's other net normalises its own activations in its
+    own group). The forward takes this rank's per-channel mean and inverse
+    std and, over more than one rank, all-gathers and combines them; the
+    backward takes this rank's per-channel sum(dy) and sum(dy * (x - mean))
+    and, over more than one rank, all-reduces them (one collective). The
     weight's and bias's gradients stay this rank's share, which the step's
-    gradient all-reduce sums. Returns y and the global mean and inverse
-    std (no gradient), which the module folds into its running ones."""
+    gradient all-reduce sums. Returns y and the mean and inverse std (no
+    gradient), which the module folds into its running ones."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, group, world):
         x = x.contiguous(memory_format=_memory_format(x))
         c = x.shape[1]
-        ctx.group = group
+        ctx.group, ctx.world = group, world
         mean, invstd = _stats(x, eps)
-        local = torch.cat([mean, invstd])
-        gathered = local.new_empty(world * 2 * c)
-        mesh.all_gather(gathered, local, group, "bn")
-        gathered = gathered.view(world, 2, c)
         counts, ctx.counts = _row_counts(world, x.numel() // c, x.device)
-        mean, invstd = _combine_stats(x, gathered[:, 0], gathered[:, 1], counts, eps)
+        if world > 1:
+            local = torch.cat([mean, invstd])
+            gathered = local.new_empty(world * 2 * c)
+            mesh.all_gather(gathered, local, group, "bn")
+            gathered = gathered.view(world, 2, c)
+            mean, invstd = _combine_stats(x, gathered[:, 0], gathered[:, 1], counts, eps)
         ctx.save_for_backward(x, weight, mean, invstd)
         ctx.mark_non_differentiable(mean, invstd)
         return _normalize(x, weight, bias, mean, invstd, eps), mean, invstd
@@ -240,30 +246,32 @@ class _GlobalBatchNorm(torch.autograd.Function):
         x, weight, mean, invstd = ctx.saved_tensors
         gy = gy.contiguous(memory_format=_memory_format(x))
         sum_dy, sum_dy_xmu, gw, gb = _backward_sums(gy, x, mean, invstd, weight)
-        sums = torch.cat([sum_dy, sum_dy_xmu])
-        mesh.all_reduce(sums, ctx.group, "bn")
-        c = x.shape[1]
-        gx = _backward_input(gy, x, mean, invstd, weight, sums[:c], sums[c:], ctx.counts)
+        if ctx.world > 1:
+            sums = torch.cat([sum_dy, sum_dy_xmu])
+            mesh.all_reduce(sums, ctx.group, "bn")
+            sum_dy, sum_dy_xmu = sums.chunk(2)
+        gx = _backward_input(gy, x, mean, invstd, weight, sum_dy, sum_dy_xmu, ctx.counts)
         return gx, gw, gb, None, None, None
 
 
 class BatchNorm(nn.Module):
     """BatchNorm with flax semantics.
 
-    Train mode normalizes with the batch statistics and, when
-    ``update_stats``, folds them into the running ones as flax does:
-    ``running = 0.9*running + 0.1*batch`` with the BIASED batch variance
-    (mean(x^2) - mean(x)^2). ``nn.BatchNorm2d`` folds in the unbiased one,
-    which is why this is its own module. Eval mode uses the running stats.
-    ``fold`` is cleared while a remat block recomputes its forward.
+    Train mode normalizes with the batch statistics (``_BatchNormTrain``)
+    and, when ``update_stats``, folds them into the running ones as flax
+    does: ``running = 0.9*running + 0.1*batch`` with the BIASED batch
+    variance, here ``invstd^-2 - eps`` of the statistics it normalised
+    with. ``nn.BatchNorm2d`` folds in the unbiased one, which is why this
+    is its own module. Eval mode uses the running stats. ``fold`` is
+    cleared while a remat block recomputes its forward.
 
     Inside ``global_batch_stats`` on a data axis of N > 1 ranks (or under
-    ``space_partition``, on the N blocks of data x space) the
-    train-mode statistics are those of the global batch
-    (``_GlobalBatchNorm``: one collective a forward, one a backward), and
-    every rank folds the same running statistics, with the biased global
-    variance. Under remat the recompute runs its collective again, in the
-    same order on every rank."""
+    ``space_partition``, on the N blocks of data x space) the statistics
+    are those of the global batch (one collective a forward, one a
+    backward), and every rank folds the same running statistics. Outside
+    it, or at N = 1, they are this rank's rows' and no collective runs.
+    Under remat the recompute runs its collective again, in the same order
+    on every rank."""
 
     def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -281,24 +289,13 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             )
-        fold = update_stats and self.fold
-        group, world = mesh.replicas(_partitioned())
-        if _global_stats and world > 1:
-            y, mean, invstd = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, group,
-                                                     world)
-            if fold:
-                with torch.no_grad():
-                    self.running_mean.lerp_(mean, self.momentum)
-                    self.running_var.lerp_(invstd.pow(-2).sub_(self.eps), self.momentum)
-            return y
-        if fold:
+        group, world = mesh.replicas(_partitioned()) if _global_stats else (None, 1)
+        y, mean, invstd = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps, group, world)
+        if update_stats and self.fold:
             with torch.no_grad():
-                xf = x.detach().to(_stats_dtype(x))
-                mean = xf.mean(dim=(0, 2, 3))
-                var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-                self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-                self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(invstd.pow(-2).sub_(self.eps), self.momentum)
+        return y
 
 
 def group_count(channels: int, groups: int) -> int:

@@ -2680,13 +2680,13 @@ def digest(arrays) -> str:
 
 
 def global_batchnorm_error(rank, world, batch, device):
-    """The global BatchNorm's fused path (torch's per-channel kernels, an
-    all-gather forward and an all-reduce backward) on this rank's rows of
-    a seeded global batch at the first norm's shape, FuseUNet-32 at 256
-    px, held to F.batch_norm of the whole batch on this card: the largest
-    absolute error of y, dx and the summed dweight and dbias, each over its
-    reference's largest magnitude. Run directly, so a world of one (a
-    NCCL group of one) runs it too."""
+    """The train-mode BatchNorm's fused path (torch's per-channel kernels;
+    over more than one rank an all-gather forward and an all-reduce
+    backward) on this rank's rows of a seeded global batch at the first
+    norm's shape, FuseUNet-32 at 256 px, held to F.batch_norm of the whole
+    batch on this card: the largest absolute error of y, dx and the summed
+    dweight and dbias, each over its reference's largest magnitude. Run
+    directly, so a world of one runs it too."""
     import torch
     import torch.nn.functional as F
 
@@ -2703,7 +2703,7 @@ def global_batchnorm_error(rank, world, batch, device):
         return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
 
     x, w, b = (on_card(t).requires_grad_() for t in (x_all[rows], w0, b0))
-    y, _, _ = blocks._GlobalBatchNorm.apply(x, w, b, 1e-5, *mesh.replicas(False))
+    y, _, _ = blocks._BatchNormTrain.apply(x, w, b, 1e-5, *mesh.replicas(False))
     (y * on_card(g_all[rows])).sum().backward()
     grads = torch.cat([w.grad, b.grad])
     mesh.all_reduce(grads)

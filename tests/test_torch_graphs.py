@@ -27,7 +27,11 @@ metrics, the parameters, BN running stats, moments bit for bit, the
 optimizer's count, the graph counters, the warp kernel's host-called
 launches and, from a profiler trace of 4 replayed steps, the warp kernels
 the card ran. At the kidney cell's width (UNet-64, 512 px, batch 8) the
-replay lies within twice the eager runs' own difference.
+replay lies within twice the eager runs' own difference. The train-mode
+BatchNorm the steps run, at the first norm of each cell's net under bf16
+autocast, equals ``F.batch_norm`` forward and backward within the
+rounding of each dtype, with no collective, and folds flax's running
+statistics within rtol 1e-5.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import gc
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 from aide_tpu_torch.core import mesh, trace
@@ -45,6 +50,7 @@ from aide_tpu_torch.engine import checkpoint as ckpt
 from aide_tpu_torch.engine import graphs, steps
 from aide_tpu_torch.engine.state import DualTrainState, NetRankState, TrainState
 from aide_tpu_torch.engine.trainer import init_net
+from aide_tpu_torch.models import blocks
 from aide_tpu_torch.ops import tta
 from aide_tpu_torch.ops.schedules import make_optimizer
 
@@ -378,3 +384,60 @@ def test_replay_within_eager_spread_at_the_kidney_cell_width(cuda_device, monkey
     assert [r[4] for r in runs] == [8, 8, 8]  # 2 warp kernels in each of 4 profiled steps
     for g, s in zip(gap, spread):
         assert g <= 2 * s, (gap, spread)
+
+
+# the first train-mode BatchNorm of each cell's net, batch 8: the CHAOS
+# cell's FuseUNet-32 at 256 px and the kidney cell's UNet-64 at 512 px
+BN_SHAPES = {"chaos": (8, 32, 256, 256), "kidney": (8, 64, 512, 512)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(BN_SHAPES))
+def test_batch_norm_is_f_batch_norm_on_the_card(cuda_device, cell):
+    """The train-mode BatchNorm the steps run (``blocks.BatchNorm``: torch's
+    per-channel statistics and normalise kernels, no collective on one
+    rank) against ``F.batch_norm`` on the same bf16 channels_last batch
+    under autocast: the statistics (against ``torch.native_batch_norm``'s
+    saved mean and inverse std), y, dx, dweight and dbias each within its
+    dtype's rounding (``assert_close``'s defaults), the largest
+    differences printed; and its running statistics within rtol 1e-5 of
+    flax's fold, E[x^2] - E[x]^2 in f32, of the same batch."""
+    n, c, h, w = BN_SHAPES[cell]
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device)
+
+    x0 = (randn(n, c, h, w) * 2 + randn(c).view(1, c, 1, 1)).to(torch.bfloat16)
+    x0 = x0.contiguous(memory_format=torch.channels_last)
+    gy = randn(n, c, h, w).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w0, b0 = randn(c), randn(c)
+    bn = blocks.BatchNorm(c).to(cuda_device).train()
+    with torch.no_grad():
+        bn.weight.copy_(w0)
+        bn.bias.copy_(b0)
+    x, xr = (x0.clone().requires_grad_() for _ in range(2))
+    wr, br = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+    mesh.reset_collectives()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = bn(x)
+        yr = F.batch_norm(xr, None, None, wr, br, True, 0.0, bn.eps)
+    y.backward(gy)
+    yr.backward(gy)
+    assert mesh.collectives == 0
+    assert y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last)
+    stats = torch.batch_norm_stats(x0, bn.eps)
+    _, *native = torch.native_batch_norm(x0, w0, b0, None, None, True, 0.0, bn.eps)
+    pairs = {"mean": (stats[0], native[0]), "invstd": (stats[1], native[1]), "y": (y, yr),
+             "dx": (x.grad, xr.grad), "dweight": (bn.weight.grad, wr.grad),
+             "dbias": (bn.bias.grad, br.grad)}
+    gaps = {name: float((got.detach().float() - want.detach().float()).abs().max())
+            for name, (got, want) in pairs.items()}
+    print(f"{cell}: largest differences from F.batch_norm {gaps}")
+    for got, want in pairs.values():
+        torch.testing.assert_close(got, want)
+    xf = x0.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    torch.testing.assert_close(bn.running_mean, 0.1 * mean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * var, rtol=1e-5, atol=1e-6)

@@ -6,15 +6,18 @@ batches) are the rows ``aide_tpu.core.mesh.shard_batch`` places on device r
 of an N-device CPU mesh; the launcher's resolution of ``mesh.num_devices``
 0 / 1 / N and its shrink to the batches' gcd; the collectives' backend
 following the device; the refusals of the net and space axes and of a data
-axis asked of a process that ``launch`` did not start; and every helper
-the identity at world size 1, so a single process runs the single-card
-code. The ranks themselves run in tests/test_torch_multidevice.py.
+axis asked of a process that ``launch`` did not start; every helper the
+identity at world size 1, so a single process runs the single-card code;
+and there a train-mode BatchNorm equal to ``F.batch_norm``, folding flax's
+running statistics with no collective. The ranks themselves run in
+tests/test_torch_multidevice.py.
 """
 
 import jax
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from aide_tpu.core import mesh as jmesh
 from aide_tpu.core.config import MeshConfig as JMeshConfig
@@ -194,3 +197,46 @@ def test_world_of_one_is_the_identity():
     mesh.all_reduce_grads([x])
     assert torch.equal(x.grad, g) and mesh.collectives == 0
     assert not mesh.rows_sharded(8) and mesh.local_rows(8) == slice(None)
+
+
+def _flax_fold(x, momentum=0.1):
+    """flax's running statistics after one fold from (0, 1): the biased
+    variance as E[x^2] - E[x]^2, in x's dtype."""
+    mean = x.mean(dim=(0, 2, 3))
+    var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    return momentum * mean, (1 - momentum) + momentum * var
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("global_stats", [False, True])
+def test_world_of_one_batch_norm_is_f_batch_norm(dtype, global_stats):
+    """At world size 1 a train-mode BatchNorm, inside ``global_batch_stats``
+    or not, gives ``F.batch_norm``'s output and gradients on a channels_last
+    batch within its dtype's rounding, folds flax's biased-variance running
+    statistics, and runs no collective."""
+    gen = torch.Generator().manual_seed(5)
+    x0 = (torch.randn(3, 6, 5, 7, generator=gen, dtype=dtype) * 2
+          + torch.arange(6, dtype=dtype).view(1, 6, 1, 1) - 2)
+    gy = torch.randn(x0.shape, generator=gen, dtype=dtype)
+    w0, b0 = (torch.randn(6, generator=gen, dtype=dtype) for _ in range(2))
+    x, xr = (x0.clone().contiguous(memory_format=torch.channels_last).requires_grad_()
+             for _ in range(2))
+    bn = BatchNorm(6).to(dtype).train()
+    with torch.no_grad():
+        bn.weight.copy_(w0)
+        bn.bias.copy_(b0)
+    wr, br = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+    mesh.reset_collectives()
+    with global_batch_stats(global_stats):
+        y = bn(x)
+        (y * gy).sum().backward()
+    assert mesh.collectives == 0
+    yr = F.batch_norm(xr, None, None, wr, br, True, 0.0, bn.eps)
+    (yr * gy).sum().backward()
+    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    for got, want in ((y, yr), (x.grad, xr.grad), (bn.weight.grad, wr.grad),
+                      (bn.bias.grad, br.grad)):
+        torch.testing.assert_close(got, want)
+    mean, var = _flax_fold(x0)
+    torch.testing.assert_close(bn.running_mean, mean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(bn.running_var, var, rtol=1e-5, atol=1e-6)
